@@ -1,0 +1,50 @@
+"""State carried between the JAX package and the port as plain numpy.
+
+A caller turns the JAX tracker's state into numpy (`np.asarray` on each
+leaf) and loads it here, or the reverse; fields are matched by name, so
+neither side imports the other.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gdslam_tpu_torch.backend.map_arena import MapArena
+from gdslam_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig, TrackingConfig
+from gdslam_tpu_torch.frontend.frame import Frame
+from gdslam_tpu_torch.system.tracking import FrameState
+
+
+def _to_torch(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def arena_from_numpy(d: dict, device="cuda") -> MapArena:
+    """MapArena from a {field: array} dict (every MapArena field)."""
+    return MapArena(**{k: _to_torch(d[k], device) for k in MapArena._fields})
+
+
+def arena_to_numpy(arena: MapArena) -> dict:
+    return {k: getattr(arena, k).cpu().numpy() for k in MapArena._fields}
+
+
+def frame_state_from_numpy(d: dict, device="cuda") -> FrameState:
+    """FrameState from a dict of the Frame fields plus `T_cw` and `assoc`."""
+    frame = Frame(**{k: _to_torch(d[k], device) for k in Frame._fields})
+    return FrameState(frame=frame, T_cw=_to_torch(d["T_cw"], device),
+                      assoc=_to_torch(d["assoc"], device))
+
+
+def frame_state_to_numpy(fs: FrameState) -> dict:
+    d = {k: getattr(fs.frame, k).cpu().numpy() for k in Frame._fields}
+    d["T_cw"] = fs.T_cw.cpu().numpy()
+    d["assoc"] = fs.assoc.cpu().numpy()
+    return d
+
+
+def config_from_jax_dict(d: dict) -> SlamConfig:
+    """SlamConfig from `dataclasses.asdict` of the JAX package's SlamConfig;
+    sections the port does not have yet (geomask, geometry) are ignored."""
+    return SlamConfig(camera=CameraConfig(**d["camera"]), orb=OrbConfig(**d["orb"]),
+                      tracking=TrackingConfig(**d["tracking"]))

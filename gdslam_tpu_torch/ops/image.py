@@ -1,0 +1,97 @@
+"""Image primitives: separable Gaussian blur, bilinear resize, pyramid
+(port of gdslam_tpu.ops.image).
+
+Replaces the reference's cv::resize INTER_LINEAR pyramid (scale 1.2,
+8 levels; ORBextractor.cc:1107-1132) and the 7x7 sigma-2 GaussianBlur
+before descriptor computation (ORBextractor.cc:1085-1086). All levels live
+in one [L, H, W] canvas with per-level valid sizes, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
+    """Matches cv::getGaussianKernel semantics (normalized), float32."""
+    half = (ksize - 1) / 2.0
+    x = np.arange(ksize) - half
+    k = np.exp(-(x * x) / (2.0 * sigma * sigma))
+    k /= k.sum()
+    return k.astype(np.float32)
+
+
+def _reflect_pad(x: torch.Tensor, pad: int, dim: int) -> torch.Tensor:
+    """numpy 'reflect' padding (edge not repeated) along one dim."""
+    n = x.shape[dim]
+    idx = torch.cat([torch.arange(pad, 0, -1), torch.arange(n),
+                     torch.arange(n - 2, n - 2 - pad, -1)]).to(x.device)
+    return x.index_select(dim, idx)
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
+    """Separable Gaussian blur on [..., H, W] with reflect padding: a sum of
+    ksize shifted slices per axis, taps added in order (no convolution
+    library call, so no TF32 and the JAX package's summation order)."""
+    k = [float(v) for v in gaussian_kernel_1d(ksize, sigma)]
+    pad = ksize // 2
+    H, W = img.shape[-2], img.shape[-1]
+    x = _reflect_pad(img, pad, img.ndim - 2)
+    out = 0
+    for i in range(ksize):
+        out = out + x[..., i:i + H, :] * k[i]
+    x = _reflect_pad(out, pad, img.ndim - 1)
+    out = 0
+    for i in range(ksize):
+        out = out + x[..., :, i:i + W] * k[i]
+    return out
+
+
+def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] 1-D linear-interpolation matrix (pixel-center aligned,
+    cv::resize INTER_LINEAR semantics)."""
+    s = n_in / n_out
+    x = (np.arange(n_out) + 0.5) * s - 0.5
+    x0 = np.clip(np.floor(x).astype(np.int64), 0, n_in - 1)
+    x1 = np.clip(x0 + 1, 0, n_in - 1)
+    f = np.clip(x - x0, 0.0, 1.0)
+    M = np.zeros((n_out, n_in), np.float32)
+    M[np.arange(n_out), x0] += 1.0 - f
+    M[np.arange(n_out), x1] += f
+    return M
+
+
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """cv::resize INTER_LINEAR-compatible resize: R @ img @ C^T with the
+    static interpolation matrices (rows first, as the JAX einsum contracts)."""
+    H, W = img.shape
+    R = torch.from_numpy(_interp_matrix(H, out_h)).to(img.device)
+    C = torch.from_numpy(_interp_matrix(W, out_w)).to(img.device)
+    return (R @ img) @ C.T
+
+
+def pyramid_shapes(height: int, width: int, n_levels: int, scale: float):
+    """Per-level (h, w) using the reference's rounding (ORBextractor.cc:1110)."""
+    shapes = []
+    for lv in range(n_levels):
+        inv = 1.0 / (scale ** lv)
+        shapes.append((int(round(height * inv)), int(round(width * inv))))
+    return shapes
+
+
+def build_pyramid(img: torch.Tensor, height: int, width: int,
+                  n_levels: int = 8, scale: float = 1.2) -> tuple[torch.Tensor, tuple]:
+    """Build the scale pyramid into one [L, H, W] canvas; level lv occupies
+    the top-left (h_lv, w_lv) region, the rest is zero. Each level is
+    resized from the previous one (the reference's successive cv::resize)."""
+    shapes = pyramid_shapes(height, width, n_levels, scale)
+    canvas = torch.zeros((n_levels, height, width), dtype=img.dtype, device=img.device)
+    canvas[0] = img
+    prev = img
+    for lv in range(1, n_levels):
+        h, w = shapes[lv]
+        level = resize_bilinear(prev, h, w)
+        canvas[lv, :h, :w] = level
+        prev = level
+    return canvas, tuple(shapes)

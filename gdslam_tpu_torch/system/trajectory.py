@@ -1,0 +1,24 @@
+"""Trajectory file writer, byte-compatible with the reference's TUM format
+(`timestamp tx ty tz qx qy qz qw`; System::SaveTrajectoryTUM,
+System.cc:418-513). Port of gdslam_tpu.system.trajectory.save_tum."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gdslam_tpu_torch.core import lie
+
+
+def _tum_line(ts: float, T_wc: np.ndarray) -> str:
+    t = T_wc[:3, 3]
+    q = lie.mat_to_quat(torch.from_numpy(np.array(T_wc[:3, :3], np.float32))).numpy()
+    return (f"{ts:.6f} {t[0]:.9g} {t[1]:.9g} {t[2]:.9g} "
+            f"{q[0]:.9g} {q[1]:.9g} {q[2]:.9g} {q[3]:.9g}\n")
+
+
+def save_tum(path: str, trajectory) -> None:
+    """trajectory: iterable of (timestamp, T_wc 4x4)."""
+    with open(path, "w") as f:
+        for ts, T in trajectory:
+            f.write(_tum_line(ts, np.asarray(T)))
