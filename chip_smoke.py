@@ -3,30 +3,46 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from gdslam_tpu_torch/csrc/ into build/kernels/,
+    python3 chip_smoke.py --ab-source old/match_top2.cu
+
+Builds the port's CUDA kernels from gdslam_tpu_torch/csrc/ into build/kernels/,
 then prints one JSON line per phase:
 
   device   the card (torch and nvidia-smi);
-  build    the nvcc build, timed, and what ptxas reports for the kernel;
+  build    the nvcc build, timed, and what ptxas reports for the kernels;
   kernel   match_top2 (CUDA) against match_top2_plain (PyTorch) on the card,
-           exactly, at (M, N) = (1500, 1500) and (4096, 1500), on seeded
-           random and on rendered-frame inputs, with both versions' times;
+           exactly, with the kernel choosing its path and with each path
+           forced: seeded random and rendered-frame inputs at (M, N) =
+           (1500, 1500) and (4096, 1500), and the inputs a cell walk can get
+           wrong (clustered keypoints, cell and image borders, radii of 0,
+           one cell, beyond the image, mixed per row, ties across cells,
+           invalid and empty sides, non-finite values); the keypoint grid
+           against kp_grid_plain; both versions' times;
   slice    60 rendered 480x640 frames through System.track_rgbd at the
            SlamConfig() defaults (kmax=256, pmax=65536, no local BA, no
            triangulation): every frame OK, ATE against the renderer's ground
            truth, keyframes, and the kernel's launches on this path;
   stages   per-stage times on the slice's final state, and the kernel timed
-           against its bound on the inputs the tracker gives it;
+           against its bounds and the launch floor on the inputs the tracker
+           gives it at its three call sites;
   profile  torch.profiler windows over whole frames and over one pose
            solve: device busy share, device operations, host operators.
 
 Then the card's name and power limit as nvidia-smi gives them, the kernels
 line and, last, the ok line. Without a card, or when any phase fails, it
 exits non-zero and prints no ok line.
+
+--ab-source names an earlier version of the kernel's source (one
+match_top2_launch with the first version's 17 arguments). It is built
+beside the current one; the stages phase then times old, new, new, old at
+each call site, and the slice is run a second time on the old kernel and
+must give the same trajectory, keyframes and map points.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -147,6 +163,87 @@ def frame_args(torch, cand_frames, kp_frame, M, base_radius):
                      kp_frame.uv, kp_frame.desc, kp_frame.level, kp_frame.valid)
 
 
+def special_cases(torch, dev) -> dict:
+    """Inputs that a walk over image cells can get wrong and an all-pairs
+    walk cannot. A tenth element, where present, is the level slack."""
+    W, H = 640.0, 480.0
+    g = torch.Generator(device="cpu").manual_seed(7)
+
+    def rnd(*shape):
+        return torch.rand(*shape, generator=g).to(dev)
+
+    def base(M=1500, N=1500, seed=3):
+        return list(random_args(torch, M, N, seed, dev))
+
+    cases = {}
+    a = base()                                  # every keypoint in one small patch
+    a[5] = 300.0 + 2.0 * rnd(1500, 2)
+    a[0][:800] = 300.0 + 2.0 * rnd(800, 2)
+    cases["clustered_patch"] = a
+    a = base()                                  # every keypoint on one point: one cell
+    a[5] = torch.tensor([320.0, 240.0], device=dev).repeat(1500, 1)
+    a[0][:800] = a[5][:800] + 20.0 * (rnd(800, 2) - 0.5)
+    cases["clustered_point"] = a
+    a = base()            # keypoints and rows on cell borders (32 x 24 cells of 20 px) and image borders
+    xs, ys = torch.arange(0, 33, device=dev) * 20.0, torch.arange(0, 25, device=dev) * 20.0
+    lattice = torch.cartesian_prod(xs, ys)                           # 825 points
+    a[5][:825], a[0][:825] = lattice, lattice.flip(0)
+    a[0][825:1200] = lattice[:375] + torch.tensor([20.0, 0.0], device=dev)
+    a[2] = torch.tensor([0.0, 20.0, 20.000002, 19.999998, 28.284271], device=dev)[
+        torch.arange(1500, device=dev) % 5]
+    a[4][:1200], a[8][:825] = True, True
+    cases["borders"] = a
+    a = base()                                  # only coincident pairs pass
+    a[2] = torch.zeros_like(a[2])
+    a[0][:700], a[3][:700] = a[5][:700], a[7][:700]
+    cases["radius_0"] = a
+    a = base()
+    a[2] = torch.full_like(a[2], 20.0)
+    cases["radius_one_cell"] = a
+    a = base()                                  # the all-pairs callers' shape
+    a[2] = torch.full_like(a[2], 1000.0)
+    cases["dense_1500x1500"] = a
+    cases["dense_1500x1500_any_level"] = a + [7]
+    for rad in (100.0, 150.0):                  # between the two regimes
+        a = base()
+        a[2] = torch.full_like(a[2], rad)
+        cases[f"radius_{int(rad)}_1500x1500"] = a
+    a = base(4096, 1500, 4)
+    a[2] = torch.tensor([0.0, 1.0, 20.0, 90.0, 1e4, float("inf")], device=dev)[
+        torch.randint(0, 6, (4096,), generator=g).to(dev)]
+    cases["radius_mixed_4096x1500"] = a
+    a = base()                                  # four descriptors in all: ties across cells
+    four = torch.randint(0, 256, (4, 32), generator=g, dtype=torch.uint8).to(dev)
+    a[1] = four[torch.randint(0, 4, (1500,), generator=g).to(dev)]
+    a[6] = four[torch.randint(0, 4, (1500,), generator=g).to(dev)]
+    a[2] = torch.full_like(a[2], 60.0)
+    cases["ties_across_cells"] = a
+    cases["level_slack_0"] = base() + [0]
+    a = base()
+    a[4] = torch.zeros_like(a[4])
+    cases["cand_all_invalid"] = a
+    a = base()
+    a[8] = torch.zeros_like(a[8])
+    cases["kp_all_invalid"] = a
+    a = base()
+    a[5][::7, 0], a[5][3::7, 1], a[5][5::7] = float("nan"), float("inf"), -float("inf")
+    a[0][::6, 0], a[0][2::6, 1] = float("nan"), float("inf")
+    a[2][4::6], a[2][5::12], a[2][1::6] = float("inf"), float("nan"), 1e30
+    cases["non_finite"] = a
+    a = base()                                  # off-image rows whose window reaches the image
+    a[0][::4] = a[0][::4] * 1e4 - 2e6
+    a[2][::4] = 3e6
+    a[5][::5] = a[5][::5] * -1e3
+    cases["far_away"] = a
+    cases["N_1"] = base(1500, 1, 5)
+    cases["M_1"] = base(1, 1500, 6)
+    cases["N_750"] = base(4096, 750, 8)
+    cases["M_0"] = [x[:0] for x in a[:5]] + a[5:]
+    cases["N_0"] = a[:5] + [x[:0] for x in a[5:]]
+    cases["M_33_N_100"] = base(33, 100, 9)
+    return {k: tuple(top2_args(torch, *v[:9])) + tuple(v[9:]) for k, v in cases.items()}
+
+
 def pairs_in_window(torch, args) -> int:
     uv_c, _, rad_c, lvl_c, val_c, uv_k, _, lvl_k, val_k = args[:9]
     slack = args[9] if len(args) > 9 else 1
@@ -157,49 +254,220 @@ def pairs_in_window(torch, args) -> int:
     return int(ok.sum())
 
 
-def top2_bound(torch, args) -> dict:
-    """Least time for the work these inputs need: every (m, n) pair takes the
-    radius test (2 sub, 2 mul, 1 add, 1 compare in f32) and the level and
-    validity tests (sub, abs, compare, 2 and: int32); only pairs inside the
-    window need the Hamming cost and the top-2 update (8 xor + 8 popc + 7
-    add + 2 compare: int32). Bytes: each input read once (48 B per candidate
-    row with 1 B validity, 45 B per keypoint), each output written once."""
+def boxed_keypoints(torch, mk, args) -> int:
+    """Keypoints in the cells of every row's box, summed over the rows: the
+    pairs an ideal cell walk examines. From the plain versions of the grid
+    and the boxes, on the card."""
+    grid = mk.kp_grid_plain(args[5], *mk.GRID_CELLS)
+    boxes, skip = mk.cand_boxes_plain(args[0], args[2], args[4], grid)
+    counts = (grid.cell_start[1:] - grid.cell_start[:-1]).view(grid.gy, grid.gx).long()
+    integ = torch.nn.functional.pad(counts.cumsum(0).cumsum(1), (1, 0, 1, 0))
+    cx0, cx1, cy0, cy1 = boxes.long().unbind(1)
+    n = integ[cy1 + 1, cx1 + 1] - integ[cy0, cx1 + 1] - integ[cy1 + 1, cx0] + integ[cy0, cx0]
+    return int(torch.where(skip, 0, n).sum())
+
+
+def top2_bound(torch, mk, args) -> dict:
+    """Least time for the work these inputs need, two ways. `bound_ms`: a
+    pair takes the window test (2 sub, 2 mul, 1 add, 1 compare in f32; sub,
+    abs, compare, 2 and in int32) only if an ideal walk over the image cells
+    examines it (its keypoint lies in a cell that the row's window box
+    touches), and a pair inside the window the Hamming cost and the top-2
+    update (8 xor + 8 popc + 7 add + 2 compare: int32).
+    `bound_all_pairs_ms`: the same with the window test charged to every one
+    of the M x N pairs. Bytes in both: each input read once (48 B per
+    candidate row with 1 B validity, 45 B per keypoint), each output written
+    once."""
     M, N = args[0].shape[0], args[5].shape[0]
-    inside = pairs_in_window(torch, args)
-    f32_ops = 6 * M * N
-    int_ops = 5 * M * N + 25 * inside
+    inside, boxed = pairs_in_window(torch, args), boxed_keypoints(torch, mk, args)
     nbytes = M * (8 + 32 + 4 + 4 + 1) + N * (8 + 32 + 4 + 1) + 3 * 4 * N + 4 * M
-    t_ops = max(f32_ops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    return dict(pairs=M * N, pairs_in_window=inside, f32_ops=f32_ops, int32_ops=int_ops,
-                bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+    def ops(tested):
+        return max(6 * tested / F32_OPS_PER_S, (5 * tested + 25 * inside) / INT32_OPS_PER_S)
+
+    return dict(pairs=M * N, pairs_in_window=inside, pairs_boxed=boxed, bytes=nbytes,
+                int32_ops=5 * boxed + 25 * inside, f32_ops=6 * boxed,
+                bound_ms=max(ops(boxed), t_bytes) * 1e3,
+                bound_by="operations" if ops(boxed) >= t_bytes else "bytes",
+                bound_all_pairs_ms=max(ops(M * N), t_bytes) * 1e3)
 
 
-def compare_top2(torch, mk, args) -> int:
-    """Kernel vs plain version on the same card inputs; every output must be
-    exactly equal (the costs are integers). Returns the max abs difference."""
-    before = mk.match_top2.launches
-    got = mk.match_top2(*args)
-    torch.cuda.synchronize()
-    if mk.match_top2.launches != before + 1:
-        fail("match_top2 did not count its launch")
+def compare_top2(torch, mk, args, paths=(None, "cells", "tiled")) -> tuple[int, dict]:
+    """Kernel vs plain version on the same card inputs, with the kernel
+    choosing its path and with each path forced; every output must be
+    exactly equal (the costs are integers). Returns the max abs difference
+    and what the choosing call did."""
     want = mk.match_top2_plain(*args)
-    err = 0
-    for name, g, w in zip(("best", "second", "arg", "best_cand"), got, want):
-        if g.dtype != torch.int32 or g.shape != w.shape:
-            fail(f"match_top2 {name}: {g.dtype} {tuple(g.shape)} vs {tuple(w.shape)}")
-        d = int((g.long() - w.long()).abs().max()) if g.numel() else 0
-        if d != 0:
-            fail(f"match_top2 {name} differs from the plain version by up to {d}")
-        err = max(err, d)
-    return err
+    err, info = 0, None
+    for path in paths:
+        before = mk.match_top2.launches
+        got = mk.match_top2(*args, path=path)
+        torch.cuda.synchronize()
+        if mk.match_top2.launches != before + 1:
+            fail("match_top2 did not count its launch")
+        call = mk.last_call()
+        if path is None:
+            info = call
+            boxed = boxed_keypoints(torch, mk, args)
+            if call["boxed_keypoints"] != boxed:
+                fail(f"the kernel's boxes hold {call['boxed_keypoints']} keypoints, "
+                     f"the plain version's {boxed}")
+        elif call["path"] != path:
+            fail(f"match_top2 took the {call['path']} path when {path} was forced")
+        for name, g, w in zip(("best", "second", "arg", "best_cand"), got, want):
+            if g.dtype != torch.int32 or g.shape != w.shape:
+                fail(f"match_top2 {name}: {g.dtype} {tuple(g.shape)} vs {tuple(w.shape)}")
+            d = int((g.long() - w.long()).abs().max()) if g.numel() else 0
+            if d != 0:
+                fail(f"match_top2 {name} ({path or 'chosen'} path) differs from the plain "
+                     f"version by up to {d}")
+            err = max(err, d)
+    return err, info
 
 
-def time_top2(torch, mk, args) -> dict:
-    ms = cuda_ms(torch, lambda: mk.match_top2(*args), reps=200)
-    plain_ms = cuda_ms(torch, lambda: mk.match_top2_plain(*args), reps=10, windows=3)
-    return dict(ms=ms, plain_ms=plain_ms)
+def check_grid(torch, mk, kp_uv) -> None:
+    """The grid kernel against kp_grid_plain: the same header and cell
+    starts bit for bit, and the same keypoints in every cell (the kernel
+    leaves the order inside a cell open)."""
+    got, want = mk.kp_grid(kp_uv, *mk.GRID_CELLS), mk.kp_grid_plain(kp_uv, *mk.GRID_CELLS)
+    torch.cuda.synchronize()
+    N = kp_uv.shape[0]
+    if not (torch.equal(got.hdr, want.hdr) and torch.equal(got.cell_start, want.cell_start)):
+        fail(f"kp_grid header or cell starts differ: {got.hdr.tolist()} vs {want.hdr.tolist()}")
+    cell = torch.searchsorted(got.cell_start[1:].long().contiguous(),
+                              torch.arange(N, device=kp_uv.device), right=True)
+    canon = got.kp_order.long()[torch.argsort(cell * max(N, 1) + got.kp_order.long())]
+    if not torch.equal(canon, want.kp_order.long()):
+        fail("kp_grid puts other keypoints into a cell than the plain version")
+    if not torch.equal(got.sorted_uv.nan_to_num(), kp_uv[got.kp_order.long()].nan_to_num()):
+        fail("kp_grid's sorted positions are not kp_uv[kp_order]")
+
+
+def launch_call(torch, mk, args):
+    """The C launch behind one wrapper call, to be repeated without the
+    wrapper: (function, its arguments up to the device index, what to keep
+    alive while it is repeated: the outputs and the keypoint grid)."""
+    seen, real = [], mk._launch
+
+    def spy(device, fn, *a):
+        seen.append((fn, a))
+        return real(device, fn, *a)
+
+    mk._launch = spy
+    try:
+        keep = (mk.match_top2(*args), mk.match_top2.last, mk._grid_cache)
+    finally:
+        mk._launch = real
+    fn, a = seen[-1]                             # a grid launch, if any, came first
+    return fn, a, keep
+
+
+def graph_ms(torch, fn, a, calls: int = 20) -> float:
+    """Device time per call with no host in the way: `calls` launches
+    captured into one CUDA graph and replayed."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(calls):
+            if fn(*a, torch.cuda.current_device(), stream) != 0:
+                fail("a launch failed under graph capture")
+    return cuda_ms(torch, g.replay, reps=20) / calls
+
+
+def time_top2(torch, mk, args, plain: bool = True) -> dict:
+    """ms: through the wrapper, as a caller pays it, grid cached; first_call_ms:
+    the same with the keypoint grid built anew every call; launch_ms: the C
+    entry point alone (no wrapper); device_ms: the same replayed from a CUDA
+    graph (no host); cells_ / tiled_device_ms: each path forced;
+    no_match_device_ms: the two launches with the matching itself skipped
+    (empty states, boxes, ticket, decode); grid_ms and
+    grid_device_ms: the grid kernel alone, through its wrapper and from a
+    graph."""
+    def first_call():
+        mk._grid_cache = None
+        mk.match_top2(*args)
+
+    lib, dev = mk._load_library(), torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = dict(ms=cuda_ms(torch, lambda: mk.match_top2(*args), reps=200),
+               cuda_launches_per_call=mk.match_top2.last[1],
+               first_call_ms=cuda_ms(torch, first_call, reps=200),
+               cuda_launches_first_call=mk.match_top2.last[1],
+               grid_ms=cuda_ms(torch, lambda: mk.kp_grid(args[5]), reps=200))
+    fn, a, keep = launch_call(torch, mk, args)
+    grid = keep[2][2]
+    out.update(launch_ms=cuda_ms(torch, lambda: fn(*a, dev, stream), reps=200),
+               device_ms=graph_ms(torch, fn, a),
+               cells_device_ms=graph_ms(torch, fn, a[:-1] + (0,)),
+               tiled_device_ms=graph_ms(torch, fn, a[:-1] + (1,)),
+               no_match_device_ms=graph_ms(torch, fn, a[:-1] + (2,)),
+               grid_device_ms=graph_ms(torch, lib.kp_grid_launch,
+                                       (args[5].data_ptr(), args[5].shape[0], grid.gx, grid.gy,
+                                        grid.hdr.data_ptr())))
+    if plain:
+        out["plain_ms"] = cuda_ms(torch, lambda: mk.match_top2_plain(*args), reps=10, windows=3)
+    del keep
+    return out
+
+
+def launch_floor(torch, mk) -> dict:
+    """An empty kernel through the same ctypes path, k per call: what k
+    launches cost before any work, as the host issues them (launch_floor_ms)
+    and replayed from a CUDA graph (launch_floor_device_ms)."""
+    lib, dev = mk._load_library(), torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for k in (1, 2, 3):
+        out[f"launch_floor_ms_{k}"] = cuda_ms(torch, lambda: lib.empty_launch(k, dev, stream),
+                                              reps=200)
+        out[f"launch_floor_device_ms_{k}"] = graph_ms(torch, lib.empty_launch, (k,))
+    return out
+
+
+class OldKernel:
+    """An earlier version of the kernel, built from `source` (one entry point
+    match_top2_launch taking the inputs, M, N, the slack, four outputs and the
+    stream), behind the wrapper's signature."""
+
+    def __init__(self, torch, mk, source: Path):
+        self.torch = torch
+        so = mk.BUILD_DIR / "libmatch_top2_ab.so"
+        mk.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([mk._nvcc(), *mk.NVCC_FLAGS, "-o", str(so), str(source)], check=True,
+                       capture_output=True, text=True, timeout=600)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        self.fn = ctypes.CDLL(str(so)).match_top2_launch
+        self.fn.argtypes = [p, p, p, p, p, i, p, p, p, p, i, i, p, p, p, p, p]
+        self.fn.restype = i
+
+    def _launch_args(self, args):
+        torch = self.torch
+        ins, slack = args[:9], (args[9] if len(args) > 9 else 1)
+        M, N, dev = ins[0].shape[0], ins[5].shape[0], ins[0].device
+        outs = [torch.empty(n, dtype=torch.int32, device=dev) for n in (N, N, N, M)]
+        return (*(t.data_ptr() for t in ins[:5]), M, *(t.data_ptr() for t in ins[5:]), N,
+                int(slack), *(t.data_ptr() for t in outs)), tuple(outs)
+
+    def __call__(self, *args, path=None):
+        a, outs = self._launch_args(args)
+        err = self.fn(*a, self.torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"the old kernel's launch failed with CUDA error {err}")
+        return outs
+
+    def device_ms(self, args, calls: int = 20) -> float:
+        """As graph_ms: the old kernel's launches replayed from a CUDA graph."""
+        torch = self.torch
+        a, outs = self._launch_args(args)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            stream = torch.cuda.current_stream().cuda_stream
+            for _ in range(calls):
+                self.fn(*a, stream)
+        ms = cuda_ms(torch, g.replay, reps=20) / calls
+        del outs
+        return ms
 
 
 # ----------------------------------------------------------------------------
@@ -221,20 +489,40 @@ def phase_build(mk) -> dict:
                 nvcc_flags=list(mk.NVCC_FLAGS), ptxas=ptxas)
 
 
-def phase_kernel(torch, mk, frames, dev) -> tuple[dict, int]:
+def phase_kernel(torch, mk, frames, dev, old=None) -> tuple[dict, int]:
     cases = {
         "random_1500x1500": random_args(torch, 1500, 1500, 1, dev),
         "random_4096x1500": random_args(torch, 4096, 1500, 2, dev),
         "frames_1500x1500": frame_args(torch, frames[:1], frames[1], 1500, 15.0),
         "frames_4096x1500": frame_args(torch, frames[::2], frames[1], 4096, 12.0),
+        **special_cases(torch, dev),
     }
+    timed = ("random_1500x1500", "random_4096x1500", "frames_1500x1500", "frames_4096x1500",
+             "dense_1500x1500", "radius_100_1500x1500", "radius_150_1500x1500",
+             "radius_mixed_4096x1500", "N_750")
     out, err = {}, 0
     for name, args in cases.items():
-        err = max(err, compare_top2(torch, mk, args))
-        out[name] = dict(M=args[0].shape[0], N=args[5].shape[0], exact=True,
-                         keypoints_with_candidate=int((mk.match_top2(*args)[2] >= 0).sum()),
-                         **time_top2(torch, mk, args))
-    return dict(phase="kernel", name="match_top2", max_abs_err=err, cases=out), err
+        check_grid(torch, mk, args[5])
+        e, info = compare_top2(torch, mk, args)
+        err = max(err, e)
+        out[name] = dict(M=args[0].shape[0], N=args[5].shape[0], exact=True, path=info["path"],
+                         pairs_boxed=info["boxed_keypoints"],
+                         keypoints_with_candidate=int((mk.match_top2(*args)[2] >= 0).sum()))
+        if name in timed:
+            out[name].update(time_top2(torch, mk, args), **top2_bound(torch, mk, args))
+            if old is not None:
+                out[name].update(old_ms=cuda_ms(torch, lambda: old(*args), reps=200),
+                                 old_device_ms=old.device_ms(args))
+    bad = None
+    try:
+        mk.match_top2(*(x[:1].expand(mk.MAX_ROWS, *x.shape[1:]) if i < 5 else x
+                        for i, x in enumerate(cases["N_1"])))
+    except ValueError as e:
+        bad = str(e)
+    if bad is None or "rows" not in bad:
+        fail("match_top2 took 2^20 candidate rows")
+    return dict(phase="kernel", name="match_top2", max_abs_err=err, cases=out,
+                **launch_floor(torch, mk)), err
 
 
 def ate_pair(torch, synthetic, metrics, traj, frames_T_wc) -> dict:
@@ -253,16 +541,16 @@ def ate_pair(torch, synthetic, metrics, traj, frames_T_wc) -> dict:
 
 
 def phase_slice(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, dev,
-                keyframes):
+                keyframes, label="slice"):
     """Every frame through the user's entry point, System.track_rgbd, with
-    the kernel's launch count set to 0 just before and read just after."""
+    the kernel's launch counts set to 0 just before and read just after."""
     n = len(frames)
     slam = System(cfg, kmax=256, pmax=65536, device=dev)
     tr = slam.tracker
     if tr.use_local_ba or tr.use_triangulation or tr.pipeline:
         fail("the slice runs without local BA, triangulation or pipelining")
     torch.cuda.reset_peak_memory_stats()
-    mk.match_top2.launches = 0
+    mk.match_top2.launches = mk.match_top2.cuda_launches = mk.kp_grid.launches = 0
     times, states = [], []
     for i, fr in enumerate(frames):
         torch.cuda.synchronize()
@@ -273,15 +561,17 @@ def phase_slice(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, 
         states.append(slam.tracking_state)
         if T.shape != (4, 4) or not np.isfinite(T).all():
             fail(f"frame {i}: pose is not a finite 4x4")
-    launches = mk.match_top2.launches
+    launches, cuda_launches = mk.match_top2.launches, mk.match_top2.cuda_launches
+    grids = mk.kp_grid.launches
     traj = tr.camera_trajectory()
     ates = ate_pair(torch, synthetic, metrics, traj, [f.T_wc.cpu().numpy() for f in frames])
     steady = sorted(times[WARMUP_FRAMES:])
-    res = dict(phase="slice", frames=n, width=cfg.camera.width, height=cfg.camera.height,
+    res = dict(phase=label, frames=n, width=cfg.camera.width, height=cfg.camera.height,
                n_features=cfg.orb.n_features, n_levels=cfg.orb.n_levels, kmax=256, pmax=65536,
                all_ok=all(s == TrackState.OK for s in states),
                trajectory_len=len(traj), keyframes=slam.keyframe_count,
                map_points=slam.map_point_count, match_top2_launches=launches,
+               match_top2_cuda_launches=cuda_launches, kp_grid_launches=grids,
                tracked_frames=n - 1, frame_ms_median=statistics.median(steady),
                frame_ms_p90=steady[int(0.9 * (len(steady) - 1))],
                first_frame_ms=times[0], second_frame_ms=times[1],
@@ -295,9 +585,34 @@ def phase_slice(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, 
         fail(f"ATE {ates} above 0.01 m")
     if not keyframes[0] <= res["keyframes"] <= keyframes[1]:
         fail(f"{res['keyframes']} keyframes, expected {keyframes[0]}-{keyframes[1]}")
-    if launches < 2 * (n - 1):
-        fail(f"match_top2 launched {launches} times for {n - 1} tracked frames")
+    if label == "slice":
+        if launches < 2 * (n - 1):
+            fail(f"match_top2 launched {launches} times for {n - 1} tracked frames")
+        # one grid per tracked frame, shared by its matcher calls
+        if not (grids == n - 1 and cuda_launches == 2 * launches + grids):
+            fail(f"{grids} keypoint grids and {cuda_launches} CUDA launches for {launches} "
+                 f"calls on {n - 1} tracked frames")
     return slam, res
+
+
+def phase_slice_ab(torch, mk, matcher, old, new_slam, new_res, slice_args):
+    """The slice once more on the old kernel: the outputs of both kernels
+    are exact, so the trajectory, keyframes and map points must be equal."""
+    real = matcher.match_top2
+    matcher.match_top2 = old
+    try:
+        old_slam, old_res = phase_slice(torch, mk, *slice_args, label="slice_old_kernel")
+    finally:
+        matcher.match_top2 = real
+    t_new = np.stack([T for _, T in new_slam.tracker.camera_trajectory()])
+    t_old = np.stack([T for _, T in old_slam.tracker.camera_trajectory()])
+    same = dict(trajectory=bool(np.array_equal(t_new, t_old)),
+                keyframes=new_res["keyframes"] == old_res["keyframes"],
+                map_points=new_res["map_points"] == old_res["map_points"])
+    emit(dict(phase="slice_ab", same=same, old_frame_ms_median=old_res["frame_ms_median"],
+              new_frame_ms_median=new_res["frame_ms_median"]))
+    if not all(same.values()):
+        fail(f"the slice differs between the old and the new kernel: {same}")
 
 
 def record_top2_calls(matcher, fn) -> list:
@@ -316,7 +631,7 @@ def record_top2_calls(matcher, fn) -> list:
     return calls
 
 
-def phase_stages(torch, mk, slam, frame, cfg, modules) -> tuple[dict, dict]:
+def phase_stages(torch, mk, slam, frame, cfg, modules, old=None):
     """Per-stage medians on the slice's final state and the next frame; the
     functions are pure (they return new state), so the state is reused."""
     extractor, build_frame, tracking, optimizer, matcher = modules
@@ -347,10 +662,23 @@ def phase_stages(torch, mk, slam, frame, cfg, modules) -> tuple[dict, dict]:
             ("local_map", lambda: tracking.track_local_map(arena, fr, T1, cfg, assoc1)),
             ("keyframe_fuse", lambda: tracking.fuse_associate(arena, fr, T2, assoc2, cfg))):
         args = record_top2_calls(matcher, fn)[0]
-        err = compare_top2(torch, mk, args)
-        path_calls.append(dict(role=role, M=args[0].shape[0], N=args[5].shape[0],
-                               max_abs_err=err, **time_top2(torch, mk, args),
-                               **top2_bound(torch, args)))
+        err, info = compare_top2(torch, mk, args)
+        call = dict(role=role, M=args[0].shape[0], N=args[5].shape[0], max_abs_err=err,
+                    path=info["path"],
+                    **time_top2(torch, mk, args), **top2_bound(torch, mk, args))
+        if old is not None:                      # old, new, new, old in one run
+            for g, w in zip(old(*args), mk.match_top2_plain(*args)):
+                if not torch.equal(g, w.to(torch.int32)):
+                    fail("the old kernel differs from the plain version")
+            t = [cuda_ms(torch, lambda f=f: f(*args), reps=200)
+                 for f in (old, mk.match_top2, mk.match_top2, old)]
+            call["ab_ms"] = dict(old=[t[0], t[3]], new=[t[1], t[2]])
+            fn, a, keep = launch_call(torch, mk, args)
+            d = [old.device_ms(args), graph_ms(torch, fn, a), graph_ms(torch, fn, a),
+                 old.device_ms(args)]
+            del keep
+            call["ab_device_ms"] = dict(old=[d[0], d[3]], new=[d[1], d[2]])
+        path_calls.append(call)
 
     stages = dict(
         extract=wall_ms(torch, lambda: extractor.extract(frame.gray, cfg.orb, cam.height,
@@ -371,7 +699,7 @@ def phase_stages(torch, mk, slam, frame, cfg, modules) -> tuple[dict, dict]:
     )
     gn_call = lambda: optimizer.pose_optimization(T1, obs, K, cam.bf)      # noqa: E731
     return dict(phase="stages", ms=stages, match_top2_on_path=path_calls,
-                obs_matched=int(matched.sum())), path_calls[1], gn_call
+                obs_matched=int(matched.sum()), **launch_floor(torch, mk)), path_calls[1], gn_call
 
 
 def profile_window(torch, fn, n: int) -> dict:
@@ -422,7 +750,7 @@ def phase_profile(torch, slam, frames, t_first: int, gn_call) -> dict:
                 frames=len(frames), per_pose_optimization=profile_window(torch, gn_call, 1))
 
 
-def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5)) -> int:
+def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5), ab_source=None) -> int:
     """All phases on device `dev` at configuration `cfg`."""
     from gdslam_tpu_torch.backend import optimizer
     from gdslam_tpu_torch.frontend import extractor, matcher
@@ -441,6 +769,7 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5)) -> int:
               tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
               tf32_cudnn=torch.backends.cudnn.allow_tf32))
     emit(phase_build(mk))
+    old = OldKernel(torch, mk, Path(ab_source)) if ab_source else None
 
     cam = cfg.camera
     t0 = time.perf_counter()
@@ -451,14 +780,16 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5)) -> int:
     ones = torch.ones_like(frames[0].gray)
     kframes = [build_frame(extractor.extract(f.gray, cfg.orb, cam.height, cam.width),
                            f.depth, ones, cam) for f in frames[:6]]
-    kres, err = phase_kernel(torch, mk, kframes, dev)
+    kres, err = phase_kernel(torch, mk, kframes, dev, old)
     emit(kres)
 
-    slam, sres = phase_slice(torch, mk, cfg, frames[:n_frames], System, TrackState, synthetic,
-                             metrics, dev, keyframes)
+    slice_args = (cfg, frames[:n_frames], System, TrackState, synthetic, metrics, dev, keyframes)
+    slam, sres = phase_slice(torch, mk, *slice_args)
     launches = sres["match_top2_launches"]
+    if old is not None:
+        phase_slice_ab(torch, mk, matcher, old, slam, sres, slice_args)
     stages, local_map, gn_call = phase_stages(torch, mk, slam, frames[n_frames], cfg,
-                                     (extractor, build_frame, tracking, optimizer, matcher))
+                                     (extractor, build_frame, tracking, optimizer, matcher), old)
     stages["ms"]["whole_frame"] = sres["frame_ms_median"]
     stages["render_s"] = render_s
     emit(stages)
@@ -473,14 +804,22 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5)) -> int:
         "ms": local_map["ms"], "plain_ms": local_map["plain_ms"],
         "bound_ms": local_map["bound_ms"], "bound_by": local_map["bound_by"],
         "library_ms": None,
+        "bound_all_pairs_ms": local_map["bound_all_pairs_ms"],
+        "launch_floor_ms": stages["launch_floor_ms_2"],
+        "cuda_launches_per_call": local_map["cuda_launches_per_call"],
+        "path": local_map["path"], "device_ms": local_map["device_ms"],
+        "first_call_ms": local_map["first_call_ms"], "grid_ms": local_map["grid_ms"],
         "shape": [local_map["M"], local_map["N"]], "role": local_map["role"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
 
 
-
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ab-source", help="an earlier version of the kernel's source to time "
+                    "and to run the slice against")
+    opts = ap.parse_args()
     if not (ROOT / "gdslam_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: gdslam_tpu_torch/ is not beside this script", file=sys.stderr)
         return 2
@@ -491,7 +830,7 @@ def main() -> int:
         return 2
 
     from gdslam_tpu_torch import SlamConfig
-    return run(torch, "cuda", SlamConfig())
+    return run(torch, "cuda", SlamConfig(), ab_source=opts.ab_source)
 
 
 if __name__ == "__main__":

@@ -44,6 +44,15 @@ def refresh_points(arena: ma.MapArena, kf_id: int, cfg: SlamConfig,
     inv = torch.full((W, P + 1), -1, dtype=torch.int64, device=dev)
     inv = inv.scatter_reduce(1, torch.where(obs_w >= 0, obs_w, P).long(),
                              torch.where(obs_w >= 0, kp_iota, -1), "amax")
+    # Column 0 as the JAX package computes it (gdslam_tpu/backend/mapping.py:
+    # 272-276): its scatter sends every unobserved keypoint to point id 0 with
+    # the value -1 and XLA on the CPU applies duplicates in row order, so
+    # inv[w, 0] is the keypoint of the last row that is unobserved or observes
+    # point 0, if that row observes point 0, else -1. (For every other column
+    # "last wins" equals amax: the values are the row indices themselves.)
+    last0 = torch.where(obs_w <= 0, kp_iota, -1).amax(dim=1)         # [W]
+    last0_obs = obs_w.gather(1, last0.clamp(min=0)[:, None])[:, 0]
+    inv[:, 0] = torch.where((last0 >= 0) & (last0_obs == 0), last0, -1)
 
     kp_in_w = inv[:, t_idx]                                          # [W, N]
     has = (kp_in_w >= 0) & row_ok[:, None] & t_ok[None, :]

@@ -14,177 +14,688 @@
 //   keypoints, which the matcher's one-to-one rule needs. No [M, N] matrix is
 //   materialised.
 //
-// Design. One block per tile of 32 keypoints, one keypoint per lane; the
-// block's WARPS warps split the candidate rows (warp w walks rows
-// j = w, w + WARPS, ... of each staged block in ascending order with a strict
-// `<` update, so ties keep the lowest row), and the per-warp top-2 are merged
-// at the end, lowest row first among equal costs. Candidate blocks (uv, r^2,
-// level, 8 descriptor words) are staged through shared memory; every lane of
-// a warp reads the same candidate word, which is a broadcast. The geometric
-// window is tested first; only a row that some lane of the warp can match
-// pays for the descriptor: Hamming is sum(__popc(a ^ b)) over the packed
-// 8 x 32-bit words. On the tracker's inputs under 1% of the pairs fall in
-// the window. best_cand is a warp min-reduction per row followed by one int
-// atomicMin; min commutes, so the result does not depend on the order of
-// the atomics.
+// What bounds it on this card. The tracker's calls have under 1% of their
+// M x N pairs inside the window, and the work a pair inside needs is 8 XOR +
+// 8 POPC + a few adds against (M + N) * 48 bytes of input: microseconds of
+// integer issue, far under what a kernel launch costs. So the design makes
+// the work proportional to the pairs inside the window and keeps the number
+// of launches down, rather than tuning an all-pairs walk.
 //
-// The radius test rounds each product and sum separately (__fmul_rn,
-// __fadd_rn, and the file is built with -fmad=false): a fused multiply-add
-// would round differently from the reference's separate f32 operations, and
-// a pair exactly on the radius could flip.
+// Design.
+//  * kp_grid_kernel (one block, once per frame of keypoints): a counting
+//    sort of the N keypoints by image cell. The cell grid spans the finite
+//    keypoints' bounding box (gx x gy cells); the kernel writes the grid's
+//    origin and inverse cell size, cell_start[cells + 1], kp_order[N] and a
+//    copy of the positions in that order. The three matcher calls of a frame
+//    search the same keypoints, so the wrapper builds the grid once and
+//    reuses it. The order inside a cell is whatever the shared-memory atomics
+//    give; no output of the matcher depends on it.
+//  * prep_kernel (one thread per candidate row / keypoint): writes the empty
+//    top-2 state of every keypoint, each row's box of cells (the bounding
+//    box of uv +- r, widened so rounding can never drop a pair that the exact
+//    test accepts, clamped to the grid; a non-finite row gets the widest box
+//    or is skipped when it cannot match), and the number of keypoints the
+//    boxes hold. No launch exists only to fill a buffer.
+//  * match_top2_kernel picks one of two bodies from that number (a pure
+//    function of the inputs), the same in every block:
+//      - cells: one warp per candidate row. The lanes take the keypoints of
+//        the row's cells (contiguous per cell row after the sort), apply the
+//        exact window test, and only a pair inside pays for the descriptor.
+//        M warps fill the card at any N. best_cand[m] is the warp's own
+//        reduction: no atomic, no fill.
+//      - tiled: the all-pairs walk for wide windows (the dense callers):
+//        32 keypoints per block, one per lane, the candidate rows split over
+//        the warps of a block AND over blocks, so that about four blocks
+//        per SM run. Rows are staged through shared memory in a cp.async
+//        double buffer (descriptors as two uint4 per row: a warp reads one
+//        row at a time, a broadcast without bank conflicts) while the
+//        previous stage is walked.
+//  * Per-keypoint top-2 without order dependence. A keypoint's state is one
+//    64-bit word: key = (cost << 20) | row in the high half, the second
+//    smallest cost in the low half. The smallest key is the lowest cost and,
+//    among equals, the lowest row, so an atomicMin on the key finds best and
+//    arg in any order of arrival. Its return value says which of the two keys
+//    lost, and the loser's cost goes into the low half by a second atomicMin:
+//    every pair but the final winner loses exactly once (when it arrives, or
+//    when a better one displaces it), so the low half ends as the smallest
+//    cost among all pairs but the winner, which is the second smallest
+//    counting duplicates. The last block to finish (a ticket counter) decodes
+//    the states into best / second / arg, so there is no decode launch.
+//  * Latency, not throughput, is what is left: a call is two dependent
+//    launches, and inside each a chain of dependent loads of about half a
+//    microsecond each. The bodies issue their independent loads together and
+//    keep the chains short (the cell rows of a box are swept in one pass; the
+//    decode loads a batch before it stores).
 //
-// Bound on the card: every pair needs the window test (6 f32 + 5 int32
-// operations) and each pair inside the window 8 XOR + 8 POPC + 9 adds and
-// compares, against about (M + N) * 48 bytes of input: it is bound by
-// operations, not bytes (chip_smoke.py computes the bound from each call's
-// data; PERF.md has the numbers). With 32 keypoints per block, N = 1500
-// fills 47 of the card's 132 SMs; splitting the rows across blocks would
-// need a merge pass and is left for later.
+// Not the tensor cores. The TPU kernel turned the Hamming distance into a
+// +-1 int8 matrix product because the MXU is that chip's only fast unit: 256
+// multiply-adds per pair. This card has a population count: a pair is 8 XOR
+// + 8 POPC + 7 adds = 23 integer instructions, ten times fewer operations,
+// and only the pairs inside the window pay them; a dense product would pay
+// for all M x N.
+//
+// The radius test rounds each product and sum separately (__fsub_rn,
+// __fmul_rn, __fadd_rn, and the file is built with -fmad=false): a fused
+// multiply-add would round differently from the reference's separate f32
+// operations, and a pair exactly on the radius could flip.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int BIG = 1 << 20;
-constexpr int KP_TILE = 32;      // keypoints per block: one per lane
-constexpr int WARPS = 16;        // warps per block, each walks 1/WARPS of the rows
-constexpr int THREADS = KP_TILE * WARPS;
-constexpr int CAND_BLK = THREADS;  // candidate rows staged per step: one per thread
-constexpr int DESC_WORDS = 8;    // 256 bits
+constexpr int ROW_BITS = 20;                 // rows < 2^20; cost <= 256 above them
+constexpr unsigned ROW_MASK = (1u << ROW_BITS) - 1u;
+constexpr unsigned NONE = 0xFFFFFFFFu;       // empty key, empty cost
+constexpr unsigned MAX_COST = 256u;
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int KP_TILE = 32;                  // tiled body: keypoints per block
+constexpr int STAGE_ROWS = 128;              // tiled body: rows per stage
+constexpr int ITEMS = 8;                     // cells body: keypoints per lane and sweep
+constexpr int GRID_THREADS = 1024;
+constexpr unsigned SKIP_BOX = 1u;            // cx0 = 1 > cx1 = 0: an empty box
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int PATH_CELLS = 0, PATH_TILED = 1;
+// The cell walk is taken while the boxes hold under 1/DENSE_DIV of the
+// M x N pairs: its time grows with the keypoints in the boxes, the tiled
+// walk's with M x N, and on the H100 they cross between a tenth and a fifth
+// (PERF.md has the timings).
+constexpr unsigned long long DENSE_DIV = 8;
 
-__global__ void fill_kernel(int* __restrict__ p, int n, int v) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) p[i] = v;
+__device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
+
+// Cell coordinate of x on an axis with origin x0 and inverse cell size inv;
+// `nan_cell` is taken when the scaled value is not a number. Monotone in x:
+// rounded subtraction, rounded multiplication by inv >= 0, floor and clamp
+// all keep order.
+__device__ __forceinline__ int cell_coord(float x, float x0, float inv, int g, int nan_cell) {
+  const float t = __fmul_rn(__fsub_rn(x, x0), inv);
+  return (t != t) ? nan_cell : clampi(__float2int_rd(t), 0, g - 1);
+}
+
+// ---------------------------------------------------------------------------
+// Keypoint grid: counting sort by cell, one block.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(GRID_THREADS)
+kp_grid_kernel(const float2* __restrict__ kp_uv, int N, int gx, int gy,
+               float* __restrict__ hdr, int* __restrict__ cell_start,
+               int* __restrict__ kp_order, float2* __restrict__ sorted_uv) {
+  extern __shared__ int s_hist[];            // gx * gy counters, then cursors
+  __shared__ float s_red[4][32];
+  __shared__ float s_hdr[4];
+  __shared__ int s_wtot[32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int cells = gx * gy;
+  const float inf = __int_as_float(0x7f800000);
+
+  // bounding box of the finite keypoints
+  float ulo = inf, uhi = -inf, vlo = inf, vhi = -inf;
+  for (int i = t; i < N; i += GRID_THREADS) {
+    const float2 p = kp_uv[i];
+    if (isfinite(p.x) && isfinite(p.y)) {
+      ulo = fminf(ulo, p.x); uhi = fmaxf(uhi, p.x);
+      vlo = fminf(vlo, p.y); vhi = fmaxf(vhi, p.y);
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    ulo = fminf(ulo, __shfl_xor_sync(FULL, ulo, o));
+    uhi = fmaxf(uhi, __shfl_xor_sync(FULL, uhi, o));
+    vlo = fminf(vlo, __shfl_xor_sync(FULL, vlo, o));
+    vhi = fmaxf(vhi, __shfl_xor_sync(FULL, vhi, o));
+  }
+  if (lane == 0) { s_red[0][warp] = ulo; s_red[1][warp] = uhi; s_red[2][warp] = vlo; s_red[3][warp] = vhi; }
+  for (int c = t; c < cells; c += GRID_THREADS) s_hist[c] = 0;
+  __syncthreads();
+  if (t == 0) {
+    for (int w = 1; w < GRID_THREADS / 32; ++w) {
+      ulo = fminf(ulo, s_red[0][w]); uhi = fmaxf(uhi, s_red[1][w]);
+      vlo = fminf(vlo, s_red[2][w]); vhi = fmaxf(vhi, s_red[3][w]);
+    }
+    const float su = __fsub_rn(uhi, ulo), sv = __fsub_rn(vhi, vlo);
+    // no finite keypoint: origin 0; a zero or non-finite span: one cell
+    s_hdr[0] = (uhi >= ulo) ? ulo : 0.0f;
+    s_hdr[1] = (vhi >= vlo) ? vlo : 0.0f;
+    s_hdr[2] = (su > 0.0f && su < inf) ? __fdiv_rn((float)gx, su) : 0.0f;
+    s_hdr[3] = (sv > 0.0f && sv < inf) ? __fdiv_rn((float)gy, sv) : 0.0f;
+    for (int i = 0; i < 4; ++i) hdr[i] = s_hdr[i];
+  }
+  __syncthreads();
+  const float u0 = s_hdr[0], v0 = s_hdr[1], iu = s_hdr[2], iv = s_hdr[3];
+
+  for (int i = t; i < N; i += GRID_THREADS) {
+    const float2 p = kp_uv[i];
+    atomicAdd(&s_hist[cell_coord(p.y, v0, iv, gy, 0) * gx + cell_coord(p.x, u0, iu, gx, 0)], 1);
+  }
+  __syncthreads();
+
+  // exclusive scan: each thread owns `per` consecutive cells
+  const int per = (cells + GRID_THREADS - 1) / GRID_THREADS;
+  const int c0 = min(t * per, cells), c1 = min(c0 + per, cells);
+  int sum = 0;
+  for (int c = c0; c < c1; ++c) sum += s_hist[c];
+  int incl = sum;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) s_wtot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = s_wtot[lane];
+    int wi = w;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, wi, o);
+      if (lane >= o) wi += y;
+    }
+    s_wtot[lane] = wi - w;                   // exclusive over warps
+  }
+  __syncthreads();
+  int run = s_wtot[warp] + incl - sum;
+  for (int c = c0; c < c1; ++c) {
+    const int n = s_hist[c];
+    s_hist[c] = run;
+    cell_start[c] = run;
+    run += n;
+  }
+  if (t == 0) cell_start[cells] = N;
+  __syncthreads();
+
+  for (int i = t; i < N; i += GRID_THREADS) {
+    const float2 p = kp_uv[i];
+    const int pos = atomicAdd(
+        &s_hist[cell_coord(p.y, v0, iv, gy, 0) * gx + cell_coord(p.x, u0, iu, gx, 0)], 1);
+    kp_order[pos] = i;
+    sorted_uv[pos] = p;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Per call: empty states, row boxes, and how many keypoints the boxes hold.
+// ---------------------------------------------------------------------------
+
+// The half width of a row's box. An accepted pair has |cu - ku| <= r up to
+// three f32 roundings (about r * 2^-22), or du^2 underflowed (|du| < 1e-19);
+// the relative and absolute margins cover those and the rounding of
+// cu -+ R itself, which is at most 2^-24 of |cu| + R.
+__device__ __forceinline__ float box_half_width(float c, float r) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(fabsf(r), 1.00001f), __fmul_rn(fabsf(c), 1e-6f)), 1e-3f);
 }
 
 __global__ void __launch_bounds__(THREADS)
-match_top2_kernel(const float* __restrict__ cand_uv,
-                  const uint32_t* __restrict__ cand_desc,
-                  const float* __restrict__ cand_radius,
-                  const int* __restrict__ cand_level,
-                  const uint8_t* __restrict__ cand_valid, int M,
-                  const float* __restrict__ kp_uv,
-                  const uint32_t* __restrict__ kp_desc,
-                  const int* __restrict__ kp_level,
-                  const uint8_t* __restrict__ kp_valid, int N,
-                  int level_slack,
-                  int* __restrict__ best_out, int* __restrict__ second_out,
-                  int* __restrict__ arg_out, int* __restrict__ best_cand) {
-  __shared__ float s_u[CAND_BLK];
-  __shared__ float s_v[CAND_BLK];
-  __shared__ float s_r2[CAND_BLK];   // radius^2, or -1 for an invalid row
-  __shared__ int s_lvl[CAND_BLK];
-  __shared__ uint32_t s_desc[CAND_BLK][DESC_WORDS];
-  __shared__ int s_best[WARPS][KP_TILE];
-  __shared__ int s_second[WARPS][KP_TILE];
-  __shared__ int s_arg[WARPS][KP_TILE];
+prep_kernel(const float2* __restrict__ cand_uv, const float* __restrict__ cand_radius,
+            const uint8_t* __restrict__ cand_valid, int M, int N,
+            const float* __restrict__ hdr, const int* __restrict__ cell_start,
+            int gx, int gy, unsigned long long* __restrict__ state,
+            unsigned* __restrict__ bc, unsigned* __restrict__ box,
+            unsigned* __restrict__ partial, unsigned* __restrict__ info) {
+  __shared__ unsigned s_sum[WARPS];
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i < N) state[i] = ~0ull;
+  if (i == 0) info[0] = 0u;                  // the ticket counter
+  unsigned examined = 0;
+  if (i < M) {
+    bc[i] = NONE;
+    const float2 c = cand_uv[i];
+    const float r = cand_radius[i];
+    unsigned b = SKIP_BOX;
+    // a row that is invalid or holds a NaN matches nothing
+    if (cand_valid[i] && r == r && c.x == c.x && c.y == c.y) {
+      const float u0 = hdr[0], v0 = hdr[1], iu = hdr[2], iv = hdr[3];
+      const float ru = box_half_width(c.x, r), rv = box_half_width(c.y, r);
+      const int cx0 = cell_coord(__fsub_rn(c.x, ru), u0, iu, gx, 0);
+      const int cx1 = cell_coord(__fadd_rn(c.x, ru), u0, iu, gx, gx - 1);
+      const int cy0 = cell_coord(__fsub_rn(c.y, rv), v0, iv, gy, 0);
+      const int cy1 = cell_coord(__fadd_rn(c.y, rv), v0, iv, gy, gy - 1);
+      b = (unsigned)cx0 | ((unsigned)cx1 << 8) | ((unsigned)cy0 << 16) | ((unsigned)cy1 << 24);
+      for (int cy = cy0; cy <= cy1; ++cy)
+        examined += (unsigned)(cell_start[cy * gx + cx1 + 1] - cell_start[cy * gx + cx0]);
+    }
+    box[i] = b;
+  }
+  examined = __reduce_add_sync(FULL, examined);
+  if ((threadIdx.x & 31) == 0) s_sum[threadIdx.x >> 5] = examined;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned s = 0;
+    for (int w = 0; w < WARPS; ++w) s += s_sum[w];
+    partial[blockIdx.x] = s;
+  }
+}
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int k = blockIdx.x * KP_TILE + lane;
+// ---------------------------------------------------------------------------
+// The matcher.
+// ---------------------------------------------------------------------------
 
-  float ku = 0.f, kv = 0.f;
+__device__ __forceinline__ int hamming256(const uint4& a0, const uint4& a1,
+                                          const uint4& b0, const uint4& b1) {
+  return __popc(a0.x ^ b0.x) + __popc(a0.y ^ b0.y) + __popc(a0.z ^ b0.z) + __popc(a0.w ^ b0.w) +
+         __popc(a1.x ^ b1.x) + __popc(a1.y ^ b1.y) + __popc(a1.z ^ b1.z) + __popc(a1.w ^ b1.w);
+}
+
+// Merge (key, second), the top-2 of some pairs of keypoint n, into its state
+// (see the header note): the key by an atomic minimum whose old value says
+// which of the two keys lost, and the loser's cost, with `second`, by a second
+// atomic minimum whose result nobody waits for.
+__device__ __forceinline__ void merge_state(unsigned long long* state, int n, unsigned key,
+                                            unsigned second) {
+  unsigned* word = reinterpret_cast<unsigned*>(state + n);   // [0] second, [1] key
+  const unsigned old = atomicMin(word + 1, key);
+  atomicMin(word, min(second, max(old, key) >> ROW_BITS));
+}
+
+struct MatchArgs {
+  const float2* cand_uv; const uint4* cand_desc; const float* cand_radius;
+  const int* cand_level; const uint8_t* cand_valid; int M;
+  const float2* kp_uv; const uint4* kp_desc; const int* kp_level;
+  const uint8_t* kp_valid; int N;
+  int level_slack;
+  const int* cell_start; const int* kp_order; const float2* sorted_uv; int gx;
+  unsigned long long* state; unsigned* bc; const unsigned* box;
+  const unsigned* partial; int n_partial; unsigned* info;
+  int* best; int* second; int* arg; int* best_cand;
+  int force_path, blocks_cells, tiles, chunks, rows_per_chunk;
+};
+
+// One warp per candidate row over the keypoints of the row's cells. The
+// cell rows of the box (each a contiguous run after the sort) are laid end
+// to end, 32 rows at a time, and swept 32 * ITEMS keypoints at a time. A
+// sweep has three phases, each with its loads in flight together: positions
+// of all its keypoints and the window test; the keypoints inside the radius
+// compacted into a list in shared memory; then a lane per listed keypoint
+// for validity, level, descriptor and the two atomics. (A lane that loads
+// and uses a value inside a branch holds the warp's next vote back until the
+// value is there, so loads and uses are kept in separate loops; and a cell
+// row is looked up in a small table in shared memory, not by shuffles.)
+__device__ __forceinline__ void cells_body(const MatchArgs& a) {
+  __shared__ int s_list[WARPS][32 * ITEMS];
+  __shared__ int s_end[WARPS][32];            // per cell row: items up to and including it
+  __shared__ int s_shift[WARPS][32];          // per cell row: item number -> sorted position
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m = blockIdx.x * WARPS + warp;
+  if (m >= a.M) return;
+  const unsigned b = a.box[m];
+  const float2 c = a.cand_uv[m];
+  const float r = a.cand_radius[m];
+  const int cl = a.cand_level[m];
+  const uint4 c_lo = a.cand_desc[2 * m], c_hi = a.cand_desc[2 * m + 1];
+  const float r2 = __fmul_rn(r, r);
+  const int cx0 = b & 255u, cx1 = (b >> 8) & 255u, cy0 = (b >> 16) & 255u, cy1 = b >> 24;
+  unsigned* words = reinterpret_cast<unsigned*>(a.state);     // [2n] second, [2n + 1] key
+  int wbest = BIG;
+  if (cx0 <= cx1) {
+    for (int y0 = cy0; y0 <= cy1; y0 += 32) {
+      const int rows = min(32, cy1 - y0 + 1);
+      int start = 0, cnt = 0;
+      if (lane < rows) {
+        start = a.cell_start[(y0 + lane) * a.gx + cx0];
+        cnt = a.cell_start[(y0 + lane) * a.gx + cx1 + 1] - start;
+      }
+      int incl = cnt;                         // keypoints in rows 0..lane
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += y;
+      }
+      const int total = __shfl_sync(FULL, incl, 31);
+      __syncwarp();                           // the tables' last readers are done
+      s_end[warp][lane] = incl;
+      s_shift[warp][lane] = start - (incl - cnt);
+      __syncwarp();
+      int row = 0;                            // a lane's items come in rising order
+      for (int j0 = 0; j0 < total; j0 += 32 * ITEMS) {
+        float2 k[ITEMS];
+        int n[ITEMS];
+        bool in[ITEMS];
+#pragma unroll
+        for (int u = 0; u < ITEMS; ++u) {
+          const int j = j0 + 32 * u + lane;
+          in[u] = j < total;
+          while (row < rows - 1 && j >= s_end[warp][row]) ++row;
+          const int i = in[u] ? j + s_shift[warp][row] : 0;       // always a valid index
+          k[u] = a.sorted_uv[i];
+          n[u] = a.kp_order[i];
+        }
+        int listed = 0;
+#pragma unroll
+        for (int u = 0; u < ITEMS; ++u) {
+          const float du = __fsub_rn(c.x, k[u].x), dv = __fsub_rn(c.y, k[u].y);
+          const bool inside = in[u] && __fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv)) <= r2;
+          const unsigned mask = __ballot_sync(FULL, inside);
+          if (inside) s_list[warp][listed + __popc(mask & ((1u << lane) - 1u))] = n[u];
+          listed += __popc(mask);
+        }
+        __syncwarp();
+        for (int t0 = 0; t0 < listed; t0 += 64) {
+          // two listed keypoints per lane, their loads in flight together
+          const int t[2] = {t0 + lane, t0 + 32 + lane};
+          int kp[2], kl[2];
+          uint4 k_lo[2], k_hi[2];
+          bool ok[2];
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            ok[v] = t[v] < listed;
+            kp[v] = ok[v] ? s_list[warp][t[v]] : 0;
+            k_lo[v] = a.kp_desc[2 * kp[v]];
+            k_hi[v] = a.kp_desc[2 * kp[v] + 1];
+            ok[v] = ok[v] && a.kp_valid[kp[v]] != 0;
+            kl[v] = a.kp_level[kp[v]];
+          }
+          unsigned key[2], old[2];
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            ok[v] = ok[v] && abs(cl - kl[v]) <= a.level_slack;
+            const int h = hamming256(c_lo, c_hi, k_lo[v], k_hi[v]);
+            if (ok[v]) wbest = min(wbest, h);
+            key[v] = ((unsigned)h << ROW_BITS) | (unsigned)m;
+            if (ok[v]) old[v] = atomicMin(words + 2 * kp[v] + 1, key[v]);
+          }
+#pragma unroll
+          for (int v = 0; v < 2; ++v)
+            if (ok[v]) atomicMin(words + 2 * kp[v], max(old[v], key[v]) >> ROW_BITS);
+        }
+        __syncwarp();                         // the list is free for the next sweep
+      }
+    }
+  }
+  wbest = __reduce_min_sync(FULL, wbest);
+  if (lane == 0) a.best_cand[m] = wbest;
+}
+
+struct Stage {
+  uint4 d_lo[STAGE_ROWS];
+  uint4 d_hi[STAGE_ROWS];
+  float2 uv[STAGE_ROWS];
+  float r2[STAGE_ROWS];                      // radius^2, or -1 for a row to skip
+  int lvl[STAGE_ROWS];
+};
+
+// All pairs of one chunk of rows against one tile of 32 keypoints.
+__device__ __forceinline__ void tiled_body(const MatchArgs& a) {
+  __shared__ Stage s_stage[2];
+  __shared__ unsigned s_key[WARPS][KP_TILE];
+  __shared__ unsigned s_sec[WARPS][KP_TILE];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int tile = blockIdx.x % a.tiles, chunk = blockIdx.x / a.tiles;
+  const int row0 = chunk * a.rows_per_chunk;
+  const int row1 = min(a.M, row0 + a.rows_per_chunk);
+  const int n_stages = (max(row1 - row0, 0) + STAGE_ROWS - 1) / STAGE_ROWS;
+  const int k = tile * KP_TILE + lane;
+
+  float2 kuv = make_float2(0.f, 0.f);
   int kl = 0;
   bool kval = false;
-  uint32_t kd[DESC_WORDS];
-#pragma unroll
-  for (int i = 0; i < DESC_WORDS; ++i) kd[i] = 0u;
-  if (k < N) {
-    ku = kp_uv[2 * k];
-    kv = kp_uv[2 * k + 1];
-    kl = kp_level[k];
-    kval = kp_valid[k] != 0;
-#pragma unroll
-    for (int i = 0; i < DESC_WORDS; ++i) kd[i] = kp_desc[DESC_WORDS * k + i];
+  uint4 k_lo = make_uint4(0, 0, 0, 0), k_hi = k_lo;
+  if (k < a.N) {
+    kuv = a.kp_uv[k];
+    kl = a.kp_level[k];
+    kval = a.kp_valid[k] != 0;
+    k_lo = a.kp_desc[2 * k];
+    k_hi = a.kp_desc[2 * k + 1];
   }
 
-  int best = BIG, second = BIG, arg = -1;
-  for (int base = 0; base < M; base += CAND_BLK) {
-    __syncthreads();  // the previous stage has been consumed
-    {
-      const int t = threadIdx.x;
-      const int row = base + t;
-      if (row < M) {
-        s_u[t] = cand_uv[2 * row];
-        s_v[t] = cand_uv[2 * row + 1];
-        const float r = cand_radius[row];
-        s_r2[t] = cand_valid[row] ? __fmul_rn(r, r) : -1.0f;
-        s_lvl[t] = cand_level[row];
-#pragma unroll
-        for (int i = 0; i < DESC_WORDS; ++i)
-          s_desc[t][i] = cand_desc[DESC_WORDS * row + i];
-      }
+  // thread t copies half a descriptor of stage row t / 2; threads below
+  // STAGE_ROWS also carry that row's scalars through registers
+  auto copy_desc = [&](int stage, Stage& dst) {
+    const int j = t >> 1, row = row0 + stage * STAGE_ROWS + j;
+    if (row < row1)
+      __pipeline_memcpy_async((t & 1) ? &dst.d_hi[j] : &dst.d_lo[j],
+                              &a.cand_desc[2 * row + (t & 1)], sizeof(uint4));
+  };
+  float2 p_uv = make_float2(0.f, 0.f);
+  float p_r2 = -1.0f;
+  int p_lvl = 0;
+  auto load_scalars = [&](int stage) {
+    const int row = row0 + stage * STAGE_ROWS + t;
+    p_r2 = -1.0f;
+    if (t < STAGE_ROWS && row < row1) {
+      p_uv = a.cand_uv[row];
+      p_lvl = a.cand_level[row];
+      const float r = a.cand_radius[row];
+      p_r2 = a.cand_valid[row] ? __fmul_rn(r, r) : -1.0f;
     }
+  };
+  auto store_scalars = [&](Stage& dst) {
+    if (t < STAGE_ROWS) { dst.uv[t] = p_uv; dst.r2[t] = p_r2; dst.lvl[t] = p_lvl; }
+  };
+
+  unsigned key = NONE, sec = NONE;
+  if (n_stages > 0) {
+    copy_desc(0, s_stage[0]);
+    load_scalars(0);
+    store_scalars(s_stage[0]);
+  }
+  __pipeline_commit();
+  for (int s = 0; s < n_stages; ++s) {
+    Stage& cur = s_stage[s & 1];
+    Stage& nxt = s_stage[(s + 1) & 1];
+    const bool more = s + 1 < n_stages;
+    if (more) { copy_desc(s + 1, nxt); load_scalars(s + 1); }
+    __pipeline_commit();
+    __pipeline_wait_prior(1);                // this stage's descriptors have landed
     __syncthreads();
-    const int rows = min(CAND_BLK, M - base);
+    const int base = row0 + s * STAGE_ROWS;
+    const int rows = min(STAGE_ROWS, row1 - base);
     for (int j = warp; j < rows; j += WARPS) {
-      const float du = __fsub_rn(s_u[j], ku);
-      const float dv = __fsub_rn(s_v[j], kv);
+      const float2 c = cur.uv[j];
+      const float du = __fsub_rn(c.x, kuv.x), dv = __fsub_rn(c.y, kuv.y);
       const float d2 = __fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv));
-      const int dl = abs(s_lvl[j] - kl);
-      const bool ok = kval && (d2 <= s_r2[j]) && (dl <= level_slack);
-      // A pair outside the window costs BIG, which changes neither top-2 nor
-      // best_cand: rows that no lane of the warp can match are skipped.
-      if (!__any_sync(0xffffffffu, ok)) continue;
-      int h = 0;
-#pragma unroll
-      for (int i = 0; i < DESC_WORDS; ++i) h += __popc(s_desc[j][i] ^ kd[i]);
-      const int cost = ok ? h : BIG;
+      const bool ok = kval && (d2 <= cur.r2[j]) && (abs(cur.lvl[j] - kl) <= a.level_slack);
+      // a pair outside the window changes nothing: rows that no lane of the
+      // warp can match are skipped before the descriptor is read
+      if (!__any_sync(FULL, ok)) continue;
+      const int h = hamming256(cur.d_lo[j], cur.d_hi[j], k_lo, k_hi);
       const int row = base + j;
-      if (cost < best) {
-        second = best;
-        best = cost;
-        arg = row;
-      } else if (cost < second) {
-        second = cost;
+      if (ok) {
+        const unsigned nk = ((unsigned)h << ROW_BITS) | (unsigned)row;
+        if (nk < key) { sec = min(sec, key >> ROW_BITS); key = nk; }
+        else sec = min(sec, (unsigned)h);
       }
-      const int wmin = __reduce_min_sync(0xffffffffu, cost);
-      if (lane == 0 && wmin < BIG) atomicMin(&best_cand[row], wmin);
+      const int wmin = __reduce_min_sync(FULL, ok ? h : BIG);
+      if (lane == 0 && wmin < BIG) atomicMin(&a.bc[row], (unsigned)wmin);
     }
+    if (more) store_scalars(nxt);
+    __syncthreads();                         // cur may be overwritten from here on
   }
 
-  s_best[warp][lane] = best;
-  s_second[warp][lane] = second;
-  s_arg[warp][lane] = arg;
+  s_key[warp][lane] = key;
+  s_sec[warp][lane] = sec;
   __syncthreads();
-  if (warp == 0 && k < N) {
-    int b = s_best[0][lane], s = s_second[0][lane], a = s_arg[0][lane];
+  if (warp == 0 && k < a.N) {
     for (int w = 1; w < WARPS; ++w) {
-      const int b2 = s_best[w][lane], s2 = s_second[w][lane], a2 = s_arg[w][lane];
-      if (b2 < b || (b2 == b && b2 < BIG && a2 < a)) {
-        s = min(s2, b);
-        b = b2;
-        a = a2;
-      } else {
-        s = min(s, b2);
+      const unsigned k2 = s_key[w][lane], s2 = s_sec[w][lane];
+      sec = min(min(sec, s2), max(key, k2) >> ROW_BITS);
+      key = min(key, k2);
+    }
+    if (key != NONE) merge_state(a.state, k, key, sec);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 4)    // 32 warps per SM: 4096 rows in one wave
+match_top2_kernel(const MatchArgs a) {
+  __shared__ bool s_last;
+  unsigned long long examined = 0;
+  for (int i = 0; i < a.n_partial; ++i) examined += a.partial[i];
+  const int path = a.force_path >= 0 ? a.force_path
+      : (examined * DENSE_DIV >= (unsigned long long)a.M * (unsigned long long)a.N
+             ? PATH_TILED : PATH_CELLS);
+  if (path == PATH_CELLS) {
+    if ((int)blockIdx.x < a.blocks_cells) cells_body(a);
+  } else if (path == PATH_TILED) {
+    if ((int)blockIdx.x < a.tiles * a.chunks) tiled_body(a);
+  }                                           // any other forced value: no matching at all
+
+  // the last block to get here turns the states into the outputs
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(&a.info[0], 1u) == gridDim.x - 1u;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (threadIdx.x == 0) {
+    a.info[1] = (unsigned)path;
+    a.info[2] = (unsigned)examined;
+    a.info[3] = (unsigned)(examined >> 32);
+  }
+  // the loads of a batch go out together, then the stores
+  constexpr int BATCH = 4;
+  for (int base = threadIdx.x; base < a.N; base += BATCH * THREADS) {
+    unsigned long long st[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int n = base + u * THREADS;
+      st[u] = n < a.N ? __ldcg(&a.state[n]) : ~0ull;
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int n = base + u * THREADS;
+      if (n >= a.N) break;
+      const unsigned key = (unsigned)(st[u] >> 32), sec = (unsigned)st[u];
+      a.best[n] = key == NONE ? BIG : (int)(key >> ROW_BITS);
+      a.arg[n] = key == NONE ? -1 : (int)(key & ROW_MASK);
+      a.second[n] = sec > MAX_COST ? BIG : (int)sec;
+    }
+  }
+  if (path == PATH_TILED) {
+    for (int base = threadIdx.x; base < a.M; base += BATCH * THREADS) {
+      unsigned cost[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int m = base + u * THREADS;
+        cost[u] = m < a.M ? __ldcg(&a.bc[m]) : NONE;
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int m = base + u * THREADS;
+        if (m < a.M) a.best_cand[m] = cost[u] > MAX_COST ? BIG : (int)cost[u];
       }
     }
-    best_out[k] = b;
-    second_out[k] = s;
-    arg_out[k] = a;
   }
+}
+
+__global__ void empty_kernel() {}
+
+}  // namespace
+
+// Every entry point launches on `stream` (a cudaStream_t passed as a
+// pointer-sized int) of card `device`, does not synchronise, and returns
+// cudaGetLastError() as an int (0 = success). The caller hands over two
+// buffers of 32-bit words, 16-byte aligned, laid out as the *_words
+// functions say.
+
+namespace {
+
+struct DeviceGuard {                          // the launches go to `device`
+  int prev = -1;
+  explicit DeviceGuard(int device) {
+    cudaGetDevice(&prev);
+    if (prev != device) cudaSetDevice(device); else prev = -1;
+  }
+  ~DeviceGuard() { if (prev >= 0) cudaSetDevice(prev); }
+};
+
+inline int even(int x) { return x + (x & 1); }
+
+// grid buffer: hdr[4] | cell_start[cells + 1] | kp_order[N] | sorted_uv[2 N],
+// the last two starting on even words
+inline int grid_order_at(int gx, int gy) { return even(4 + gx * gy + 1); }
+inline int grid_uv_at(int N, int gx, int gy) { return even(grid_order_at(gx, gy) + N); }
+
+inline int n_partials(int M, int N) {
+  const int n = M > N ? M : N;
+  return n > 0 ? (n + THREADS - 1) / THREADS : 1;
 }
 
 }  // namespace
 
-// Launches on `stream` (a cudaStream_t passed as a pointer-sized int) and
-// returns cudaGetLastError() as an int (0 = success). Descriptors are packed
-// 32-byte rows read as 8 little-endian uint32 words.
-extern "C" int match_top2_launch(const float* cand_uv, const uint32_t* cand_desc,
+extern "C" int kp_grid_words(int N, int gx, int gy) { return grid_uv_at(N, gx, gy) + 2 * N; }
+
+// Sorts N keypoints into gx x gy cells (gx, gy <= 256, gx * gy <= 4096).
+// hdr = (u0, v0, cells per pixel in u, in v).
+extern "C" int kp_grid_launch(const float* kp_uv, int N, int gx, int gy, int* grid,
+                              int device, void* stream) {
+  DeviceGuard guard(device);
+  kp_grid_kernel<<<1, GRID_THREADS, gx * gy * sizeof(int), reinterpret_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(kp_uv), N, gx, gy, reinterpret_cast<float*>(grid), grid + 4,
+      grid + grid_order_at(gx, gy), reinterpret_cast<float2*>(grid + grid_uv_at(N, gx, gy)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// work buffer: state[2 N] (N 64-bit words) | best[N] | second[N] | arg[N] |
+// best_cand[M] | bc[M] | box[M] | partial[n_partials] | info[4]
+extern "C" int match_top2_words(int M, int N) { return 5 * N + 3 * M + n_partials(M, N) + 4; }
+
+// Descriptors are packed 32-byte rows, 16-byte aligned; uv rows 8-byte
+// aligned. `grid` is what kp_grid_launch wrote for these keypoints. After the
+// call the last four words of `work` hold: the ticket counter, the path taken
+// (0 cells, 1 tiled) and the keypoints the rows' boxes hold (low, high word).
+// force_path: -1 chooses, 0 or 1 forces; 2 skips the matching (every output
+// "none"), which times what a call costs before any pair is looked at.
+extern "C" int match_top2_launch(const float* cand_uv, const void* cand_desc,
                                  const float* cand_radius, const int* cand_level,
                                  const uint8_t* cand_valid, int M,
-                                 const float* kp_uv, const uint32_t* kp_desc,
+                                 const float* kp_uv, const void* kp_desc,
                                  const int* kp_level, const uint8_t* kp_valid, int N,
-                                 int level_slack, int* best, int* second, int* arg,
-                                 int* best_cand, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (M > 0) fill_kernel<<<(M + 255) / 256, 256, 0, s>>>(best_cand, M, BIG);
-  if (N > 0) {
-    match_top2_kernel<<<(N + KP_TILE - 1) / KP_TILE, THREADS, 0, s>>>(
-        cand_uv, cand_desc, cand_radius, cand_level, cand_valid, M,
-        kp_uv, kp_desc, kp_level, kp_valid, N, level_slack,
-        best, second, arg, best_cand);
+                                 int level_slack, const int* grid, int gx, int gy, int* work,
+                                 int force_path, int device, void* stream) {
+  static int sms_of[64] = {0};
+  DeviceGuard guard(device);
+  int& sms = sms_of[device & 63];
+  if (sms == 0) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (sms <= 0) sms = 132;
   }
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+
+  MatchArgs a;
+  a.cand_uv = reinterpret_cast<const float2*>(cand_uv);
+  a.cand_desc = static_cast<const uint4*>(cand_desc);
+  a.cand_radius = cand_radius; a.cand_level = cand_level; a.cand_valid = cand_valid; a.M = M;
+  a.kp_uv = reinterpret_cast<const float2*>(kp_uv);
+  a.kp_desc = static_cast<const uint4*>(kp_desc);
+  a.kp_level = kp_level; a.kp_valid = kp_valid; a.N = N;
+  a.level_slack = level_slack;
+  const float* hdr = reinterpret_cast<const float*>(grid);
+  a.cell_start = grid + 4;
+  a.kp_order = grid + grid_order_at(gx, gy);
+  a.sorted_uv = reinterpret_cast<const float2*>(grid + grid_uv_at(N, gx, gy));
+  a.gx = gx;
+  a.state = reinterpret_cast<unsigned long long*>(work);
+  a.best = work + 2 * N; a.second = a.best + N; a.arg = a.second + N; a.best_cand = a.arg + N;
+  a.bc = reinterpret_cast<unsigned*>(a.best_cand + M);
+  unsigned* box = a.bc + M;
+  unsigned* partial = box + M;
+  a.box = box; a.partial = partial; a.n_partial = n_partials(M, N);
+  a.info = partial + a.n_partial;
+  a.force_path = force_path;
+
+  prep_kernel<<<a.n_partial, THREADS, 0, s>>>(a.cand_uv, cand_radius, cand_valid, M, N, hdr,
+                                               a.cell_start, gx, gy, a.state, a.bc, box, partial,
+                                               a.info);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+
+  a.blocks_cells = (M + WARPS - 1) / WARPS;
+  a.tiles = (N + KP_TILE - 1) / KP_TILE;
+  // split the rows so that about four blocks per SM run, a stage at least each
+  const int max_chunks = (M + STAGE_ROWS - 1) / STAGE_ROWS;
+  int chunks = a.tiles > 0 ? (4 * sms + a.tiles - 1) / a.tiles : 0;
+  chunks = chunks < max_chunks ? chunks : max_chunks;
+  a.chunks = chunks > 1 ? chunks : 1;
+  a.rows_per_chunk = (M + a.chunks - 1) / a.chunks;
+  int blocks = a.blocks_cells > a.tiles * a.chunks ? a.blocks_cells : a.tiles * a.chunks;
+  if (force_path == PATH_CELLS) blocks = a.blocks_cells;
+  if (force_path == PATH_TILED) blocks = a.tiles * a.chunks;
+  if (force_path > PATH_TILED) blocks = 1;
+  match_top2_kernel<<<blocks > 0 ? blocks : 1, THREADS, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// k empty kernels through the same path: the floor under any k-launch call.
+extern "C" int empty_launch(int k, int device, void* stream) {
+  DeviceGuard guard(device);
+  for (int i = 0; i < k; ++i) empty_kernel<<<1, 32, 0, reinterpret_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

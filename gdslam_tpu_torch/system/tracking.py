@@ -88,7 +88,7 @@ def _insert_keyframe(arena: ma.MapArena, frame: Frame, T_cw: torch.Tensor,
     """Insert keyframe + create map points for unmatched close-depth
     keypoints, or any among the 100 nearest (CreateNewKeyFrame,
     Tracking.cc:1392-1470). Only created rows are written to the point
-    arrays."""
+    arrays, apart from slot 0 (see below)."""
     cam = cfg.camera
     kf_id = int(arena.n_kf)
     if max_depth is None:
@@ -111,8 +111,23 @@ def _insert_keyframe(arena: ma.MapArena, frame: Frame, T_cw: torch.Tensor,
     max_d = dist * sf ** frame.level.float()
     min_d = max_d / (sf ** (cfg.orb.n_levels - 1))
 
+    # The created rows are written, then slot 0 gets its old value back
+    # unless the highest-index row with slot == 0 creates a point. That
+    # reproduces the JAX package as its tests run it: its scatter
+    # (gdslam_tpu/system/tracking.py:112, :124-126) sends every row that
+    # creates nothing to slot 0 carrying slot 0's old value, and XLA on the
+    # CPU applies duplicate indices in row order, so the first keyframe's
+    # point in slot 0 is lost unless its keypoint is the last such row. A
+    # scatter with duplicates has no order on the card, hence the explicit
+    # rule (no host read).
+    rows = torch.arange(slot.shape[0], device=slot.device)
+    last0 = torch.where(slot == 0, rows, -1).amax()
+    restore0 = (last0 >= 0) & ~create[last0.clamp(min=0)]
+
     def scatter(dst, src):
-        return ma.scatter_rows(dst, slot, src, create)
+        out = ma.scatter_rows(dst, slot, src, create)
+        out[0] = torch.where(restore0, dst[0], out[0])
+        return out
 
     arena = arena._replace(
         pt_pos=scatter(arena.pt_pos, pw),

@@ -1,5 +1,5 @@
-"""Tests of the port that need an NVIDIA card: the CUDA kernel against its
-plain PyTorch version, and the slice on the card against the slice on the
+"""Tests of the port that need an NVIDIA card: the CUDA kernels against their
+plain PyTorch versions, and the slice on the card against the slice on the
 CPU. They skip without a card. This file imports neither JAX nor the JAX
 package, so it runs where only PyTorch is installed:
 
@@ -59,18 +59,130 @@ def _inputs(seed, M, N, dup_rows=5):
     return d
 
 
-@pytest.mark.parametrize("M,N", [(1500, 1500), (4096, 1500), (100, 33), (12, 8)])
-def test_kernel_equals_plain(card, M, N):
-    """Exactly equal outputs (integer costs); one counted launch."""
-    d = _inputs(3, M, N, dup_rows=min(5, M - 1))
+def _case(name):
+    """Inputs a walk over image cells can get wrong, after _inputs: the
+    dictionary and, where the case has one, the level slack."""
+    r = np.random.default_rng(17)
+    sizes = {"local_map": (4096, 1500), "small": (100, 33), "tiny": (12, 8), "N_1": (1500, 1),
+             "M_1": (1, 1500), "N_750": (4096, 750), "mixed_radii": (4096, 1500)}
+    M, N = sizes.get(name, (1500, 1500))
+    d = _inputs(3, max(M, 16), max(N, 16))
+    d = {k: np.ascontiguousarray(v[:M] if k.startswith("cand") else v[:N]) for k, v in d.items()}
+    slack = 1
+    if name == "clustered_patch":               # every keypoint in one small patch
+        d["kp_uv"] = (300 + 2 * r.uniform(size=(N, 2))).astype(np.float32)
+        d["cand_uv"][:800] = (300 + 2 * r.uniform(size=(800, 2))).astype(np.float32)
+    elif name == "clustered_point":             # every keypoint on one point: one cell
+        d["kp_uv"][:] = (320.0, 240.0)
+        d["cand_uv"][:800] = d["kp_uv"][:800] + r.uniform(-10, 10, (800, 2)).astype(np.float32)
+    elif name == "borders":                     # cell borders (32 x 24 cells of 20 px), image borders
+        lattice = np.stack(np.meshgrid(np.arange(33) * 20.0, np.arange(25) * 20.0), -1).reshape(-1, 2)
+        d["kp_uv"][:825], d["cand_uv"][:825] = lattice, lattice[::-1]
+        d["cand_uv"][825:1200] = lattice[:375] + (20.0, 0.0)
+        d["cand_radius"] = np.array([0.0, 20.0, 20.000002, 19.999998, 28.284271],
+                                    np.float32)[np.arange(M) % 5]
+        d["cand_valid"][:1200], d["kp_valid"][:825] = True, True
+    elif name == "radius_0":                    # only coincident pairs pass
+        d["cand_radius"][:] = 0.0
+        d["cand_uv"][:700], d["cand_level"][:700] = d["kp_uv"][:700], d["kp_level"][:700]
+    elif name == "radius_one_cell":
+        d["cand_radius"][:] = 20.0
+    elif name in ("dense", "dense_any_level"):  # beyond the image: every pair inside
+        d["cand_radius"][:] = 1000.0
+        slack = 7 if name == "dense_any_level" else 1
+    elif name == "mixed_radii":
+        d["cand_radius"] = r.choice(np.array([0, 1, 20, 90, 1e4, np.inf], np.float32), M)
+    elif name == "ties_across_cells":           # four descriptors in all
+        four = r.integers(0, 256, (4, 32)).astype(np.uint8)
+        d["cand_desc"], d["kp_desc"] = four[r.integers(0, 4, M)], four[r.integers(0, 4, N)]
+        d["cand_radius"][:] = 60.0
+    elif name == "level_slack_0":
+        slack = 0
+    elif name == "cand_all_invalid":
+        d["cand_valid"][:] = False
+    elif name == "kp_all_invalid":
+        d["kp_valid"][:] = False
+    elif name == "non_finite":
+        d["kp_uv"][::7, 0], d["kp_uv"][3::7, 1], d["kp_uv"][5::7] = np.nan, np.inf, -np.inf
+        d["cand_uv"][::6, 0], d["cand_uv"][2::6, 1] = np.nan, np.inf
+        d["cand_radius"][4::6], d["cand_radius"][5::12], d["cand_radius"][1::6] = np.inf, np.nan, 1e30
+    elif name == "far_away":                    # off-image rows whose window reaches the image
+        d["cand_uv"][::4] = d["cand_uv"][::4] * 1e4 - 2e6
+        d["cand_radius"][::4] = 3e6
+        d["kp_uv"][::5] *= -1e3
+    elif name in ("M_0", "N_0"):
+        side = "cand" if name == "M_0" else "kp"
+        d = {k: (v[:0] if k.startswith(side) else v) for k, v in d.items()}
+    return d, slack
+
+
+CASES = ["motion_model", "local_map", "small", "tiny", "clustered_patch", "clustered_point",
+         "borders", "radius_0", "radius_one_cell", "dense", "dense_any_level", "mixed_radii",
+         "ties_across_cells", "level_slack_0", "cand_all_invalid", "kp_all_invalid", "non_finite",
+         "far_away", "N_1", "M_1", "N_750", "M_0", "N_0"]
+
+
+@pytest.mark.parametrize("path", [None, "cells", "tiled"])
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_equals_plain(card, case, path):
+    """Exactly equal outputs (integer costs) with the kernel choosing its
+    path and with each path forced; one counted call of two CUDA launches,
+    three when it builds the keypoint grid."""
+    d, slack = _case(case)
     args = [torch.from_numpy(d[k]).to(card) for k in KEYS]
-    before = match_kernel.match_top2.launches
-    got = match_kernel.match_top2(*args)
+    before, before_cuda = match_kernel.match_top2.launches, match_kernel.match_top2.cuda_launches
+    got = match_kernel.match_top2(*args, slack, path=path)
     torch.cuda.synchronize()
     assert match_kernel.match_top2.launches == before + 1
-    want = match_kernel.match_top2_plain(*args)
+    assert match_kernel.match_top2.cuda_launches == before_cuda + 3     # a new keypoint tensor
+    assert match_kernel.last_call()["path"] == (path or match_kernel.last_call()["path"])
+    want = match_kernel.match_top2_plain(*args, slack)
     for g, w in zip(got, want):
         assert g.dtype == torch.int32 and torch.equal(g.cpu(), w.cpu().to(torch.int32))
+    again = match_kernel.match_top2(*args, slack, path=path)            # the grid is reused
+    assert match_kernel.match_top2.cuda_launches == before_cuda + 5
+    for g, w in zip(again, got):
+        assert torch.equal(g, w)
+    args[5].add_(0.0)                           # an in-place write: the grid is built anew
+    match_kernel.match_top2(*args, slack, path=path)
+    assert match_kernel.match_top2.cuda_launches == before_cuda + 8
+
+
+def test_kernel_chooses_cells_for_narrow_and_tiled_for_wide_windows(card):
+    for case, path in (("motion_model", "cells"), ("local_map", "cells"), ("dense", "tiled")):
+        d, slack = _case(case)
+        match_kernel.match_top2(*(torch.from_numpy(d[k]).to(card) for k in KEYS), slack)
+        assert match_kernel.last_call()["path"] == path, case
+
+
+@pytest.mark.parametrize("cells", [(32, 24), (1, 1), (64, 48), (256, 16)])
+@pytest.mark.parametrize("case", ["motion_model", "clustered_patch", "clustered_point", "borders",
+                                  "non_finite", "far_away", "N_1", "N_0"])
+def test_grid_kernel_equals_plain(card, case, cells):
+    """The same header and cell starts bit for bit and the same keypoints in
+    every cell; the kernel leaves the order inside a cell open."""
+    kp_uv = torch.from_numpy(_case(case)[0]["kp_uv"]).to(card)
+    N = kp_uv.shape[0]
+    before = match_kernel.kp_grid.launches
+    got, want = match_kernel.kp_grid(kp_uv, *cells), match_kernel.kp_grid_plain(kp_uv, *cells)
+    torch.cuda.synchronize()
+    assert match_kernel.kp_grid.launches == before + 1
+    assert torch.equal(got.hdr, want.hdr) and torch.equal(got.cell_start, want.cell_start)
+    cell = torch.searchsorted(got.cell_start[1:].long().contiguous(),
+                              torch.arange(N, device=card), right=True)
+    order = got.kp_order.long()
+    assert torch.equal(order[torch.argsort(cell * max(N, 1) + order)], want.kp_order.long())
+    assert torch.equal(got.sorted_uv.nan_to_num(), kp_uv[order].nan_to_num())
+
+
+def test_wrapper_rejects_2_to_the_20_rows(card):
+    d, _ = _case("N_1")
+    args = [torch.from_numpy(d[k]).to(card) for k in KEYS]
+    big = [t[:1].expand(match_kernel.MAX_ROWS, *t.shape[1:]).contiguous() for t in args[:5]]
+    with pytest.raises(ValueError, match="rows"):
+        match_kernel.match_top2(*big, *args[5:])
+    with pytest.raises(ValueError, match="grid"):
+        match_kernel.kp_grid(args[5], 512, 8)
 
 
 @pytest.mark.parametrize("kw", [dict(th_hamming=100, use_rotation=True),

@@ -148,3 +148,143 @@ def test_hamming_helpers_match_jax(dtype, dim):
     b = r.integers(0, 256, (50, 32)).astype(np.uint8)
     np.testing.assert_array_equal(tham.hamming_packed(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
                                   np.asarray(jham.hamming_packed(jnp.asarray(a), jnp.asarray(b))))
+
+
+# ---------------------------------------------------------------------------
+# The keypoint grid and the candidate rows' cell boxes (plain versions)
+# ---------------------------------------------------------------------------
+
+def _grid_case(name, seed=11, M=96, N=160):
+    """(cand_uv, cand_radius, cand_valid, kp_uv) float32 / bool numpy arrays
+    that stress the cell walk."""
+    r = np.random.default_rng(seed)
+    W, H = 640.0, 480.0
+    kp = r.uniform(0, 1, (N, 2)) * [W, H]
+    cand = r.uniform(0, 1, (M, 2)) * [W, H]
+    rad = 15.0 * 1.2 ** r.integers(0, 8, M)
+    valid = r.uniform(size=M) > 0.1
+    if name == "clustered":                     # every keypoint in one cell
+        kp = 300.0 + r.uniform(0, 2, (N, 2))
+    elif name == "borders":                     # keypoints and rows on cell and image borders
+        xs, ys = np.linspace(0, W, 33), np.linspace(0, H, 25)
+        kp[:33, 0], kp[33:58, 1] = xs, ys
+        kp[58:62] = [[0, 0], [W, 0], [0, H], [W, H]]
+        cand[:33, 0], cand[33:58, 1] = xs, ys
+        cand[58:62] = kp[58:62]
+        rad[:62:2] = 20.0                       # one cell wide
+    elif name == "radius_0":                    # only coincident pairs pass
+        rad[:] = 0.0
+        cand[:40] = kp[:40]
+    elif name == "radius_inf":
+        rad[:] = np.inf
+        rad[::3] = 1e30                         # r * r overflows to inf
+    elif name == "radius_mixed":
+        rad = r.choice([0.0, 1.0, 20.0, 90.0, 1e4], M)
+    elif name == "far_away":                    # rows and keypoints far off the image
+        cand[::4] = cand[::4] * 1e4 - 2e6
+        rad[::4] = 3e6
+        kp[::5] = kp[::5] * -1e5
+    elif name == "non_finite":
+        kp[::7, 0], kp[3::7, 1], kp[5::7] = np.nan, np.inf, -np.inf
+        cand[::6, 0], cand[2::6, 1] = np.nan, np.inf
+        rad[4::6], rad[5::12] = np.inf, np.nan
+    elif name == "one_keypoint":
+        kp = kp[:1]
+    elif name == "no_keypoint":
+        kp = kp[:0]
+    elif name == "tiny":                        # squares that underflow to zero
+        kp = r.uniform(-1e-22, 1e-22, (N, 2))
+        cand = r.uniform(-1e-22, 1e-22, (M, 2))
+        rad[:] = 1e-30
+    f = lambda x: np.ascontiguousarray(x, np.float32)       # noqa: E731
+    return f(cand), f(rad), valid, f(kp)
+
+
+GRID_CASES = ["uniform", "clustered", "borders", "radius_0", "radius_inf", "radius_mixed",
+              "far_away", "non_finite", "one_keypoint", "no_keypoint", "tiny"]
+
+
+@pytest.mark.parametrize("cells", [(32, 24), (1, 1), (64, 48), (256, 16)])
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_kp_grid_plain_is_a_sort_by_cell(case, cells):
+    """kp_order is a permutation, cell_start is monotone from 0 to N, and
+    every keypoint sits in the cell its coordinates give."""
+    _, _, _, kp = _grid_case(case)
+    kp_t = torch.from_numpy(kp)
+    g = match_kernel.kp_grid(kp_t, *cells)
+    N, n_cells = kp.shape[0], cells[0] * cells[1]
+    assert g.hdr.shape == (4,) and g.hdr.dtype == torch.float32 and bool(torch.isfinite(g.hdr).all())
+    assert sorted(g.kp_order.tolist()) == list(range(N))
+    cs = g.cell_start.tolist()
+    assert len(cs) == n_cells + 1 and cs[0] == 0 and cs[-1] == N
+    assert all(a <= b for a, b in zip(cs, cs[1:]))
+    assert torch.equal(g.sorted_uv.nan_to_num(), kp_t[g.kp_order.long()].nan_to_num())
+    u0, v0, iu, iv = g.hdr
+    cell = match_kernel._cell_coord(kp_t[:, 1], v0, iv, cells[1], 0) * cells[0] + \
+        match_kernel._cell_coord(kp_t[:, 0], u0, iu, cells[0], 0)
+    sorted_cell = cell[g.kp_order.long()]
+    assert (sorted_cell[1:] >= sorted_cell[:-1]).all()
+    for c in set(sorted_cell.tolist()):
+        assert (sorted_cell[cs[c]:cs[c + 1]] == c).all()
+    if case == "clustered" and cells != (1, 1):
+        assert len(set(sorted_cell.tolist())) > 1          # the box is the cluster's own
+
+
+@pytest.mark.parametrize("cells", [(32, 24), (1, 1), (64, 48)])
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_cell_boxes_hold_every_pair_in_the_window(case, cells):
+    """Every pair that match_top2_plain's window test accepts (f32, rounded
+    as there) is reachable through the cells of its row's box, so the cell
+    walk can drop nothing."""
+    cand, rad, valid, kp = (torch.from_numpy(x) for x in _grid_case(case))
+    g = match_kernel.kp_grid_plain(kp, *cells)
+    boxes, skip = match_kernel.cand_boxes_plain(cand, rad, valid, g)
+    du = cand[:, None, 0] - kp[None, :, 0]
+    dv = cand[:, None, 1] - kp[None, :, 1]
+    accepted = ((du * du + dv * dv) <= (rad * rad)[:, None]) & valid[:, None]
+    cell_sorted = torch.searchsorted(g.cell_start[1:].long().contiguous(),
+                                     torch.arange(kp.shape[0]), right=True)
+    cell = torch.empty_like(cell_sorted)
+    cell[g.kp_order.long()] = cell_sorted
+    cx, cy = cell % cells[0], cell // cells[0]
+    reach = (boxes[:, None, 0] <= cx) & (cx <= boxes[:, None, 1]) & \
+        (boxes[:, None, 2] <= cy) & (cy <= boxes[:, None, 3]) & ~skip[:, None]
+    assert not (accepted & ~reach).any()
+    assert (boxes >= 0).all() and (boxes[:, 1] < cells[0]).all() and (boxes[:, 3] < cells[1]).all()
+    if case in ("uniform", "borders", "radius_mixed", "radius_inf"):
+        assert accepted.sum() > 20                          # the window is not empty
+    if case == "uniform" and cells == (32, 24):
+        assert reach.float().mean() < 0.2                   # and the boxes do prune
+
+
+def test_cell_box_margin_covers_f32_rounding():
+    """Hundreds of thousands of random pairs placed within a few ulps of
+    their row's radius: whichever way the window test rounds, an accepted
+    pair lies inside [uv - R, uv + R]."""
+    r = np.random.default_rng(5)
+    n = 400_000
+    c = torch.from_numpy((r.uniform(-2000, 2000, n)).astype(np.float32))
+    rad = torch.from_numpy((10 ** r.uniform(-3, 3.5, n)).astype(np.float32))
+    k = c + rad * torch.from_numpy(r.choice([-1.0, 1.0], n).astype(np.float32))
+    n_accepted = 0
+    for _ in range(3):                                      # walk outward by ulps
+        accepted = ((c - k) * (c - k) + 0.0) <= rad * rad
+        R = (rad.abs() * 1.00001 + c.abs() * 1e-6) + 1e-3
+        assert ((c - R <= k) & (k <= c + R))[accepted].all()
+        n_accepted += int(accepted.sum())
+        k = torch.nextafter(k, torch.where(k > c, 1.0, -1.0) * float("inf"))
+    assert n_accepted > 20_000                              # both roundings occurred
+
+
+@pytest.mark.parametrize("M,N", [(0, 8), (8, 0), (0, 0), (1, 1)])
+def test_match_top2_plain_takes_empty_sides(M, N):
+    d = _inputs(3, max(M, 1), max(N, 1))
+    args = [torch.from_numpy(d[k][:M] if k.startswith("cand") else d[k][:N])
+            for k in ("cand_uv", "cand_desc", "cand_radius", "cand_level", "cand_valid",
+                      "kp_uv", "kp_desc", "kp_level", "kp_valid")]
+    best, second, arg, best_cand = match_kernel.match_top2(*args)
+    assert best.shape == second.shape == arg.shape == (N,) and best_cand.shape == (M,)
+    assert {t.dtype for t in (best, second, arg, best_cand)} == {torch.int32}
+    if 0 in (M, N):
+        assert (best == match_kernel.BIG).all() and (arg == -1).all()
+        assert (best_cand == match_kernel.BIG).all()

@@ -109,13 +109,21 @@ def test_track_frame_core_one_step_matches_jax(seq, jax_run):
         np.testing.assert_array_equal(back[k], v, err_msg=k)
 
 
-def test_stereo_initialize_matches_jax_but_slot_0(seq):
-    """The first keyframe from the same frame: identical except map-point
-    slot 0. The JAX scatter (tracking.py:124-126) writes every keypoint row,
-    sending rows that create no point to slot 0 with slot 0's old value; on
-    the CPU the last duplicate wins, so the point created in slot 0 is
-    overwritten and lost. The port writes only the created rows and keeps
-    it (ROADMAP.md section 3). Floats agree to 1e-6, integers exactly."""
+def _assert_arena_equal(got: dict, want: dict):
+    for k, w in want.items():
+        if w.dtype.kind == "f":      # backprojection: products summed in another order
+            np.testing.assert_allclose(got[k], w, atol=1e-6, rtol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+def test_stereo_initialize_matches_jax(seq):
+    """The first keyframe from the same frame: every arena row identical,
+    map-point slot 0 included. The JAX scatter (tracking.py:124-126) writes
+    every keypoint row, sending rows that create no point to slot 0 with
+    slot 0's old value; on the CPU the last duplicate wins, so the point
+    created in slot 0 is overwritten and lost. The port reproduces that.
+    Floats agree to 1e-6, integers and booleans exactly."""
     jf = _jax_frame(seq[0])
     a_j, assoc_j = jtr.stereo_initialize(jtr.ma.new_arena(KMAX, PMAX, 384), jf,
                                          jnp.eye(4), SCFG)
@@ -123,26 +131,43 @@ def test_stereo_initialize_matches_jax_but_slot_0(seq):
                                          _torch_frame(jf), torch.eye(4), TCFG)
     np.testing.assert_array_equal(assoc_t.numpy(), np.asarray(assoc_j))
     got, want = convert.arena_to_numpy(a_t), _np_tree(a_j)
-    n_pt = int(want["n_pt"])
-    assert int(got["n_pt"]) == n_pt > 100
-    for k in want:
-        g, w = (got[k][1:], want[k][1:]) if k.startswith("pt_") else (got[k], want[k])
-        if w.dtype.kind == "f":      # backprojection: products summed in another order
-            np.testing.assert_allclose(g, w, atol=1e-6, rtol=0, err_msg=k)
-        else:
-            np.testing.assert_array_equal(g, w, err_msg=k)
-    assert got["pt_valid"][0] and not want["pt_valid"][0]
-    k0 = int(np.flatnonzero(np.asarray(assoc_j) == 0)[0])     # the keypoint of slot 0
-    assert got["pt_desc"][0].tolist() == np.asarray(jf.desc)[k0].tolist()
-    assert got["pt_ref_kf"][0] == 0 and want["pt_ref_kf"][0] == -1
+    assert int(got["n_pt"]) == int(want["n_pt"]) > 100
+    _assert_arena_equal(got, want)
+    # this frame's last keypoint creates no point, so slot 0 is lost in both
+    assert not got["pt_valid"][0] and got["pt_ref_kf"][0] == -1
+    assert (np.asarray(assoc_j) == 0).sum() == 1
+
+
+@pytest.mark.parametrize("last_row_creates", [True, False])
+def test_insert_keyframe_slot_0_rule(seq, last_row_creates):
+    """Slot 0 keeps its new point exactly when the highest-index row that
+    targets slot 0 creates it: with every keypoint after the first creating
+    one made depth-valid and unassociated, no later row carries slot 0's old
+    value. Same arena rows as the JAX package either way."""
+    jf = _jax_frame(seq[0])
+    d = {k: v.copy() for k, v in _np_tree(jf).items()}
+    if last_row_creates:
+        d["valid"][:] = True
+        d["depth"][:] = np.where(d["depth"] > 0, d["depth"], 1.5)
+    jf2 = type(jf)(**{k: jnp.asarray(v) for k, v in d.items()})
+    a_j, assoc_j = jtr.stereo_initialize(jtr.ma.new_arena(KMAX, PMAX, 384), jf2,
+                                         jnp.eye(4), SCFG)
+    a_t, assoc_t = ttr.stereo_initialize(tma.new_arena(KMAX, PMAX, 384, "cpu"),
+                                         _torch_frame(jf2), torch.eye(4), TCFG)
+    np.testing.assert_array_equal(assoc_t.numpy(), np.asarray(assoc_j))
+    got = convert.arena_to_numpy(a_t)
+    _assert_arena_equal(got, _np_tree(a_j))
+    assert bool(got["pt_valid"][0]) == last_row_creates
 
 
 def test_slice_matches_jax(seq, jax_run):
     """The whole slice through the port's entry point (System.track_rgbd)
     against the JAX tracker on the same 10 JAX-rendered frames: both OK,
-    equal keyframe counts, and the port's ATE within 5 mm of the JAX one
-    (the slot-0 difference above and the IC-angle summation order make the
-    runs differ slightly)."""
+    equal keyframe and map-point counts, and the two ATEs within 0.1 mm of
+    each other. What remains between the runs is summation order: the IC
+    angle's 31x31 moments (angles agree to ~1e-5 rad) and the GN solves,
+    which move poses by ~1e-7 m here (observed ATE difference 7e-9 m); the
+    tolerance leaves room for a descriptor bin edge falling the other way."""
     tr_j, _ = jax_run
     sys_t = tslam.System(TCFG, kmax=KMAX, pmax=PMAX, device="cpu")
     for i, fr in enumerate(seq[:N_FRAMES]):
@@ -150,9 +175,9 @@ def test_slice_matches_jax(seq, jax_run):
         assert T.shape == (4, 4) and np.isfinite(T).all()
     assert tr_j.state.name == "OK" and sys_t.tracking_state.name == "OK"
     assert sys_t.keyframe_count == int(tr_j.arena.kf_valid.sum()) >= 2
-    assert abs(sys_t.map_point_count - int(tr_j.arena.pt_valid.sum())) <= 10
+    assert sys_t.map_point_count == int(tr_j.arena.pt_valid.sum())
     ate_j = _ate(tr_j.camera_trajectory(), seq)
     ate_t = _ate(sys_t.tracker.camera_trajectory(), seq)
     assert len(sys_t.tracker.camera_trajectory()) == N_FRAMES
-    assert ate_t <= ate_j + 0.005, (ate_t, ate_j)
+    assert abs(ate_t - ate_j) <= 1e-4, (ate_t, ate_j)
     assert ate_t < 0.03
