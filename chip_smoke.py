@@ -19,14 +19,33 @@ then prints one JSON line per phase:
            invalid and empty sides, non-finite values); the keypoint grid
            against kp_grid_plain; both versions' times;
   slice    60 rendered 480x640 frames through System.track_rgbd at the
-           SlamConfig() defaults (kmax=256, pmax=65536, no local BA, no
-           triangulation): every frame OK, ATE against the renderer's ground
-           truth, keyframes, and the kernel's launches on this path;
-  stages   per-stage times on the slice's final state, and the kernel timed
-           against its bounds and the launch floor on the inputs the tracker
-           gives it at its three call sites;
-  profile  torch.profiler windows over whole frames and over one pose
-           solve: device busy share, device operations, host operators.
+           SlamConfig() defaults (kmax=256, pmax=65536; epipolar
+           triangulation and local BA on, as the tracker is constructed):
+           every frame OK, ATE against the renderer's ground truth,
+           keyframes, triangulated points, Replace merges, BA outlier
+           observations, host synchronisations per frame, and the kernel's
+           launches on this path;
+  slice_pipelined
+           the same frames with pipeline=True (commit_every=3) and a flush
+           at the end, with the same guards, timed without a synchronise
+           per frame (run a second time after the compact phase, so that
+           the two modes alternate);
+  reloc    a forced loss on the slice's final state (the last pose put 1 m
+           off, no velocity): the next frame must relocalize to within
+           2 cm and 1 degree of ground truth with >= 50 inliers; times
+           _relocalize and ransac_pnp alone;
+  compact  the slice with a keyframe arena one slot larger than its keyframes,
+           which saturates: the tracker must warn and go on tracking; then
+           a keyframe is invalidated by hand and _maybe_compact must recycle
+           its slot and tracking must go on;
+  stages   per-stage times on the slice's final state (the tracking
+           programs, the keyframe program and its parts, the RANSACs), and
+           the kernel timed against its bounds and the launch floor on the
+           inputs the tracker gives it at its four call sites and at
+           relocalization's all-pairs call;
+  profile  torch.profiler windows over whole frames (pipelined and not),
+           over one pose solve and over one local BA: device busy share,
+           device operations, host operators.
 
 Then the card's name and power limit as nvidia-smi gives them, the kernels
 line and, last, the ok line. Without a card, or when any phase fails, it
@@ -35,13 +54,16 @@ exits non-zero and prints no ok line.
 --ab-source names an earlier version of the kernel's source (one
 match_top2_launch with the first version's 17 arguments). It is built
 beside the current one; the stages phase then times old, new, new, old at
-each call site, and the slice is run a second time on the old kernel and
-must give the same trajectory, keyframes and map points.
+each call site, and the first 20 frames are run with local BA and
+triangulation off on the new and on the old kernel and must give the same
+trajectory, keyframes and map points.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import copy
 import ctypes
 import json
 import os
@@ -50,6 +72,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -65,7 +88,10 @@ F32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = F32_OPS_PER_S / 4
 
 N_FRAMES = 60
+AB_FRAMES = 20         # the base of --ab-source: BA and triangulation off
 WARMUP_FRAMES = 10
+ATE_GUARD_M = 0.01
+RELOC_GUARD = (0.02, 1.0, 50)   # metres, degrees, inliers
 
 
 def emit(obj) -> None:
@@ -540,25 +566,119 @@ def ate_pair(torch, synthetic, metrics, traj, frames_T_wc) -> dict:
     return dict(ate_m=metrics.ate_rmse(est, gt_a), ate_bench_m=metrics.ate_rmse(est, gt_b))
 
 
-def phase_slice(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, dev,
-                keyframes, label="slice"):
-    """Every frame through the user's entry point, System.track_rgbd, with
-    the kernel's launch counts set to 0 just before and read just after."""
-    n = len(frames)
-    slam = System(cfg, kmax=256, pmax=65536, device=dev)
-    tr = slam.tracker
-    if tr.use_local_ba or tr.use_triangulation or tr.pipeline:
-        fail("the slice runs without local BA, triangulation or pipelining")
-    torch.cuda.reset_peak_memory_stats()
+class MapCounters:
+    """Counts what the keyframe program did while it is installed: points
+    made by triangulation, Replace merges, BA outlier observations. The
+    counts stay on the device until `read`."""
+
+    def __init__(self, mapping, ba):
+        self.mods = ((mapping, "create_new_map_points", self._triangulated),
+                     (mapping, "replace_points", self._merged),
+                     (ba, "run_local_ba", self._outliers))
+        self.real, self.counts = {}, dict(triangulated=[], merged=[], ba_outliers=[])
+
+    def _triangulated(self, real, arena, *a, **k):
+        out = real(arena, *a, **k)
+        self.counts["triangulated"].append(out.n_pt - arena.n_pt)
+        return out
+
+    def _merged(self, real, arena, src, dst, do):
+        self.counts["merged"].append(do.sum())
+        return real(arena, src, dst, do)
+
+    def _outliers(self, real, *a, **k):
+        out = real(*a, **k)
+        self.counts["ba_outliers"].append(out[1])
+        return out
+
+    def __enter__(self):
+        for mod, name, fn in self.mods:
+            self.real[name] = getattr(mod, name)
+            setattr(mod, name, lambda *a, _f=fn, _r=self.real[name], **k: _f(_r, *a, **k))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, _ in self.mods:
+            setattr(mod, name, self.real[name])
+
+    def read(self) -> dict:
+        out = {k: int(sum(int(x) for x in v)) for k, v in self.counts.items()}
+        out["local_ba_runs"] = len(self.counts["ba_outliers"])
+        return out
+
+
+def sync_sites(torch, fn) -> dict:
+    """Where fn waits for the card, by torch's sync debug mode: {file:line:
+    count} of every implicit synchronisation (.tolist(), .cpu(), int() of a
+    device scalar, an upload of a host value)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message)).most_common(12))
+
+
+def reset_launch_counts(mk) -> None:
     mk.match_top2.launches = mk.match_top2.cuda_launches = mk.kp_grid.launches = 0
-    times, states = [], []
-    for i, fr in enumerate(frames):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        T = slam.track_rgbd(fr.gray, fr.depth, None, i / 30.0)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        states.append(slam.tracking_state)
+
+
+def phase_slice(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, dev,
+                keyframes, label="slice", pipeline=False, plain=False, kmax=256,
+                modules=None, check_launches=True):
+    """Every frame through the user's entry point, System.track_rgbd, with
+    the kernel's launch counts set to 0 just before and read just after.
+    plain: local BA and triangulation off (the configuration of the earlier
+    slices, kept as the base of --ab-source). A pipelined run is timed as a
+    whole, since a synchronise after every frame would undo it. Host
+    synchronisations are the warnings of torch's sync debug mode (every
+    implicit wait for the card: .tolist(), .cpu(), int() of a device scalar)."""
+    n = len(frames)
+    slam = System(cfg, kmax=kmax, pmax=65536, pipeline=pipeline, device=dev)
+    tr = slam.tracker
+    if not (tr.use_local_ba and tr.use_triangulation and tr.commit_every == 3):
+        fail("the tracker's defaults are not local BA and triangulation on, commit_every 3")
+    if plain:
+        tr.use_local_ba = tr.use_triangulation = False
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(mk)
+    times, states, poses = [], [], []
+    counters = MapCounters(*modules) if modules else None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            if counters:
+                counters.__enter__()
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            for i, fr in enumerate(frames):
+                if i == WARMUP_FRAMES:
+                    torch.cuda.synchronize()
+                    t_steady = time.perf_counter()
+                t0 = time.perf_counter()
+                poses.append(slam.track_rgbd(fr.gray, fr.depth, None, i / 30.0))
+                if not pipeline:
+                    torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                states.append(slam.tracking_state)
+            slam.shutdown()
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            if counters:
+                counters.__exit__()
+    sync_sites = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught if "synchroniz" in str(w.message))
+    syncs = sum(sync_sites.values())
+    full_arena = [str(w.message) for w in caught if "arena is full" in str(w.message)]
+    for i, T in enumerate(poses):
+        T = np.asarray(T.cpu() if hasattr(T, "cpu") else T)
         if T.shape != (4, 4) or not np.isfinite(T).all():
             fail(f"frame {i}: pose is not a finite 4x4")
     launches, cuda_launches = mk.match_top2.launches, mk.match_top2.cuda_launches
@@ -567,41 +687,61 @@ def phase_slice(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, 
     ates = ate_pair(torch, synthetic, metrics, traj, [f.T_wc.cpu().numpy() for f in frames])
     steady = sorted(times[WARMUP_FRAMES:])
     res = dict(phase=label, frames=n, width=cfg.camera.width, height=cfg.camera.height,
-               n_features=cfg.orb.n_features, n_levels=cfg.orb.n_levels, kmax=256, pmax=65536,
+               n_features=cfg.orb.n_features, n_levels=cfg.orb.n_levels, kmax=kmax, pmax=65536,
+               pipeline=pipeline, local_ba=tr.use_local_ba, triangulation=tr.use_triangulation,
                all_ok=all(s == TrackState.OK for s in states),
                trajectory_len=len(traj), keyframes=slam.keyframe_count,
-               map_points=slam.map_point_count, match_top2_launches=launches,
+               keyframe_slots_used=tr.n_kf_host,
+               keyframe_frames=[round(t * 30.0) for t in tr.kf_timestamps],
+               map_points=slam.map_point_count, map_point_slots_used=int(tr.arena.n_pt),
+               match_top2_launches=launches,
                match_top2_cuda_launches=cuda_launches, kp_grid_launches=grids,
-               tracked_frames=n - 1, frame_ms_median=statistics.median(steady),
-               frame_ms_p90=steady[int(0.9 * (len(steady) - 1))],
-               first_frame_ms=times[0], second_frame_ms=times[1],
+               tracked_frames=n - 1, host_syncs=syncs, host_syncs_per_frame=syncs / n,
+               host_sync_sites=dict(sync_sites.most_common(12)),
+               frame_ms_mean=(t_end - t_steady) * 1e3 / (n - WARMUP_FRAMES),
+               run_s=t_end - t_start, arena_full_warnings=full_arena,
                peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20, **ates)
+    if not pipeline:      # per-frame times mean something only with a synchronise each
+        res.update(frame_ms_median=statistics.median(steady),
+                   frame_ms_p90=steady[int(0.9 * (len(steady) - 1))],
+                   frame_ms_max=steady[-1], first_frame_ms=times[0], second_frame_ms=times[1])
+    if counters:
+        res.update(counters.read())
     emit(res)
     if not res["all_ok"]:
         fail(f"tracking states {[s.name for s in states]}")
     if len(traj) != n:
         fail(f"trajectory has {len(traj)} poses, expected {n}")
-    if not (ates["ate_m"] <= 0.01 and ates["ate_bench_m"] <= 0.01):
-        fail(f"ATE {ates} above 0.01 m")
+    if not (ates["ate_m"] <= ATE_GUARD_M and ates["ate_bench_m"] <= ATE_GUARD_M):
+        fail(f"ATE {ates} above {ATE_GUARD_M} m")
     if not keyframes[0] <= res["keyframes"] <= keyframes[1]:
         fail(f"{res['keyframes']} keyframes, expected {keyframes[0]}-{keyframes[1]}")
-    if label == "slice":
-        if launches < 2 * (n - 1):
-            fail(f"match_top2 launched {launches} times for {n - 1} tracked frames")
-        # one grid per tracked frame, shared by its matcher calls
-        if not (grids == n - 1 and cuda_launches == 2 * launches + grids):
-            fail(f"{grids} keypoint grids and {cuda_launches} CUDA launches for {launches} "
-                 f"calls on {n - 1} tracked frames")
+    if not check_launches:        # an earlier kernel's wrapper counts nothing
+        return slam, res
+    if launches < 2 * (n - 1):
+        fail(f"match_top2 launched {launches} times for {n - 1} tracked frames")
+    # one grid per tracked frame, shared by its matcher calls; per keyframe
+    # one more for its own keypoints, which fuse_into_keyframe searches, and,
+    # when it is inserted frames later (pipelined), one for fuse_associate
+    if not (n - 1 <= grids <= n - 1 + 2 * res["keyframe_slots_used"]
+            and cuda_launches == 2 * launches + grids):
+        fail(f"{grids} keypoint grids and {cuda_launches} CUDA launches for {launches} "
+             f"calls on {n - 1} tracked frames")
     return slam, res
 
 
-def phase_slice_ab(torch, mk, matcher, old, new_slam, new_res, slice_args):
-    """The slice once more on the old kernel: the outputs of both kernels
+def phase_slice_ab(torch, mk, matcher, old, slice_args):
+    """The configuration of the earlier slices (local BA and triangulation
+    off), on the new kernel and on the old one: the outputs of both kernels
     are exact, so the trajectory, keyframes and map points must be equal."""
+    cfg, frames, *rest = slice_args
+    args = (cfg, frames[:AB_FRAMES], *rest[:-1], (1, 5))
+    new_slam, new_res = phase_slice(torch, mk, *args, label="slice_plain", plain=True)
     real = matcher.match_top2
     matcher.match_top2 = old
     try:
-        old_slam, old_res = phase_slice(torch, mk, *slice_args, label="slice_old_kernel")
+        old_slam, old_res = phase_slice(torch, mk, *args, label="slice_plain_old_kernel",
+                                        plain=True, check_launches=False)
     finally:
         matcher.match_top2 = real
     t_new = np.stack([T for _, T in new_slam.tracker.camera_trajectory()])
@@ -615,36 +755,163 @@ def phase_slice_ab(torch, mk, matcher, old, new_slam, new_res, slice_args):
         fail(f"the slice differs between the old and the new kernel: {same}")
 
 
-def record_top2_calls(matcher, fn) -> list:
-    """The argument lists of the matcher's match_top2 calls while fn runs."""
-    calls, real = [], matcher.match_top2
+def pose_error(T_cw: np.ndarray, T_wc_gt: np.ndarray, T_wc_0: np.ndarray):
+    """Translation (m) and rotation (degrees) between an estimated T_cw and
+    the renderer's pose, both relative to frame 0."""
+    gt = np.linalg.inv(T_wc_gt) @ T_wc_0
+    cos = (np.trace(T_cw[:3, :3].T @ gt[:3, :3]) - 1.0) / 2.0
+    return (float(np.linalg.norm(T_cw[:3, 3] - gt[:3, 3])),
+            float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))))
+
+
+def fork_tracker(tr):
+    """A tracker that goes on from `tr`'s state without touching it (the
+    tensors are never written in place; the host lists are copied)."""
+    t2 = copy.copy(tr)
+    t2.records, t2.kf_timestamps, t2._pending = list(tr.records), list(tr.kf_timestamps), []
+    return t2
+
+
+def phase_reloc(torch, mk, slam, frames, n_done, cfg, TrackState, solvers, tracking):
+    """A forced loss at full width: the last pose 1 m off and no velocity,
+    so the next frame fails both motion-model searches and _relocalize must
+    find the pose among the recent keyframes on that same frame."""
+    tr = fork_tracker(slam.tracker)
+    T_bad = tr.last.T_cw.clone()
+    T_bad[0, 3] += 1.0
+    tr.last = tr.last._replace(T_cw=T_bad)
+    tr.velocity = None
+    fr = frames[n_done]
+    n_kf = tr.n_kf_host
+    calls = []
+    real = tr._relocalize
+    tr._relocalize = lambda frame: calls.append(frame) or real(frame)
+    reset_launch_counts(mk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T = tr.process(fr.gray, fr.depth, torch.ones_like(fr.gray), n_done / 30.0)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    launches = mk.match_top2.launches
+    err_m, err_deg = pose_error(np.asarray(T), fr.T_wc.cpu().numpy(),
+                                frames[0].T_wc.cpu().numpy())
+    res = dict(phase="reloc", relocalized=len(calls), state=tr.state.name,
+               n_inliers=tr.n_inliers, err_m=err_m, err_deg=err_deg, frame_ms=frame_ms,
+               keyframes=tr.n_kf_host, match_top2_launches=launches)
+    if not (len(calls) == 1 and tr.state == TrackState.OK and tr.n_kf_host >= n_kf):
+        emit(res)
+        fail("the forced loss did not end in a relocalization")
+
+    # _relocalize alone on the same lost state, and ransac_pnp alone on its
+    # best candidate's matches (the most recent keyframe)
+    lost = fork_tracker(slam.tracker)
+    lost.last, lost.velocity = lost.last._replace(T_cw=T_bad), None
+    frame, arena = calls[0], lost.arena
+
+    def reloc_once():
+        lost.arena = arena
+        return tracking.Tracking._relocalize(lost, frame)
+
+    res["relocalize_ms"] = wall_ms(torch, reloc_once, reps=5, warmup=1)
+    kf = lost.n_kf_host - 1
+    m_idx, _ = tracking._dense_ratio_matches(frame, arena.kf_uv[kf], arena.kf_desc[kf],
+                                             arena.kf_level[kf], arena.kf_kp_valid[kf],
+                                             cfg.orb.n_levels)
+    pt = arena.kf_obs[kf][m_idx.clamp(min=0).long()]
+    has_pt = (m_idx >= 0) & (pt >= 0) & arena.pt_valid[pt.clamp(min=0).long()]
+    pw = arena.pt_pos[pt.clamp(min=0).long()]
+    cam = cfg.camera
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+    gen = torch.Generator(device=pw.device)
+    pnp = lambda: solvers.ransac_pnp(pw, frame.uv, has_pt, K, px_threshold=5.991 ** 0.5,  # noqa: E731
+                                     generator=gen.manual_seed(1))
+    q = tracking.cam_ops.backproject(frame.uv, frame.depth, cam)
+    rigid = lambda: solvers.ransac_rigid(pw, q, has_pt & (frame.depth > 0), K, frame.uv,  # noqa: E731
+                                         px_threshold=5.991 ** 0.5 * 2,
+                                         generator=gen.manual_seed(1))
+    res.update(ransac_pnp_ms=wall_ms(torch, pnp, reps=5, warmup=1),
+               ransac_rigid_ms=wall_ms(torch, rigid, reps=5, warmup=1),
+               matches=int(has_pt.sum()), pnp_inliers=int(pnp().n_inliers),
+               rigid_inliers=int(rigid().n_inliers))
+    svd12 = torch.randn(300, 12, 12, device=pw.device)
+    res["svd_300x12x12_ms"] = wall_ms(torch, lambda: torch.linalg.svd(svd12), reps=5, warmup=1)
+    emit(res)
+    if not (err_m <= RELOC_GUARD[0] and err_deg <= RELOC_GUARD[1]
+            and tr.n_inliers >= RELOC_GUARD[2]):
+        fail(f"relocalized pose off by {err_m} m, {err_deg} degrees with {tr.n_inliers} inliers")
+    if launches < 6:
+        fail(f"relocalization launched match_top2 {launches} times")
+    return res, pnp, rigid
+
+
+def phase_compact(torch, mk, slice_args, more_frames, kmax):
+    """A keyframe arena of `kmax` slots, one more than the slice's keyframes,
+    saturates on the slice (the last slot is never filled): the tracker must
+    warn once that culling frees too little, create no further keyframe and
+    go on tracking. Then keyframe 1 is invalidated by hand (a culled
+    keyframe) and a requested compaction must recycle the slot, remap the
+    host's references and leave a tracker that tracks `more_frames` on."""
+    cfg, frames, System, TrackState, *_ = slice_args
+    slam, res = phase_slice(torch, mk, *slice_args[:-1], (kmax - 1, kmax - 1),
+                            label="compact_saturated", kmax=kmax)
+    tr = slam.tracker
+    if not (tr.kf_arena_full_warned and len(res["arena_full_warnings"]) == 1
+            and tr.n_kf_host == kmax - 1):
+        fail(f"a saturated keyframe arena did not warn once: {res['arena_full_warnings']}")
+    n_before, ref_before = tr.n_kf_host, tr.ref_kf
+    valid = tr.arena.kf_valid.clone()
+    valid[1] = False
+    tr.arena = tr.arena._replace(kf_valid=valid)
+    tr.compact_min_gain, tr._compact_requested = 1, True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr._maybe_compact()
+    torch.cuda.synchronize()
+    compact_ms = (time.perf_counter() - t0) * 1e3
+    out = dict(phase="compact", kmax=kmax, keyframes_before=n_before,
+               keyframes_after=tr.n_kf_host, arena_n_kf=int(tr.arena.n_kf),
+               ref_kf_before=ref_before, ref_kf_after=tr.ref_kf, compact_ms=compact_ms,
+               valid_after=tr.arena.kf_valid.tolist())
+    ok = (tr.n_kf_host == n_before - 1 == int(tr.arena.n_kf) and tr.ref_kf == ref_before - 1
+          and out["valid_after"] == [True] * (n_before - 1) + [False] * (kmax - n_before + 1)
+          and max(r[1] for r in tr.records) < tr.n_kf_host)
+    for i, fr in enumerate(more_frames):      # the freed slot may take a keyframe again
+        slam.track_rgbd(fr.gray, fr.depth, None, (len(frames) + i) / 30.0)
+    out.update(state=tr.state.name, keyframes_end=tr.n_kf_host)
+    ok = ok and tr.state == TrackState.OK and tr.n_kf_host < kmax \
+        and len(tr.camera_trajectory()) == len(frames) + len(more_frames)
+    emit(out)
+    if not ok:
+        fail("compaction did not recycle the invalidated keyframe's slot")
+    return slam
+
+
+def record_top2_calls(module, fn) -> list:
+    """The argument lists of `module`'s match_top2 calls while fn runs."""
+    calls, real = [], module.match_top2
 
     def record(*args, **kw):
         calls.append(args)
         return real(*args, **kw)
 
-    matcher.match_top2 = record
+    module.match_top2 = record
     try:
         fn()
     finally:
-        matcher.match_top2 = real
+        module.match_top2 = real
     return calls
 
 
-def phase_stages(torch, mk, slam, frame, cfg, modules, old=None):
+def phase_stages(torch, mk, slam, frame, cfg, modules, ransacs, old=None):
     """Per-stage medians on the slice's final state and the next frame; the
     functions are pure (they return new state), so the state is reused."""
-    extractor, build_frame, tracking, optimizer, matcher = modules
+    extractor, build_frame, tracking, optimizer, matcher, mapping, ba = modules
     tr, cam = slam.tracker, cfg.camera
     ones = torch.ones_like(frame.gray)
     feats = extractor.extract(frame.gray, cfg.orb, cam.height, cam.width)
     fr = build_frame(feats, frame.depth, ones, cam)
     last, arena, vel = tr.last, tr.arena, tr.velocity
-    pc = tracking.cam_ops.backproject(last.frame.uv, last.frame.depth, cam)
-    pw_depth = tracking.lie.se3_apply(tracking.lie.se3_inverse(last.T_cw), pc)
-    has_pt = last.assoc >= 0
-    pts_w = torch.where(has_pt[:, None], arena.pt_pos[torch.where(has_pt, last.assoc, 0).long()],
-                        pw_depth)
+    pts_w = tracking._world_points(arena, last, cfg)
     T_pred = vel @ last.T_cw
     T1, assoc1, _, _ = tracking.track_motion_model(last, pts_w, fr, T_pred, cfg)
     _, T2, assoc2, _ = tracking.track_local_map(arena, fr, T1, cfg, assoc1)
@@ -655,13 +922,30 @@ def phase_stages(torch, mk, slam, frame, cfg, modules, old=None):
         uv=fr.uv, ur=fr.ur, inv_sigma2=1.0 / sf ** (2.0 * fr.level.float()), valid=matched)
     K = (cam.fx, cam.fy, cam.cx, cam.cy)
 
+    # The keyframe program's parts on the state each of them meets: the next
+    # frame inserted as a keyframe, then triangulation, fusion and BA.
+    kf_id = tr.n_kf_host
+    assoc_f = tracking.fuse_associate(arena, fr, T2, assoc2, cfg)
+    a_ins, _ = tracking._insert_keyframe(arena, fr, T2, assoc_f, 99.0, cfg, kf_id=kf_id)
+    a_tri = mapping.create_new_map_points(a_ins, kf_id, cfg)
+    a_fus, _ = mapping.fuse_into_keyframe(a_tri, kf_id, cfg)
+    a_ref = tracking.cull_points(mapping.refresh_points(a_fus, kf_id, cfg))
+    prob = ba.build_problem(a_ref, kf_id, cfg)
+    kf = kf_id - 1
+
     # the kernel on the inputs the tracker gives it at each call site
     path_calls = []
-    for role, fn in (
-            ("motion_model", lambda: tracking.track_motion_model(last, pts_w, fr, T_pred, cfg)),
-            ("local_map", lambda: tracking.track_local_map(arena, fr, T1, cfg, assoc1)),
-            ("keyframe_fuse", lambda: tracking.fuse_associate(arena, fr, T2, assoc2, cfg))):
-        args = record_top2_calls(matcher, fn)[0]
+    for role, module, fn in (
+            ("motion_model", matcher,
+             lambda: tracking.track_motion_model(last, pts_w, fr, T_pred, cfg)),
+            ("local_map", matcher, lambda: tracking.track_local_map(arena, fr, T1, cfg, assoc1)),
+            ("keyframe_fuse", matcher, lambda: tracking.fuse_associate(arena, fr, T2, assoc2, cfg)),
+            ("fuse_into_keyframe", matcher,
+             lambda: mapping.fuse_into_keyframe(a_tri, kf_id, cfg)),
+            ("relocalization_dense", tracking, lambda: tracking._dense_ratio_matches(
+                fr, arena.kf_uv[kf], arena.kf_desc[kf], arena.kf_level[kf],
+                arena.kf_kp_valid[kf], cfg.orb.n_levels))):
+        args = record_top2_calls(module, fn)[0]
         err, info = compare_top2(torch, mk, args)
         call = dict(role=role, M=args[0].shape[0], N=args[5].shape[0], max_abs_err=err,
                     path=info["path"],
@@ -679,7 +963,23 @@ def phase_stages(torch, mk, slam, frame, cfg, modules, old=None):
             del keep
             call["ab_device_ms"] = dict(old=[d[0], d[3]], new=[d[1], d[2]])
         path_calls.append(call)
+    if path_calls[4]["path"] != "tiled":
+        fail("relocalization's all-pairs call did not take the kernel's tiled path")
 
+    def full_keyframe(use_tri, use_ba):
+        return lambda: tracking.keyframe_program(arena, fr, T2, assoc2, 99.0, cfg, use_tri,
+                                                 use_ba, kf_id=kf_id)
+
+    # the tracking programs and the keyframe program wait for the card nowhere
+    # (the keyframe program when it is given the cursor)
+    for name, fn in (("track_frame_core", lambda: tracking.track_frame_core(
+            arena, last, vel, True, fr, cfg, tr.ref_kf)), ("keyframe_program",
+                                                           full_keyframe(True, True))):
+        sites = sync_sites(torch, fn)
+        if sites:
+            fail(f"{name} synchronises with the card at {sites}")
+
+    pnp, rigid = ransacs
     stages = dict(
         extract=wall_ms(torch, lambda: extractor.extract(frame.gray, cfg.orb, cam.height,
                                                           cam.width)),
@@ -694,12 +994,27 @@ def phase_stages(torch, mk, slam, frame, cfg, modules, old=None):
             arena, fr, T1, cfg, assoc1)),
         track_frame_core=wall_ms(torch, lambda: tracking.track_frame_core(
             arena, last, vel, True, fr, cfg, tr.ref_kf)),
-        keyframe_program=wall_ms(torch, lambda: tracking.keyframe_program(
-            arena, fr, T2, assoc2, 99.0, cfg, False, False), reps=5),
+        keyframe_program_plain=wall_ms(torch, full_keyframe(False, False), reps=5),
+        keyframe_program=wall_ms(torch, full_keyframe(True, True), reps=5),
+        create_new_map_points=wall_ms(torch, lambda: mapping.create_new_map_points(
+            a_ins, kf_id, cfg), reps=5),
+        fuse_into_keyframe=wall_ms(torch, lambda: mapping.fuse_into_keyframe(
+            a_tri, kf_id, cfg), reps=5),
+        refresh_points=wall_ms(torch, lambda: mapping.refresh_points(a_fus, kf_id, cfg), reps=5),
+        build_problem=wall_ms(torch, lambda: ba.build_problem(a_ref, kf_id, cfg), reps=5),
+        run_local_ba=wall_ms(torch, lambda: ba.run_local_ba(a_ref, prob, cfg, 5, 5), reps=5),
+        ransac_pnp=wall_ms(torch, pnp, reps=5),
+        ransac_rigid=wall_ms(torch, rigid, reps=5),
     )
+    sizes = dict(local_keyframes=int(prob.kf_mask[:ba.L_OPT].sum()),
+                 fixed_keyframes=int(prob.kf_mask[ba.L_OPT:].sum()),
+                 ba_points=int(prob.pt_mask.sum()), ba_edges=int((prob.obs_slot >= 0).sum()),
+                 triangulated_here=int(a_tri.n_pt - a_ins.n_pt))
     gn_call = lambda: optimizer.pose_optimization(T1, obs, K, cam.bf)      # noqa: E731
-    return dict(phase="stages", ms=stages, match_top2_on_path=path_calls,
-                obs_matched=int(matched.sum()), **launch_floor(torch, mk)), path_calls[1], gn_call
+    ba_call = lambda: ba.run_local_ba(a_ref, prob, cfg, 5, 5)              # noqa: E731
+    return dict(phase="stages", ms=stages, keyframe_sizes=sizes, match_top2_on_path=path_calls,
+                obs_matched=int(matched.sum()), **launch_floor(torch, mk)), path_calls, \
+        gn_call, ba_call
 
 
 def profile_window(torch, fn, n: int) -> dict:
@@ -738,21 +1053,38 @@ def profile_window(torch, fn, n: int) -> dict:
                               for e in host})
 
 
-def phase_profile(torch, slam, frames, t_first: int, gn_call) -> dict:
-    """Profiler windows over whole frames (System.track_rgbd, per frame) and
-    over one pose_optimization solve."""
-    def frames_fn():
-        for i, fr in enumerate(frames):
-            slam.track_rgbd(fr.gray, fr.depth, None, (t_first + i) / 30.0)
+def phase_profile(torch, slam, slam_pipe, frames, t_first: int, gn_call, ba_call) -> dict:
+    """Profiler windows over whole frames (System.track_rgbd, per frame), not
+    pipelined and pipelined, over one pose_optimization solve and over one
+    run_local_ba."""
+    def frames_fn(system):
+        def run():
+            for i, fr in enumerate(frames):
+                system.track_rgbd(fr.gray, fr.depth, None, (t_first + i) / 30.0)
+            system.shutdown()
+        return run
 
     gn_call()
-    return dict(phase="profile", per_frame=profile_window(torch, frames_fn, len(frames)),
-                frames=len(frames), per_pose_optimization=profile_window(torch, gn_call, 1))
+    ba_call()
+    return dict(phase="profile", frames=len(frames),
+                per_frame=profile_window(torch, frames_fn(slam), len(frames)),
+                per_frame_pipelined=profile_window(torch, frames_fn(slam_pipe), len(frames)),
+                per_pose_optimization=profile_window(torch, gn_call, 1),
+                per_run_local_ba=profile_window(torch, ba_call, 1))
 
 
-def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5), ab_source=None) -> int:
-    """All phases on device `dev` at configuration `cfg`."""
-    from gdslam_tpu_torch.backend import optimizer
+def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
+        keyframes_pipelined=(4, 7), ab_source=None) -> int:
+    """All phases on device `dev` at configuration `cfg`. keyframes,
+    keyframes_pipelined: the ranges the slices must land in, around what the
+    JAX package with its defaults gives on these 60 frames (4, and 5
+    pipelined; run on the CPU on the same scene from its own renderer). The
+    pipelined range is wider on the upper side: a keyframe decided by the
+    reference-match ratio is followed by another on each later frame of the
+    same flush, because the new keyframe's match count is read only at the
+    next flush (in both packages), so the count moves by one or two with the
+    place of a trigger inside its flush; `keyframe_frames` shows the pairs."""
+    from gdslam_tpu_torch.backend import ba, mapping, optimizer, solvers
     from gdslam_tpu_torch.frontend import extractor, matcher
     from gdslam_tpu_torch.frontend.frame import build_frame
     from gdslam_tpu_torch.io import synthetic
@@ -784,23 +1116,47 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5), ab_source=N
     emit(kres)
 
     slice_args = (cfg, frames[:n_frames], System, TrackState, synthetic, metrics, dev, keyframes)
-    slam, sres = phase_slice(torch, mk, *slice_args)
-    launches = sres["match_top2_launches"]
+    slam, sres = phase_slice(torch, mk, *slice_args, modules=(mapping, ba))
+    if not (sres["local_ba_runs"] >= 1 and sres["triangulated"] >= 0):
+        fail("the default slice ran no local BA")
+    slam_pipe, pres = phase_slice(torch, mk, *slice_args[:-1], keyframes_pipelined,
+                                  label="slice_pipelined", pipeline=True,
+                                  modules=(mapping, ba))
     if old is not None:
-        phase_slice_ab(torch, mk, matcher, old, slam, sres, slice_args)
-    stages, local_map, gn_call = phase_stages(torch, mk, slam, frames[n_frames], cfg,
-                                     (extractor, build_frame, tracking, optimizer, matcher), old)
+        phase_slice_ab(torch, mk, matcher, old, slice_args)
+    rres, pnp, rigid = phase_reloc(torch, mk, slam, frames, n_frames, cfg, TrackState, solvers,
+                                   tracking)
+    phase_compact(torch, mk, slice_args, frames[n_frames:n_frames + 3],
+                  sres["keyframe_slots_used"] + 1)
+    # The compact phase's saturated run is the slice's work once more, not
+    # pipelined; with a second pipelined run after it the two modes have
+    # alternated (not, pipelined, not, pipelined) inside one process.
+    _, pres2 = phase_slice(torch, mk, *slice_args[:-1], keyframes_pipelined,
+                           label="slice_pipelined_again", pipeline=True)
+    stages, path_calls, gn_call, ba_call = phase_stages(
+        torch, mk, slam, frames[n_frames], cfg,
+        (extractor, build_frame, tracking, optimizer, matcher, mapping, ba), (pnp, rigid), old)
     stages["ms"]["whole_frame"] = sres["frame_ms_median"]
+    stages["ms"]["whole_frame_mean"] = sres["frame_ms_mean"]
+    stages["ms"]["whole_frame_mean_pipelined"] = [pres["frame_ms_mean"], pres2["frame_ms_mean"]]
+    stages["ms"]["relocalize"] = rres["relocalize_ms"]
     stages["render_s"] = render_s
     emit(stages)
-    emit(phase_profile(torch, slam, frames[n_frames + 1:], n_frames + 1, gn_call))
+    emit(phase_profile(torch, slam, slam_pipe, frames[n_frames + 1:], n_frames + 1, gn_call,
+                       ba_call))
 
+    local_map = path_calls[1]
+    by_path = dict(slice=sres["match_top2_launches"],
+                   slice_pipelined=pres["match_top2_launches"],
+                   reloc=rres["match_top2_launches"])
+    if min(by_path.values()) < 1:
+        fail(f"a path launched no kernel: {by_path}")
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": [{
         "name": "match_top2", "route": "cuda",
         "source": "gdslam_tpu_torch/csrc/match_top2.cu",
         "replaces": "gdslam_tpu/ops/pallas_match.py:98",
-        "launches": launches, "max_abs_err": err,
+        "launches": by_path["slice"], "launches_by_path": by_path, "max_abs_err": err,
         "ms": local_map["ms"], "plain_ms": local_map["plain_ms"],
         "bound_ms": local_map["bound_ms"], "bound_by": local_map["bound_by"],
         "library_ms": None,
@@ -809,7 +1165,10 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5), ab_source=N
         "cuda_launches_per_call": local_map["cuda_launches_per_call"],
         "path": local_map["path"], "device_ms": local_map["device_ms"],
         "first_call_ms": local_map["first_call_ms"], "grid_ms": local_map["grid_ms"],
-        "shape": [local_map["M"], local_map["N"]], "role": local_map["role"]}]})
+        "shape": [local_map["M"], local_map["N"]], "role": local_map["role"],
+        "call_sites": [{k: c[k] for k in ("role", "M", "N", "path", "ms", "device_ms",
+                                          "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                       for c in path_calls]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

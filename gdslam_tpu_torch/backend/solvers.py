@@ -1,0 +1,180 @@
+"""Closed-form alignment solvers + batched RANSAC (port of
+gdslam_tpu.backend.solvers).
+
+- `horn_alignment`: Horn's absolute-orientation closed form (SVD) for SE3
+  (fixed scale) or Sim3, the math behind Sim3Solver::ComputeSim3 (reference
+  Sim3Solver.h:55-58; scale fixed for RGB-D per Sim3Solver.h:20).
+- `ransac_rigid`: RANSAC over 3D-3D correspondences with a closed-form
+  minimal solver (the role of EPnP RANSAC where every keypoint has depth).
+- `ransac_pnp`: 2D-3D pose RANSAC, the PnPsolver/EPnP role for observations
+  without depth: a 6-point DLT with known K.
+
+All hypotheses are solved and scored as one batch (n_iters fixed, no early
+exit); consensus is scored by reprojection error in the target view.
+
+Random numbers: the JAX functions draw their samples from a `jax.random`
+key, which the port cannot replay. Here the samples come from a
+`torch.Generator`, or from `sample_idx` when the caller supplies the draw
+(the parity tests pass the JAX package's). `ransac_sim3` and `optimize_sim3`
+come with loop closing (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from gdslam_tpu_torch.core import lie
+
+
+def horn_alignment(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor,
+                   with_scale: bool = False):
+    """Weighted closed-form R, t, s with s*R @ P + t ~= Q.
+
+    P, Q: [..., n, 3]; w: [..., n] non-negative weights (0 = ignore).
+    Returns (R [..., 3, 3], t [..., 3], s [...]), batched on leading dims."""
+    wsum = w.sum(dim=-1, keepdim=True) + 1e-12
+    cp = torch.einsum("...n,...ni->...i", w, P) / wsum
+    cq = torch.einsum("...n,...ni->...i", w, Q) / wsum
+    Pc = P - cp[..., None, :]
+    Qc = Q - cq[..., None, :]
+    H = torch.einsum("...n,...ni,...nj->...ij", w, Pc, Qc)
+    U, _, Vt = torch.linalg.svd(H)
+    V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
+    d = torch.linalg.det(V @ Ut)
+    D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1))
+    R = V @ D @ Ut
+    if with_scale:
+        RP = torch.einsum("...ij,...nj->...ni", R, Pc)
+        num = torch.einsum("...n,...ni,...ni->...", w, Qc, RP)
+        den = torch.einsum("...n,...ni,...ni->...", w, Pc, Pc) + 1e-12
+        s = num / den
+    else:
+        s = torch.ones_like(d)
+    t = cq - s[..., None] * torch.einsum("...ij,...j->...i", R, cp)
+    return R, t, s
+
+
+class RansacResult(NamedTuple):
+    T: torch.Tensor          # [4, 4] best rigid transform (Q <- P)
+    inliers: torch.Tensor    # [n] bool consensus set
+    n_inliers: torch.Tensor  # scalar int
+    ok: torch.Tensor         # scalar bool (enough inliers found)
+
+
+def _draw(valid: torch.Tensor, n_iters: int, size: int,
+          generator: Optional[torch.Generator], sample_idx: Optional[torch.Tensor]):
+    """[n_iters, size] sample rows: `sample_idx` if given, else drawn with
+    replacement, uniformly over the valid rows (over all rows when none is
+    valid, as the reference's log(p + 1e-12) does)."""
+    if sample_idx is not None:
+        return sample_idx.reshape(n_iters, size).long()
+    probs = valid.float() + 1e-12
+    return torch.multinomial(probs, n_iters * size, replacement=True,
+                             generator=generator).reshape(n_iters, size)
+
+
+def _score(T: torch.Tensor, pw: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
+           K: tuple, px_threshold: float):
+    """Reprojection consensus of pose(s) T [..., 4, 4]: (count [...], mask [..., n])."""
+    fx, fy, cx, cy = K
+    Pq = torch.einsum("...ij,nj->...ni", T[..., :3, :3], pw) + T[..., None, :3, 3]
+    z = Pq[..., 2].clamp(min=1e-6)
+    u = fx * Pq[..., 0] / z + cx
+    v = fy * Pq[..., 1] / z + cy
+    err = torch.hypot(u - uv[:, 0], v - uv[:, 1])
+    inl = valid & (err < px_threshold) & (Pq[..., 2] > 1e-6)
+    return inl.sum(dim=-1), inl
+
+
+def ransac_rigid(P: torch.Tensor, Q: torch.Tensor, valid: torch.Tensor, K: tuple,
+                 uv_q: torch.Tensor, n_iters: int = 300, sample_size: int = 3,
+                 min_inliers: int = 10, px_threshold: float = 4.0, *,
+                 generator: Optional[torch.Generator] = None,
+                 sample_idx: Optional[torch.Tensor] = None) -> RansacResult:
+    """RANSAC rigid 3D-3D with reprojection consensus.
+
+    P [n,3] source points, Q [n,3] target-frame points, uv_q [n,2] observed
+    pixels in the target view; K = (fx, fy, cx, cy). Samples are drawn with
+    replacement; a degenerate (repeated-index) sample yields a poor
+    hypothesis that loses the argmax."""
+    idx = _draw(valid, n_iters, sample_size, generator, sample_idx)
+    R, t, _ = horn_alignment(P[idx], Q[idx], torch.ones(idx.shape, device=P.device))
+    Ts = lie.rt_to_mat(R, t)                                          # [iters, 4, 4]
+    scores, inls = _score(Ts, P, uv_q, valid, K, px_threshold)
+    best = torch.argmax(scores)                   # the first among equal scores
+    inliers = inls[best]
+
+    # Refine on the full consensus set (closed form again).
+    R, t, _ = horn_alignment(P, Q, inliers.float())
+    T_ref = lie.rt_to_mat(R, t)
+    n_ref, inliers_ref = _score(T_ref, P, uv_q, valid, K, px_threshold)
+    use_ref = n_ref >= scores[best]
+    n_best = torch.maximum(n_ref, scores[best])
+    return RansacResult(T=torch.where(use_ref, T_ref, Ts[best]),
+                        inliers=torch.where(use_ref, inliers_ref, inliers),
+                        n_inliers=n_best, ok=n_best >= min_inliers)
+
+
+def _P_to_T(Pm: torch.Tensor, Xh: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Projection matrix -> SE3 (batched), resolving the projective sign on
+    the raw 3x4 matrix first (flipping an orthonormalized R negates it, which
+    is not a rotation): the weighted projective depths of the support set
+    must be positive. The DLT's null vector has no sign of its own, so this
+    rule is what makes the result independent of the SVD's sign choice."""
+    w_depth = torch.einsum("...nk,...k->...n", Xh, Pm[..., 2, :]) * w
+    Pm = torch.where((w_depth.sum(dim=-1) < 0)[..., None, None], -Pm, Pm)
+    U, S, Vt = torch.linalg.svd(Pm[..., :3])
+    d = torch.linalg.det(U @ Vt)
+    D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1))
+    scale = S.sum(dim=-1) / 3.0
+    return lie.rt_to_mat(U @ D @ Vt, Pm[..., 3] / scale.clamp(min=1e-12)[..., None])
+
+
+def ransac_pnp(pw: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor, K: tuple,
+               n_iters: int = 300, min_inliers: int = 10, px_threshold: float = 2.45, *,
+               generator: Optional[torch.Generator] = None,
+               sample_idx: Optional[torch.Tensor] = None) -> RansacResult:
+    """2D-3D pose RANSAC (reference PnPsolver.h:73, SetRansacParameters(0.99,
+    10, 300, 4, 0.5, 5.991) at Tracking.cc:1715) for observations without
+    depth. Minimal solver: 6-point DLT for the projection matrix with known
+    K, R orthonormalized by SVD; consensus by reprojection (threshold ~
+    sqrt(5.991) px)."""
+    fx, fy, cx, cy = K
+    n = pw.shape[0]
+    xn = torch.stack([(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fy], dim=1)
+    idx = _draw(valid, n_iters, 6, generator, sample_idx)
+
+    Xh_all = torch.cat([pw, torch.ones((n, 1), device=pw.device)], dim=1)
+    z4_all = torch.zeros((n, 4), device=pw.device)
+    r1 = torch.cat([Xh_all, z4_all, -xn[:, 0:1] * Xh_all], dim=1)     # [n, 12]
+    r2 = torch.cat([z4_all, Xh_all, -xn[:, 1:2] * Xh_all], dim=1)
+
+    # per hypothesis the 12 x 12 DLT system, its rows interleaved u, v
+    A = torch.stack([r1[idx], r2[idx]], dim=2).reshape(n_iters, 12, 12)
+    Vt = torch.linalg.svd(A).Vh
+    Ts = _P_to_T(Vt[:, -1].reshape(n_iters, 3, 4), Xh_all[idx],
+                 torch.ones(idx.shape, device=pw.device))
+    scores, inls = _score(Ts, pw, uv, valid, K, px_threshold)
+    best = torch.argmax(scores)                   # the first among equal scores
+    T_best, inl_best = Ts[best], inls[best]
+
+    # Local optimization (the "refine" stage of PnPsolver::Refine,
+    # PnPsolver.cc:437-471): refit a weighted DLT on the full consensus set
+    # and rescore, twice. A minimal 6-point sample under pixel noise gives a
+    # coarse pose that undercounts inliers; one refit typically grows the
+    # consensus to the full inlier set.
+    for _ in range(2):
+        w = inl_best.float()
+        enough = w.sum() >= 6      # keep the previous pose when the support is too thin
+        A = torch.cat([r1 * w[:, None], r2 * w[:, None]], dim=0)
+        Vt = torch.linalg.svd(A, full_matrices=False).Vh
+        T_new = _P_to_T(Vt[-1].reshape(3, 4), Xh_all, w)
+        n_new, inl_new = _score(T_new, pw, uv, valid, K, px_threshold)
+        better = enough & (n_new >= inl_best.sum())
+        T_best = torch.where(better, T_new, T_best)
+        inl_best = torch.where(better, inl_new, inl_best)
+    n_best = inl_best.sum()
+    return RansacResult(T=T_best, inliers=inl_best, n_inliers=n_best,
+                        ok=n_best >= min_inliers)

@@ -10,7 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gdslam_tpu_torch.backend.ba import LocalBAProblem
 from gdslam_tpu_torch.backend.map_arena import MapArena
+from gdslam_tpu_torch.backend.solvers import RansacResult
 from gdslam_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig, TrackingConfig
 from gdslam_tpu_torch.frontend.frame import Frame
 from gdslam_tpu_torch.system.tracking import FrameState
@@ -27,6 +29,19 @@ def arena_from_numpy(d: dict, device="cuda") -> MapArena:
 
 def arena_to_numpy(arena: MapArena) -> dict:
     return {k: getattr(arena, k).cpu().numpy() for k in MapArena._fields}
+
+
+def ba_problem_from_numpy(d: dict, device="cuda") -> LocalBAProblem:
+    """LocalBAProblem from a {field: array} dict (either package's)."""
+    return LocalBAProblem(**{k: _to_torch(d[k], device) for k in LocalBAProblem._fields})
+
+
+def ba_problem_to_numpy(prob: LocalBAProblem) -> dict:
+    return {k: getattr(prob, k).cpu().numpy() for k in LocalBAProblem._fields}
+
+
+def ransac_result_to_numpy(res: RansacResult) -> dict:
+    return {k: getattr(res, k).cpu().numpy() for k in RansacResult._fields}
 
 
 def frame_state_from_numpy(d: dict, device="cuda") -> FrameState:

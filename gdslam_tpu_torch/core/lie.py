@@ -54,11 +54,11 @@ def _so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
 
 
 def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    batch = R.shape[:-2]
-    T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
+    # from an identity made on the device: writing the Python scalar 1.0 into
+    # an element of a CUDA tensor is an upload, which waits for the card
+    T = torch.eye(4, dtype=R.dtype, device=R.device).repeat(R.shape[:-2] + (1, 1))
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
     return T
 
 

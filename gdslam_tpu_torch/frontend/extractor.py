@@ -13,6 +13,7 @@ promises no order, so selection is a stable descending sort, sliced.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -117,6 +118,10 @@ def extract(img: torch.Tensor, cfg: OrbConfig, height: int, width: int) -> Featu
                     valid=resp > 0)
 
 
+@functools.lru_cache(maxsize=None)
 def scale_factors(cfg: OrbConfig, device=None) -> torch.Tensor:
+    """[n_levels] scale per pyramid level on `device`, uploaded once per
+    configuration (a host list sent to the card is a blocking copy, which
+    waits for the card on every use). Read-only."""
     return torch.tensor([cfg.scale_factor ** i for i in range(cfg.n_levels)],
                         dtype=torch.float32, device=device)

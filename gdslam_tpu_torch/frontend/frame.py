@@ -62,7 +62,7 @@ def build_frame(feats: Features, depth_map: torch.Tensor, static_mask: torch.Ten
     uv_und = camera.undistort_points(feats.uv, cam)
     # a 0-d tensor numerator: `float / tensor` in torch is a reciprocal times
     # the float, which rounds differently from the reference's division
-    bf = torch.tensor(cam.bf, dtype=z.dtype, device=z.device)
+    bf = torch.full((), cam.bf, dtype=z.dtype, device=z.device)
     ur = torch.where(z > 0, uv_und[:, 0] - bf / torch.clamp(z, min=1e-6), -1.0)
     return Frame(uv=uv_und, uv_raw=feats.uv, ur=ur, depth=z, level=feats.level,
                  angle=feats.angle, response=feats.response, desc=feats.desc,

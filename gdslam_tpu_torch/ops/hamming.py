@@ -1,10 +1,13 @@
 """Hamming distance between 256-bit ORB descriptors (port of
-gdslam_tpu.ops.hamming): XOR + popcount on packed uint8, and the
-best / second-best / argbest reduction used by ratio tests."""
+gdslam_tpu.ops.hamming): XOR + popcount on packed uint8, the all-pairs
+matrix as one +-1 product, and the best / second-best / argbest reduction
+used by ratio tests."""
 
 from __future__ import annotations
 
 import torch
+
+from gdslam_tpu_torch.ops import orb
 
 
 def popcount_u8(x: torch.Tensor) -> torch.Tensor:
@@ -18,6 +21,16 @@ def popcount_u8(x: torch.Tensor) -> torch.Tensor:
 def hamming_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Packed [..., 32] uint8 descriptors -> Hamming distance [...] int32."""
     return torch.sum(popcount_u8(torch.bitwise_xor(a, b)), dim=-1, dtype=torch.int32)
+
+
+def hamming_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """All-pairs Hamming distances [Na, Nb] int32 of packed [N, 32] uint8
+    descriptors as one matrix product of their +-1 forms: ham = (256 - a.b)
+    / 2. The products are integers <= 256, so f32 is exact in any summation
+    order (TF32 is off package-wide). Callers mask invalid rows themselves."""
+    pm1_a = orb.unpack_bits(a).float() * 2.0 - 1.0
+    pm1_b = orb.unpack_bits(b).float() * 2.0 - 1.0
+    return ((256.0 - pm1_a @ pm1_b.T) * 0.5).to(torch.int32)
 
 
 def best_two(dists: torch.Tensor, dim: int = -1):

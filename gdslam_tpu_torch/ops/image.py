@@ -9,6 +9,8 @@ in one [L, H, W] canvas with per-level valid sizes, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -25,8 +27,9 @@ def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
 def _reflect_pad(x: torch.Tensor, pad: int, dim: int) -> torch.Tensor:
     """numpy 'reflect' padding (edge not repeated) along one dim."""
     n = x.shape[dim]
-    idx = torch.cat([torch.arange(pad, 0, -1), torch.arange(n),
-                     torch.arange(n - 2, n - 2 - pad, -1)]).to(x.device)
+    dev = x.device          # built on the device: an upload would wait for the card
+    idx = torch.cat([torch.arange(pad, 0, -1, device=dev), torch.arange(n, device=dev),
+                     torch.arange(n - 2, n - 2 - pad, -1, device=dev)])
     return x.index_select(dim, idx)
 
 
@@ -62,13 +65,18 @@ def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
     return M
 
 
+@functools.lru_cache(maxsize=None)
+def _interp_matrix_on(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """The interpolation matrix on `device`, uploaded once: a host array sent
+    to the card is a blocking copy, which waits for the card on every use."""
+    return torch.from_numpy(_interp_matrix(n_in, n_out)).to(device)
+
+
 def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """cv::resize INTER_LINEAR-compatible resize: R @ img @ C^T with the
     static interpolation matrices (rows first, as the JAX einsum contracts)."""
     H, W = img.shape
-    R = torch.from_numpy(_interp_matrix(H, out_h)).to(img.device)
-    C = torch.from_numpy(_interp_matrix(W, out_w)).to(img.device)
-    return (R @ img) @ C.T
+    return (_interp_matrix_on(H, out_h, img.device) @ img) @ _interp_matrix_on(W, out_w, img.device).T
 
 
 def pyramid_shapes(height: int, width: int, n_levels: int, scale: float):

@@ -36,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from gdslam_tpu_torch.ops import orb
+from gdslam_tpu_torch.ops import hamming
 
 BIG = 1 << 20
 MAX_ROWS = 1 << 20            # a row index shares a 32-bit key with its cost
@@ -275,10 +275,7 @@ def _grid_for(kp_uv) -> tuple[KpGrid, int]:
 def match_top2_plain(cand_uv, cand_desc, cand_radius, cand_level, cand_valid,
                      kp_uv, kp_desc, kp_level, kp_valid, level_slack: int = 1):
     """The same function in plain PyTorch over the dense [M, N] cost."""
-    pm1_c = orb.unpack_bits(cand_desc).float() * 2.0 - 1.0
-    pm1_k = orb.unpack_bits(kp_desc).float() * 2.0 - 1.0
-    # +-1 dot products are integers <= 256: exact in f32 in any summation order
-    ham = ((256.0 - pm1_c @ pm1_k.T) * 0.5).to(torch.int32)          # [M, N]
+    ham = hamming.hamming_matrix(cand_desc, kp_desc)                  # [M, N]
     du = cand_uv[:, None, 0] - kp_uv[None, :, 0]
     dv = cand_uv[:, None, 1] - kp_uv[None, :, 1]
     within = (du * du + dv * dv) <= (cand_radius * cand_radius)[:, None]

@@ -11,6 +11,8 @@ device; both copy pixel values exactly).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -81,13 +83,22 @@ def extract_patches(img: torch.Tensor, uv: torch.Tensor,
     return torch.where(inside, vals, torch.zeros((), dtype=img.dtype, device=img.device))
 
 
+@functools.lru_cache(maxsize=None)
+def _tables_on(device: torch.device):
+    """The IC mask, its x and y weights and the rotated tap table on
+    `device`, uploaded once (a host array sent to the card is a blocking
+    copy, which waits for the card on every use). Read-only."""
+    return tuple(torch.from_numpy(t).to(device) for t in (_IC_MASK, _IC_X, _IC_Y, _BIN_TAPS))
+
+
 def ic_angle_from_patches(patches: torch.Tensor) -> torch.Tensor:
     """Orientation from [K, 37, 37] patches (31x31 circular interior)."""
     dev = patches.device
     inner = patches[:, 3:3 + PATCH, 3:3 + PATCH].float()
-    w = inner * torch.from_numpy(_IC_MASK).to(dev)
-    m10 = torch.sum(w * torch.from_numpy(_IC_X).to(dev), dim=(1, 2))
-    m01 = torch.sum(w * torch.from_numpy(_IC_Y).to(dev), dim=(1, 2))
+    mask, xs, ys, _ = _tables_on(dev)
+    w = inner * mask
+    m10 = torch.sum(w * xs, dim=(1, 2))
+    m01 = torch.sum(w * ys, dim=(1, 2))
     return torch.atan2(m01, m10)
 
 
@@ -104,7 +115,7 @@ def brief_from_patches(patches: torch.Tensor, angle: torch.Tensor) -> torch.Tens
     keypoint's bin."""
     K = patches.shape[0]
     flat = patches.reshape(K, -1).float()
-    taps = torch.from_numpy(_BIN_TAPS).to(patches.device)[angle_bins(angle)]  # [K, 512]
+    taps = _tables_on(patches.device)[3][angle_bins(angle)]             # [K, 512]
     V = torch.gather(flat, 1, taps)
     return pack_bits(V[:, 0::2] < V[:, 1::2])
 

@@ -1,9 +1,11 @@
 """Public SLAM system API — the counterpart of `ORB_SLAM2::System` (port of
 gdslam_tpu.system.slam).
 
-This slice runs `track_rgbd` on the plain RGB-D tracker; every other entry
-point of the JAX package's System raises NotImplementedError until its
-slice is ported (see ROADMAP.md).
+`track_rgbd` runs the RGB-D tracker with the JAX package's defaults
+(triangulation and local BA on), pipelined or not; `reset`, the
+localization-mode toggles, `shutdown` and the TUM trajectory writers are
+ported. Every other entry point of the JAX package's System raises
+NotImplementedError until its slice is ported (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -70,9 +72,11 @@ class System:
         return d * (1.0 / self.cfg.camera.depth_map_factor) if raw else d
 
     def track_rgbd(self, rgb, depth, mask, timestamp: float,
-                   use_geometry: bool = False) -> np.ndarray:
+                   use_geometry: bool = False):
         """TrackRGBD (System.cc:157-312): depth in meters (or raw uint16),
-        mask 1 = static (None = all static). Returns T_cw 4x4."""
+        mask 1 = static (None = all static). Returns T_cw 4x4 as a numpy
+        array; a pipelined system returns the in-flight pose as a tensor on
+        the device (exact poses come from the trajectory after shutdown)."""
         if use_geometry:
             raise _not_ported("the DynaSLAM geometry path (use_geometry=True)")
         gray = self._to_gray(rgb)
@@ -80,9 +84,26 @@ class System:
         mask = torch.ones_like(gray) if mask is None else self._upload(mask).float()
         return self.tracker.process(gray, depth, mask, timestamp)
 
+    def activate_localization_mode(self):
+        """System::ActivateLocalizationMode (System.cc:366): stop map growth;
+        tracking continues against the frozen map."""
+        self.tracker.mapping_enabled = False
+
+    def deactivate_localization_mode(self):
+        self.tracker.mapping_enabled = True
+
+    def reset(self):
+        """System::Reset (System.cc:391): a fresh tracker with the same
+        arena sizes, pipeline flag and commit interval."""
+        old = self.tracker
+        self.tracker = Tracking(self.cfg, kmax=old.arena.kmax, pmax=old.arena.pmax,
+                                pipeline=old.pipeline, device=self.device)
+        self.tracker.commit_every = old.commit_every
+
     def shutdown(self):
-        """System::Shutdown: nothing is in flight in the non-pipelined
-        tracker, so there is nothing to drain."""
+        """System::Shutdown (System.cc:397-416): drain the in-flight pipeline
+        (the analogue of joining the worker threads)."""
+        self.tracker.flush()
 
     @property
     def tracking_state(self) -> TrackState:
@@ -99,6 +120,9 @@ class System:
     def save_trajectory_tum(self, path: str):
         traj.save_tum(path, self.tracker.camera_trajectory())
 
+    def save_keyframe_trajectory_tum(self, path: str):
+        traj.save_tum(path, self.tracker.keyframe_trajectory())
+
 
 def _not_ported_method(name: str):
     def method(self, *args, **kwargs):
@@ -108,7 +132,5 @@ def _not_ported_method(name: str):
 
 
 for _name in ("track_rgbd_geom", "track_rgbd_gd", "track_stereo", "track_monocular",
-              "activate_localization_mode", "deactivate_localization_mode", "reset",
-              "save_map", "load_map", "save_keyframe_trajectory_tum",
-              "save_trajectory_kitti"):
+              "save_map", "load_map", "save_trajectory_kitti"):
     setattr(System, _name, _not_ported_method(_name))

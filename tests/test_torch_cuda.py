@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from gdslam_tpu_torch import CameraConfig, OrbConfig, SlamConfig
+from gdslam_tpu_torch.backend import mapping
 from gdslam_tpu_torch.frontend import matcher
 from gdslam_tpu_torch.io import synthetic
 from gdslam_tpu_torch.ops import match_kernel
@@ -196,6 +197,64 @@ def test_match_candidates_card_equals_cpu(card, kw):
     gpu = matcher.match_candidates(*(torch.from_numpy(d[k]).to(card) for k in keys), **kw)
     for a, b in zip(cpu, gpu):
         assert torch.equal(a, b.cpu())
+
+
+def _record_top2(fn):
+    """The argument lists of the matcher's match_top2 calls while fn runs."""
+    calls, real = [], matcher.match_top2
+
+    def record(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    matcher.match_top2 = record
+    try:
+        fn()
+    finally:
+        matcher.match_top2 = real
+    return calls
+
+
+def test_fuse_into_keyframe_call_site_equals_plain(card):
+    """The matcher's fourth call site (mapping.fuse_into_keyframe: the map
+    projected into the new keyframe with base radius 3, TH_LOW, no rotation
+    check) and relocalization's all-pairs call, on the arena of a short
+    default run on the card: the kernel equals match_top2_plain exactly on the
+    inputs each site gives it, and fuse_into_keyframe on the card equals
+    fuse_into_keyframe on the CPU."""
+    from gdslam_tpu_torch import convert
+    from gdslam_tpu_torch.system import tracking
+    cam = CameraConfig(fx=160.0, fy=160.0, cx=80.0, cy=60.0, width=160, height=120, bf=12.8)
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=384, n_levels=4))
+    s = System(cfg, kmax=32, pmax=16384, device=card)
+    for i in range(12):
+        fr = synthetic.render_frame(i, cam, with_dynamic=False, device=card)
+        s.track_rgbd(fr.gray, fr.depth, None, i / 30.0)
+    tr = s.tracker
+    kf = tr.n_kf_host - 1
+    assert kf >= 1
+    launches = match_kernel.match_top2.launches
+    calls = _record_top2(lambda: mapping.fuse_into_keyframe(tr.arena, kf, cfg))
+    dense = []
+    real = tracking.match_top2
+    tracking.match_top2 = lambda *a, **k: dense.append(a) or real(*a, **k)
+    try:
+        tracking._dense_ratio_matches(tr.last.frame, tr.arena.kf_uv[kf], tr.arena.kf_desc[kf],
+                                      tr.arena.kf_level[kf], tr.arena.kf_kp_valid[kf],
+                                      cfg.orb.n_levels)
+    finally:
+        tracking.match_top2 = real
+    assert len(calls) == 1 and len(dense) == 1
+    assert match_kernel.match_top2.launches == launches + 2
+    for args in (calls[0], dense[0]):
+        for g, w in zip(match_kernel.match_top2(*args), match_kernel.match_top2_plain(*args)):
+            assert g.dtype == torch.int32 and torch.equal(g, w.to(torch.int32))
+    got, row = mapping.fuse_into_keyframe(tr.arena, kf, cfg)
+    cpu = convert.arena_from_numpy(convert.arena_to_numpy(tr.arena), "cpu")
+    want, row_c = mapping.fuse_into_keyframe(cpu, kf, cfg)
+    assert torch.equal(row.cpu(), row_c)
+    for k in ("kf_obs", "pt_valid", "pt_n_obs", "pt_found", "pt_visible"):
+        assert torch.equal(getattr(got, k).cpu(), getattr(want, k)), k
 
 
 def test_wrapper_rejects_bad_inputs(card):

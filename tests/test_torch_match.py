@@ -288,3 +288,52 @@ def test_match_top2_plain_takes_empty_sides(M, N):
     if 0 in (M, N):
         assert (best == match_kernel.BIG).all() and (arg == -1).all()
         assert (best_cand == match_kernel.BIG).all()
+
+
+@pytest.mark.parametrize("case", ["frames", "duplicates", "one_valid", "none_valid"])
+def test_dense_ratio_matches_equal_jax(case):
+    """Relocalization's all-pairs ratio matcher routed through match_top2
+    (the keyframe's keypoints as candidate rows, infinite radius, level slack
+    of n_levels) against the JAX package's _dense_ratio_matches on the same
+    descriptors: the same index per keypoint and the same count. "frames":
+    near-copies with flipped bits, most pass the ratio test; "duplicates":
+    every keyframe descriptor occurs twice, so second == best and nothing
+    passes (the second best counts duplicates), and the arg is the lower row;
+    "one_valid": a single valid keyframe keypoint, so second is the 1 << 20
+    sentinel on both sides; "none_valid": no match."""
+    from gdslam_tpu.system import tracking as jtr
+    from gdslam_tpu_torch.frontend.frame import Frame
+    from gdslam_tpu_torch.system import tracking as ttr
+    r = np.random.default_rng(21)
+    Na, Nb = 96, 80
+    desc_b = r.integers(0, 256, (Nb, 32)).astype(np.uint8)
+    src = r.integers(0, Nb, Na)
+    flip = ((r.integers(0, 256, (Na, 32)) < 6) * r.integers(1, 256, (Na, 32))).astype(np.uint8)
+    desc_a = desc_b[src] ^ flip
+    desc_a[::7] = r.integers(0, 256, (len(desc_a[::7]), 32))           # no counterpart
+    valid_a, valid_b = r.random(Na) > 0.1, r.random(Nb) > 0.1
+    if case == "duplicates":
+        desc_b[Nb // 2:] = desc_b[:Nb // 2]
+        valid_b[:] = True
+    if case == "one_valid":
+        valid_b[:] = False
+        valid_b[src[1]] = True
+        valid_a[1] = True
+    if case == "none_valid":
+        valid_b[:] = False
+    idx_j, n_j = jtr._dense_ratio_matches(jnp.asarray(desc_a), jnp.asarray(valid_a),
+                                          jnp.asarray(desc_b), jnp.asarray(valid_b))
+    t = torch.from_numpy
+    zeros = torch.zeros(Na)
+    fields = dict(uv=t(r.uniform(0, 160, (Na, 2)).astype(np.float32)),
+                  level=t(r.integers(0, 4, Na).astype(np.int32)), desc=t(desc_a),
+                  valid=t(valid_a))
+    frame = Frame(**{k: fields.get(k, zeros) for k in Frame._fields})
+    idx_t, n_t = ttr._dense_ratio_matches(
+        frame, t(r.uniform(0, 160, (Nb, 2)).astype(np.float32)), t(desc_b),
+        t(r.integers(0, 4, Nb).astype(np.int32)), t(valid_b), 4)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    assert int(n_t) == int(n_j)
+    expect = {"frames": int(n_t) > 40, "duplicates": int(n_t) == 0,
+              "one_valid": int(n_t) >= 1, "none_valid": int(n_t) == 0}
+    assert expect[case]

@@ -159,20 +159,52 @@ def test_entry_points_default_to_the_card():
 
 
 def test_not_ported_entry_points_raise():
+    """What is still to port raises NotImplementedError naming ROADMAP.md."""
     cfg = tconfig.SlamConfig(camera=tconfig.CameraConfig(width=160, height=120),
                              orb=tconfig.OrbConfig(n_features=64, n_levels=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttracking.Tracking(cfg, kmax=4, pmax=64, pipeline=True, device="cpu")
     s = tslam.System(cfg, kmax=4, pmax=64, device="cpu")
-    for name in ("track_rgbd_gd", "track_stereo", "save_map"):
+    for name in ("track_rgbd_gd", "track_rgbd_geom", "track_stereo", "track_monocular",
+                 "save_map", "load_map", "save_trajectory_kitti"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(s, name)()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         s.track_rgbd(np.zeros((120, 160)), np.zeros((120, 160)), None, 0.0, use_geometry=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         s.tracker.loop_closer = object()
-    with pytest.raises(NotImplementedError):
-        ttracking.keyframe_program(None, None, None, None, 0.0, cfg, True, False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tslam.System(cfg, kmax=4, pmax=64, vocabulary="voc.npz", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tslam.System(cfg, sensor=tslam.Sensor.STEREO, kmax=4, pmax=64, device="cpu")
+
+
+def test_ported_entry_points_no_longer_raise(tmp_path):
+    """The entry points of this slice construct and run: the defaults are the
+    JAX package's (local BA and triangulation on), a pipelined tracker is
+    built, and reset, the localization-mode toggles, shutdown, light_track
+    and both TUM writers work on a fresh system."""
+    cfg = tconfig.SlamConfig(camera=tconfig.CameraConfig(width=160, height=120),
+                             orb=tconfig.OrbConfig(n_features=64, n_levels=2))
+    tr = ttracking.Tracking(cfg, kmax=4, pmax=64, pipeline=True, device="cpu")
+    assert tr.pipeline and tr.use_local_ba and tr.use_triangulation
+    assert (tr.commit_every, tr.frame_id, tr.n_inliers, tr.mapping_enabled) == (3, 0, 0, True)
+    assert not tr.kf_arena_full_warned
+    tr.flush()
+    assert tr.light_track(None) == (False, None)
+    assert tr._relocalize(None) == (False, None, None, 0)        # no keyframe yet
+    s = tslam.System(cfg, kmax=4, pmax=64, pipeline=True, device="cpu")
+    s.activate_localization_mode()
+    assert not s.tracker.mapping_enabled
+    s.deactivate_localization_mode()
+    s.track_rgbd(np.zeros((120, 160)), np.zeros((120, 160)), None, 0.0)   # too few keypoints
+    assert s.tracking_state.name == "NOT_INITIALIZED" and s.tracker.frame_id == 1
+    s.reset()
+    assert s.tracking_state.name == "NO_IMAGES_YET" and s.tracker.pipeline
+    s.shutdown()
+    s.save_trajectory_tum(str(tmp_path / "c.txt"))
+    s.save_keyframe_trajectory_tum(str(tmp_path / "k.txt"))
+    assert (tmp_path / "k.txt").read_text() == ""
+    for name in ("local_keyframes", "compact_keyframes"):
+        assert callable(getattr(map_arena, name))
 
 
 def _cuda_inputs(M, N):
