@@ -38,14 +38,34 @@ then prints one JSON line per phase:
            which saturates: the tracker must warn and go on tracking; then
            a keyframe is invalidated by hand and _maybe_compact must recycle
            its slot and tracking must go on;
+  gd_slice the main path: 80 frames of the dynamic scene (a moving sphere)
+           through System.track_rgbd_gd, pipelined with commit_every 10 and
+           fed uint8 gray + uint16 depth as bench.py::bench_gd feeds it, so
+           warm frames take the packed fast path (GD mask, frame build and
+           tracking dispatched together): every frame OK, ATE <= 0.1 m,
+           mask recall >= 0.5 and IoU >= 0.35 against the renderer's
+           dyn_mask on the 10 frames after the three timed windows of 20
+           (frame time: their median), host synchronisations per frame,
+           match_top2 launches by call site, the share of frames whose pose
+           RANSAC found enough inliers; the JAX package's quality numbers
+           printed beside as a reference;
+  gd_staged
+           20 frames the same way without pipelining: every frame takes the
+           staged path (the ring's get_mask, then the tracker's body);
   stages   per-stage times on the slice's final state (the tracking
            programs, the keyframe program and its parts, the RANSACs), and
            the kernel timed against its bounds and the launch floor on the
            inputs the tracker gives it at its four call sites and at
            relocalization's all-pairs call;
-  profile  torch.profiler windows over whole frames (pipelined and not),
-           over one pose solve and over one local BA: device busy share,
-           device operations, host operators.
+  gd_stages
+           the GD program's parts on the GD slice's final state: gd_step,
+           farneback_flow, mahalanobis_mask, depth_edges, the cur x ref
+           match (also exact against match_top2_plain, timed against its
+           bound) and ransac_rigid: ms through the host, device busy and
+           device operations per call; gd_step must not wait for the card;
+  profile  torch.profiler windows over whole frames (pipelined and not, and
+           GD frames), over one pose solve and over one local BA: device
+           busy share, device operations, host operators.
 
 Then the card's name and power limit as nvidia-smi gives them, the kernels
 line and, last, the ok line. Without a card, or when any phase fails, it
@@ -65,6 +85,7 @@ import argparse
 import collections
 import copy
 import ctypes
+import dataclasses
 import json
 import os
 import statistics
@@ -92,6 +113,22 @@ AB_FRAMES = 20         # the base of --ab-source: BA and triangulation off
 WARMUP_FRAMES = 10
 ATE_GUARD_M = 0.01
 RELOC_GUARD = (0.02, 1.0, 50)   # metres, degrees, inliers
+
+# The GD slice (the main path), as bench.py::bench_gd runs it: 185 frames,
+# warm-up until 10 keyframes (at most to frame 145), three timed windows of
+# 30 frames, then 10 quality frames
+GD_FRAMES = 185
+GD_COMMIT_EVERY = 10
+GD_WARMUP_KEYFRAMES = 10
+GD_WINDOW = 30
+GD_TAIL = 10
+GD_PROFILE_FRAMES = 10         # rendered beyond GD_FRAMES, with one for the stages
+GD_STAGED_FRAMES = 20
+GD_ATE_GUARD_M = 0.1
+GD_MASK_GUARD = (0.5, 0.35)    # recall, IoU
+# The JAX package's quality on this scene (BENCH_r05, run on a TPU v5e): a
+# quality reference only, printed beside the port's
+GD_JAX_QUALITY = dict(ate_m=0.017, mask_recall=0.781, mask_iou=0.502)
 
 
 def emit(obj) -> None:
@@ -886,6 +923,327 @@ def phase_compact(torch, mk, slice_args, more_frames, kmax):
     return slam
 
 
+def gd_inputs(frames, cam) -> list:
+    """The CLI's contract, as bench.py::bench_gd feeds it: host uint8 gray
+    (the rendered colour through the BT.601 weights) and uint16 raw depth."""
+    w3 = np.array([0.299, 0.587, 0.114], np.float32)
+    dmf = cam.depth_map_factor
+    return [((fr.rgb.cpu().numpy().astype(np.uint8).astype(np.float32) @ w3).astype(np.uint8),
+             (fr.depth.cpu().numpy() * dmf).astype(np.uint16)) for fr in frames]
+
+
+def mask_quality(masks, frames, idxs) -> tuple[float, float]:
+    """(recall, IoU) of the flagged-dynamic region against the renderer's
+    dyn_mask, averaged over the frames (bench.py::_mask_quality's rule)."""
+    recalls, ious = [], []
+    for m, k in zip(masks, idxs):
+        dyn_est = m.cpu().numpy() < 0.5
+        dyn_gt = frames[k].dyn_mask.cpu().numpy()
+        if dyn_gt.sum() == 0:
+            continue
+        inter = float((dyn_est & dyn_gt).sum())
+        union = float((dyn_est | dyn_gt).sum())
+        recalls.append(inter / dyn_gt.sum())
+        ious.append(inter / union if union else 1.0)
+    return (float(np.mean(recalls)) if recalls else 0.0,
+            float(np.mean(ious)) if ious else 0.0)
+
+
+class GdCounters:
+    """While installed: match_top2 calls by call site (the GD match, the
+    relocalization match, and the matcher's callers by name), the GD frames
+    that took the packed fast path, and the GD pose RANSAC's inlier counts
+    (device scalars, read once at the end)."""
+
+    def __init__(self, matcher, tracking, geomask, solvers, slam_mod):
+        self.sites = collections.Counter()
+        self.inliers, self.packed = [], 0
+        self.mods = ((matcher, "match_top2", self._top2_matcher),
+                     (tracking, "match_top2", self._top2_named("relocalization_dense")),
+                     (geomask, "match_top2", self._top2_named("gd_cur_x_ref")),
+                     (solvers, "ransac_rigid", self._ransac),
+                     (slam_mod, "unpack_gd_frame", self._unpack))
+        self.real = {}
+
+    def _top2_matcher(self, real, *a, **k):
+        self.sites[sys._getframe(3).f_code.co_name] += 1     # match_candidates' caller
+        return real(*a, **k)
+
+    def _top2_named(self, site):
+        def count(real, *a, **k):
+            self.sites[site] += 1
+            return real(*a, **k)
+        return count
+
+    def _ransac(self, real, *a, **k):
+        res = real(*a, **k)
+        if sys._getframe(2).f_code.co_name == "_match_pose":      # gd_step_core's pose
+            self.inliers.append(res.n_inliers)
+        return res
+
+    def _unpack(self, real, *a, **k):
+        self.packed += 1
+        return real(*a, **k)
+
+    def __enter__(self):
+        for mod, name, fn in self.mods:
+            self.real[(mod, name)] = getattr(mod, name)
+            setattr(mod, name, lambda *a, _f=fn, _r=self.real[(mod, name)], **k: _f(_r, *a, **k))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, _ in self.mods:
+            setattr(mod, name, self.real[(mod, name)])
+
+    def pose_ok_share(self, torch, min_matches: int) -> float | None:
+        """The share of GD frames whose pose RANSAC found min_matches
+        inliers (the rest keep the semantic mask); one read."""
+        if not self.inliers:
+            return None
+        return float(np.mean(np.asarray(torch.stack(self.inliers).tolist()) >= min_matches))
+
+
+def gd_guards(res: dict, n: int, traj_len: int) -> None:
+    """Every frame OK and in the trajectory; ATE and the mask guards."""
+    if not res["all_ok"]:
+        fail(f"{res['phase']}: a frame was not tracked OK")
+    if traj_len != n:
+        fail(f"{res['phase']}: trajectory has {traj_len} poses, expected {n}")
+    if not (res["ate_m"] <= GD_ATE_GUARD_M and res["ate_bench_m"] <= GD_ATE_GUARD_M):
+        fail(f"{res['phase']}: ATE {res['ate_m']}, {res['ate_bench_m']} above {GD_ATE_GUARD_M} m")
+    if not (res["mask_recall"] >= GD_MASK_GUARD[0] and res["mask_iou"] >= GD_MASK_GUARD[1]):
+        fail(f"{res['phase']}: mask recall {res['mask_recall']}, IoU {res['mask_iou']} below "
+             f"{GD_MASK_GUARD}")
+
+
+def phase_gd_slice(torch, mk, cfg, frames, raw, System, TrackState, synthetic, metrics, dev,
+                   counters_args):
+    """The main path, System.track_rgbd_gd, as bench.py::bench_gd runs it:
+    pipelined with commit_every 10 on the dynamic scene, fed the CLI's uint8
+    gray + uint16 depth, so warm frames take the packed fast path. Warm-up
+    until 10 keyframes, three timed windows of GD_WINDOW frames each ended by
+    a flush and a synchronise (the frame time is their median), then GD_TAIL
+    frames whose masks are read for the quality guards. The kernel's counts
+    are set to 0 just before the run and read just after; host
+    synchronisations are counted over the timed windows."""
+    slam = System(cfg, kmax=256, pmax=65536, pipeline=True, device=dev)
+    tr = slam.tracker
+    tr.commit_every = GD_COMMIT_EVERY
+    states, windows, masks = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(mk)
+    counters = GdCounters(*counters_args)
+
+    def frame(k):
+        out = slam.track_rgbd_gd(*raw[k], None, k / 30.0)
+        states.append(slam.tracking_state)
+        return out
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with counters:
+                k = 0
+                while k < GD_FRAMES - 40 and slam.keyframe_count < GD_WARMUP_KEYFRAMES:
+                    frame(k)
+                    k += 1
+                warm = k
+                tr.flush()
+                torch.cuda.synchronize()
+                before = len(caught)
+                for _ in range(3):
+                    start, stop = k, min(k + GD_WINDOW, GD_FRAMES - GD_TAIL)
+                    t0 = time.perf_counter()
+                    for k in range(start, stop):
+                        frame(k)
+                    tr.flush()
+                    torch.cuda.synchronize()
+                    windows.append((time.perf_counter() - t0) * 1e3 / (stop - start))
+                    k = stop
+                timed = [w for w in caught[before:] if "synchroniz" in str(w.message)]
+                tail = range(k, k + GD_TAIL)
+                for k in tail:
+                    masks.append(frame(k)[1])
+                slam.shutdown()
+                torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n = tail[-1] + 1
+    launches, grids = mk.match_top2.launches, mk.kp_grid.launches
+    traj = tr.camera_trajectory()
+    recall, iou = mask_quality(masks, frames, tail)
+    sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in timed)
+    n_timed = n - GD_TAIL - warm
+    res = dict(phase="gd_slice", frames=n, warmup_frames=warm, timed_frames=n_timed,
+               quality_frames=[tail[0], tail[-1]], width=cfg.camera.width,
+               height=cfg.camera.height, n_features=cfg.orb.n_features, kmax=256, pmax=65536,
+               pipeline=True, commit_every=GD_COMMIT_EVERY, dynamic_scene=True,
+               input="uint8 gray + uint16 depth",
+               all_ok=all(s == TrackState.OK for s in states)
+               and not any(r[3] for r in tr.records),
+               frame_ms_windows=windows, frame_ms=statistics.median(windows),
+               fps=1e3 / statistics.median(windows),
+               host_syncs_timed=len(timed), host_syncs_per_frame=len(timed) / n_timed,
+               host_sync_sites=dict(sites.most_common(12)),
+               packed_fast_path_frames=counters.packed,
+               pose_ransac_ok_share=counters.pose_ok_share(torch, cfg.geomask.min_matches),
+               match_top2_launches=launches, match_top2_by_site=dict(counters.sites),
+               kp_grid_launches=grids, keyframes=slam.keyframe_count,
+               keyframe_slots_used=tr.n_kf_host, map_points=slam.map_point_count,
+               mask_recall=recall, mask_iou=iou,
+               jax_tpu_quality_reference=GD_JAX_QUALITY,
+               peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20, card=nvidia_smi_line(),
+               **ate_pair(torch, synthetic, metrics, traj,
+                          [f.T_wc.cpu().numpy() for f in frames[:n]]))
+    emit(res)
+    gd_guards(res, n, len(traj))
+    if counters.packed != n - cfg.geomask.inter_frame_size:
+        fail(f"gd_slice: {counters.packed} frames took the packed fast path, expected "
+             f"{n - cfg.geomask.inter_frame_size}")
+    if counters.sites["gd_cur_x_ref"] != counters.packed or launches < 3 * counters.packed:
+        fail(f"gd_slice: match_top2 launches {launches}, by site {dict(counters.sites)}")
+    return slam, res, n
+
+
+def phase_gd_staged(torch, mk, cfg, frames, raw, System, TrackState, synthetic, metrics, dev,
+                    counters_args):
+    """GD_STAGED_FRAMES frames through track_rgbd_gd without pipelining: every
+    frame takes the staged path (the ring's get_mask, then the tracker's
+    common body), timed one by one; the quality guards on the frames after
+    the first ten."""
+    n = GD_STAGED_FRAMES
+    slam = System(cfg, kmax=256, pmax=65536, pipeline=False, device=dev)
+    reset_launch_counts(mk)
+    counters = GdCounters(*counters_args)
+    times, states, masks = [], [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with counters:
+                for k in range(n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, m = slam.track_rgbd_gd(*raw[k], None, k / 30.0)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    states.append(slam.tracking_state)
+                    masks.append(m)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                                if "synchroniz" in str(w.message))
+    syncs = sum(sites.values())
+    traj = slam.tracker.camera_trajectory()
+    recall, iou = mask_quality(masks[10:], frames, range(10, n))
+    steady = sorted(times[10:])
+    res = dict(phase="gd_staged", frames=n, pipeline=False, dynamic_scene=True,
+               all_ok=all(s == TrackState.OK for s in states),
+               frame_ms_median=statistics.median(steady), frame_ms_max=steady[-1],
+               first_frame_ms=times[0], host_syncs=syncs, host_syncs_per_frame=syncs / n,
+               host_sync_sites=dict(sites.most_common(12)),
+               packed_fast_path_frames=counters.packed,
+               pose_ransac_ok_share=counters.pose_ok_share(torch, cfg.geomask.min_matches),
+               match_top2_launches=mk.match_top2.launches,
+               match_top2_by_site=dict(counters.sites), keyframes=slam.keyframe_count,
+               mask_recall=recall, mask_iou=iou, quality_frames=n - 10,
+               jax_tpu_quality_reference=GD_JAX_QUALITY, card=nvidia_smi_line(),
+               **ate_pair(torch, synthetic, metrics, traj,
+                          [f.T_wc.cpu().numpy() for f in frames[:n]]))
+    emit(res)
+    gd_guards(res, n, len(traj))
+    if counters.packed != 0 or counters.sites["gd_cur_x_ref"] != n - cfg.geomask.inter_frame_size:
+        fail(f"gd_staged: the staged path was not taken ({counters.packed} packed frames, "
+             f"{dict(counters.sites)})")
+    return res
+
+
+def stage_numbers(torch, fn, reps: int = 10) -> dict:
+    """One stage: ms through the host (each call ended by a synchronise),
+    device busy ms and device operations per call (torch.profiler)."""
+    ms = wall_ms(torch, fn, reps=reps)
+    prof = profile_window(torch, fn, 1)
+    return dict(ms=ms, device_busy_ms=prof["device_busy_ms"], device_ops=prof["device_ops"],
+                top_device_ms=prof["top_device_ms"])
+
+
+def phase_gd_stages(torch, mk, slam, raw_next, cfg, modules) -> tuple[dict, dict]:
+    """The GD program's parts on the GD slice's final ring and the next
+    frame, uploaded as the fast path uploads it: gd_step whole (extraction
+    included) and gd_step_core, farneback_flow, mahalanobis_mask,
+    depth_edges (once; the mask program runs it on both frames), the
+    cur x ref match and ransac_rigid as the path calls them (1500 rows, the
+    top 100 matches valid). Also the cur x ref match as a call site of the
+    kernel: exact against the plain version with each path forced, timed
+    against its bound. gd_step must not wait for the card."""
+    extractor, geomask, flow_ops, edge_ops, slam_mod, solvers, cam_ops = modules
+    cam, dev = cfg.camera, slam.device
+    geo = slam._geo
+    ref_gray, ref_depth, ref_feats = geo.ref_for_next()
+    packed = slam_mod.PackedUpload(cam.height, cam.width, dev)(*raw_next)
+    gray, depth = slam_mod.unpack_gd_frame(packed, cam.height, cam.width,
+                                           1.0 / cam.depth_map_factor)
+    sem = torch.ones_like(gray)
+    feats = extractor.extract(gray, cfg.orb, cam.height, cam.width)
+    s = geomask.res_factor(cfg)
+    finest = {1: 0, 2: 1, 4: 2}[s]
+    gen = lambda: solvers.frame_generator(0, dev)                           # noqa: E731
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+
+    # the pose RANSAC's inputs as gd_step_core builds them
+    zA = geomask._kp_depth(depth, feats.uv, cam)
+    zB = geomask._kp_depth(ref_depth, ref_feats.uv, cam)
+    good, idx, best = geomask.ratio_matches(feats, ref_feats, cfg.orb.n_levels)
+    good = geomask.top_matches(good & (zA > 0) & (zB[idx] > 0), best,
+                               cfg.geomask.pnp_top_matches)
+    P = cam_ops.backproject(feats.uv, zA, cam)
+    Q = cam_ops.backproject(ref_feats.uv[idx], zB[idx], cam)
+    uv_q = ref_feats.uv[idx]
+    res = solvers.ransac_rigid(P, Q, good, K, uv_q, n_iters=300, min_inliers=20,
+                               px_threshold=4.0, generator=gen())
+    flow = flow_ops.farneback_flow(gray, ref_gray, levels=5, finest_level=finest,
+                                   upsample=s == 1)
+    cam_h = dataclasses.replace(cam, fx=cam.fx / s, fy=cam.fy / s, cx=cam.cx / s,
+                                cy=cam.cy / s, width=-(-cam.width // s),
+                                height=-(-cam.height // s))
+
+    def gd_step():
+        return geomask.gd_step(gray, depth, sem, ref_gray, ref_depth, ref_feats, cfg, gen())
+
+    sites = sync_sites(torch, gd_step)
+    if sites:
+        fail(f"gd_step synchronises with the card at {sites}")
+    stages = {
+        "gd_step": stage_numbers(torch, gd_step),
+        "gd_step_core": stage_numbers(torch, lambda: geomask.gd_step_core(
+            feats, gray, depth, sem, ref_gray, ref_depth, ref_feats, cfg, gen())),
+        "farneback_flow": stage_numbers(torch, lambda: flow_ops.farneback_flow(
+            gray, ref_gray, levels=5, finest_level=finest, upsample=s == 1)),
+        "mahalanobis_mask": stage_numbers(torch, lambda: geomask.mahalanobis_mask(
+            depth, ref_depth, flow, res.T, sem, cfg, False, ref_gray=gray, cur_gray=ref_gray,
+            flow_factor=s)),
+        "depth_edges": stage_numbers(torch, lambda: edge_ops.depth_edges(depth[::s, ::s], cam_h)),
+        "cur_x_ref_match": stage_numbers(torch, lambda: geomask.ratio_matches(
+            feats, ref_feats, cfg.orb.n_levels)),
+        "ransac_rigid": stage_numbers(torch, lambda: solvers.ransac_rigid(
+            P, Q, good, K, uv_q, n_iters=300, min_inliers=20, px_threshold=4.0,
+            generator=gen())),
+    }
+    args = record_top2_calls(geomask, lambda: geomask.ratio_matches(
+        feats, ref_feats, cfg.orb.n_levels))[0]
+    err, info = compare_top2(torch, mk, args)
+    call = dict(role="gd_cur_x_ref", M=args[0].shape[0], N=args[5].shape[0], max_abs_err=err,
+                path=info["path"], **time_top2(torch, mk, args), **top2_bound(torch, mk, args))
+    if call["path"] != "tiled":
+        fail("the GD match did not take the kernel's tiled path")
+    out = dict(phase="gd_stages", card=nvidia_smi_line(), grid=[cam_h.height, cam_h.width],
+               ransac_rows=int(good.numel()), ransac_valid=int(good.sum()),
+               ransac_inliers=int(res.n_inliers), ms={k: v["ms"] for k, v in stages.items()},
+               stages=stages, match_top2_gd_call=call)
+    return out, call
+
+
 def record_top2_calls(module, fn) -> list:
     """The argument lists of `module`'s match_top2 calls while fn runs."""
     calls, real = [], module.match_top2
@@ -1053,10 +1411,12 @@ def profile_window(torch, fn, n: int) -> dict:
                               for e in host})
 
 
-def phase_profile(torch, slam, slam_pipe, frames, t_first: int, gn_call, ba_call) -> dict:
+def phase_profile(torch, slam, slam_pipe, frames, t_first: int, gn_call, ba_call,
+                  gd_slam, gd_raw, gd_first: int) -> dict:
     """Profiler windows over whole frames (System.track_rgbd, per frame), not
-    pipelined and pipelined, over one pose_optimization solve and over one
-    run_local_ba."""
+    pipelined and pipelined, over whole GD frames (System.track_rgbd_gd on
+    its packed fast path, pipelined with commit_every 10, ended by a flush),
+    over one pose_optimization solve and over one run_local_ba."""
     def frames_fn(system):
         def run():
             for i, fr in enumerate(frames):
@@ -1064,11 +1424,18 @@ def phase_profile(torch, slam, slam_pipe, frames, t_first: int, gn_call, ba_call
             system.shutdown()
         return run
 
+    def gd_frames():
+        for i, (g, d) in enumerate(gd_raw):
+            gd_slam.track_rgbd_gd(g, d, None, (gd_first + i) / 30.0)
+        gd_slam.shutdown()
+
     gn_call()
     ba_call()
-    return dict(phase="profile", frames=len(frames),
+    return dict(phase="profile", frames=len(frames), card=nvidia_smi_line(),
                 per_frame=profile_window(torch, frames_fn(slam), len(frames)),
                 per_frame_pipelined=profile_window(torch, frames_fn(slam_pipe), len(frames)),
+                gd_frames=len(gd_raw),
+                per_gd_frame_pipelined=profile_window(torch, gd_frames, len(gd_raw)),
                 per_pose_optimization=profile_window(torch, gn_call, 1),
                 per_run_local_ba=profile_window(torch, ba_call, 1))
 
@@ -1085,10 +1452,15 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
     next flush (in both packages), so the count moves by one or two with the
     place of a trigger inside its flush; `keyframe_frames` shows the pairs."""
     from gdslam_tpu_torch.backend import ba, mapping, optimizer, solvers
+    from gdslam_tpu_torch.core import camera as cam_ops
     from gdslam_tpu_torch.frontend import extractor, matcher
     from gdslam_tpu_torch.frontend.frame import build_frame
     from gdslam_tpu_torch.io import synthetic
+    from gdslam_tpu_torch.masking import geomask
+    from gdslam_tpu_torch.ops import edges as edge_ops
+    from gdslam_tpu_torch.ops import flow as flow_ops
     from gdslam_tpu_torch.ops import match_kernel as mk
+    from gdslam_tpu_torch.system import slam as slam_mod
     from gdslam_tpu_torch.system import tracking
     from gdslam_tpu_torch.system.slam import System
     from gdslam_tpu_torch.system.tracking import TrackState
@@ -1133,6 +1505,18 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
     # alternated (not, pipelined, not, pipelined) inside one process.
     _, pres2 = phase_slice(torch, mk, *slice_args[:-1], keyframes_pipelined,
                            label="slice_pipelined_again", pipeline=True)
+
+    # the main path: GD masking on the dynamic scene
+    t0 = time.perf_counter()
+    dyn = [synthetic.render_frame(i, cam, with_dynamic=True, device=dev)
+           for i in range(GD_FRAMES + GD_PROFILE_FRAMES + 1)]
+    raw = gd_inputs(dyn, cam)
+    gd_render_s = time.perf_counter() - t0
+    counters_args = (matcher, tracking, geomask, solvers, slam_mod)
+    gd_slam, gres, n_gd = phase_gd_slice(torch, mk, cfg, dyn, raw, System, TrackState,
+                                         synthetic, metrics, dev, counters_args)
+    sgres = phase_gd_staged(torch, mk, cfg, dyn, raw, System, TrackState, synthetic, metrics,
+                            dev, counters_args)
     stages, path_calls, gn_call, ba_call = phase_stages(
         torch, mk, slam, frames[n_frames], cfg,
         (extractor, build_frame, tracking, optimizer, matcher, mapping, ba), (pnp, rigid), old)
@@ -1142,11 +1526,21 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
     stages["ms"]["relocalize"] = rres["relocalize_ms"]
     stages["render_s"] = render_s
     emit(stages)
+    gstages, gd_call = phase_gd_stages(torch, mk, gd_slam, raw[n_gd], cfg,
+                                       (extractor, geomask, flow_ops, edge_ops, slam_mod,
+                                        solvers, cam_ops))
+    gstages["ms"]["whole_gd_frame_pipelined"] = gres["frame_ms"]
+    gstages["ms"]["whole_gd_frame_staged"] = sgres["frame_ms_median"]
+    gstages["render_s"] = gd_render_s
+    emit(gstages)
+    path_calls.append(gd_call)
     emit(phase_profile(torch, slam, slam_pipe, frames[n_frames + 1:], n_frames + 1, gn_call,
-                       ba_call))
+                       ba_call, gd_slam, raw[n_gd:n_gd + GD_PROFILE_FRAMES], n_gd))
 
     local_map = path_calls[1]
-    by_path = dict(slice=sres["match_top2_launches"],
+    by_path = dict(gd_slice=gres["match_top2_launches"],
+                   gd_staged=sgres["match_top2_launches"],
+                   slice=sres["match_top2_launches"],
                    slice_pipelined=pres["match_top2_launches"],
                    reloc=rres["match_top2_launches"])
     if min(by_path.values()) < 1:
@@ -1156,7 +1550,9 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "name": "match_top2", "route": "cuda",
         "source": "gdslam_tpu_torch/csrc/match_top2.cu",
         "replaces": "gdslam_tpu/ops/pallas_match.py:98",
-        "launches": by_path["slice"], "launches_by_path": by_path, "max_abs_err": err,
+        "launches": by_path["gd_slice"], "launches_by_path": by_path,
+        "launches_by_site_gd_slice": gres["match_top2_by_site"],
+        "max_abs_err": max([err] + [c["max_abs_err"] for c in path_calls]),
         "ms": local_map["ms"], "plain_ms": local_map["plain_ms"],
         "bound_ms": local_map["bound_ms"], "bound_by": local_map["bound_by"],
         "library_ms": None,

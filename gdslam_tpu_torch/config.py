@@ -1,6 +1,6 @@
 """Typed configuration with loader for the reference's OpenCV-YAML settings.
 
-The port's own copy of the camera / ORB / tracking settings (the JAX
+The port's own copy of the camera / ORB / GD-mask / tracking settings (the JAX
 package's `config.py` carries the same fields and defaults). Files start
 with an OpenCV ``%YAML:1.0`` directive and use flat ``Section.key: value``
 keys; this module reads that dialect without OpenCV.
@@ -51,6 +51,20 @@ class OrbConfig:
 
 
 @dataclass(frozen=True)
+class GeoMaskConfig:
+    """GeoMaskMaker settings (reference GeoMaskMaker.h:40-60, GeoMaskMaker.cc)."""
+
+    inter_frame_size: int = 5       # ring buffer pairing t-5 with t (GeoMaskMaker.h:55)
+    max_depth: float = 3.5          # depth validity gate (GeoMaskMaker.cc:229)
+    depth_sigma: float = 0.5        # depth2std sigma (GeoMaskMaker.cc:1386-1391)
+    mahala_threshold: float = 20.0  # fixed threshold on normalized dist (cc:278-326)
+    min_matches: int = 20           # degrade to the semantic mask below this (cc:145-148)
+    pnp_features: int = 2000        # ORB feature budget for GetRt (cc:84)
+    pnp_top_matches: int = 100      # top-K Hamming matches kept for the pose (cc:117)
+    use_otsu: bool = False          # reference computes Otsu then discards it
+
+
+@dataclass(frozen=True)
 class TrackingConfig:
     """Tracking/backend thresholds (reference Tracking.cc / LocalMapping.cc)."""
 
@@ -70,6 +84,7 @@ class TrackingConfig:
 class SlamConfig:
     camera: CameraConfig = field(default_factory=CameraConfig)
     orb: OrbConfig = field(default_factory=OrbConfig)
+    geomask: GeoMaskConfig = field(default_factory=GeoMaskConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
 
     @staticmethod

@@ -13,7 +13,9 @@ import torch
 from gdslam_tpu_torch.backend.ba import LocalBAProblem
 from gdslam_tpu_torch.backend.map_arena import MapArena
 from gdslam_tpu_torch.backend.solvers import RansacResult
-from gdslam_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig, TrackingConfig
+from gdslam_tpu_torch.config import (CameraConfig, GeoMaskConfig, OrbConfig, SlamConfig,
+                                     TrackingConfig)
+from gdslam_tpu_torch.frontend.extractor import Features
 from gdslam_tpu_torch.frontend.frame import Frame
 from gdslam_tpu_torch.system.tracking import FrameState
 
@@ -58,8 +60,18 @@ def frame_state_to_numpy(fs: FrameState) -> dict:
     return d
 
 
+def features_from_numpy(d: dict, device="cuda") -> Features:
+    """Features from a {field: array} dict (every Features field)."""
+    return Features(**{k: _to_torch(d[k], device) for k in Features._fields})
+
+
+def features_to_numpy(feats: Features) -> dict:
+    return {k: getattr(feats, k).cpu().numpy() for k in Features._fields}
+
+
 def config_from_jax_dict(d: dict) -> SlamConfig:
     """SlamConfig from `dataclasses.asdict` of the JAX package's SlamConfig;
-    sections the port does not have yet (geomask, geometry) are ignored."""
+    the section the port does not have yet (geometry) is ignored."""
     return SlamConfig(camera=CameraConfig(**d["camera"]), orb=OrbConfig(**d["orb"]),
+                      geomask=GeoMaskConfig(**d["geomask"]),
                       tracking=TrackingConfig(**d["tracking"]))

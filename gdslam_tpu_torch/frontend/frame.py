@@ -38,14 +38,26 @@ def _erode_ksize(width: int) -> int:
     return max(3, int(round(31 * width / 640.0)) | 1)
 
 
+def _same_max_pool(m: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Separable ksize x ksize max over [H, W] with XLA's 'SAME' window:
+    (ksize - 1) // 2 cells of -inf before and ksize // 2 after on each axis
+    (0 before and 1 after for ksize = 2), so the output stays [H, W]."""
+    lo, hi = (ksize - 1) // 2, ksize // 2
+    m = m[None, None]
+    m = F.max_pool2d(F.pad(m, (0, 0, lo, hi), value=-float("inf")), (ksize, 1), 1)
+    m = F.max_pool2d(F.pad(m, (lo, hi, 0, 0), value=-float("inf")), (1, ksize), 1)
+    return m[0, 0]
+
+
 def erode_mask(mask: torch.Tensor, ksize: int = 31) -> torch.Tensor:
     """Binary erosion with a ksize x ksize square SE (separable min-pool,
     'SAME' window; outside the image counts as +inf, as in reduce_window)."""
-    m = -mask.float()[None, None]
-    pad = ksize // 2
-    m = F.max_pool2d(F.pad(m, (0, 0, pad, pad), value=-float("inf")), (ksize, 1), 1)
-    m = F.max_pool2d(F.pad(m, (pad, pad, 0, 0), value=-float("inf")), (1, ksize), 1)
-    return (-m)[0, 0] > 0.5
+    return -_same_max_pool(-mask.float(), ksize) > 0.5
+
+
+def dilate_mask(mask: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Binary dilation with a square SE (separable max-pool, 'SAME' window)."""
+    return _same_max_pool(mask.float(), ksize) > 0.5
 
 
 def build_frame(feats: Features, depth_map: torch.Tensor, static_mask: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Image primitives: separable Gaussian blur, bilinear resize, pyramid
-(port of gdslam_tpu.ops.image).
+"""Image primitives: separable Gaussian blur, bilinear resize and sampling,
+pyramid (port of gdslam_tpu.ops.image).
 
 Replaces the reference's cv::resize INTER_LINEAR pyramid (scale 1.2,
 8 levels; ORBextractor.cc:1107-1132) and the 7x7 sigma-2 GaussianBlur
@@ -49,6 +49,32 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torc
     for i in range(ksize):
         out = out + x[..., :, i:i + W] * k[i]
     return out
+
+
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+    """Sample img [H, W] at float pixel coords uv [..., 2] = (u=x, v=y); each
+    of the four taps outside the image reads `fill`, so a footprint that is
+    partly inside (u0 = -1 or v0 = -1 included) stays exact. Four direct
+    gathers, weighted and summed in the JAX package's order (its quad packing
+    of the taps was a TPU device for gathers)."""
+    H, W = img.shape
+    u, v = uv[..., 0], uv[..., 1]
+    u0, v0 = torch.floor(u), torch.floor(v)
+    du, dv = u - u0, v - v0
+    u0i, v0i = u0.to(torch.int64), v0.to(torch.int64)
+    flat = img.reshape(-1)
+
+    def tap(vi, ui):
+        inb = (ui >= 0) & (ui < W) & (vi >= 0) & (vi < H)
+        val = flat[vi.clamp(0, H - 1) * W + ui.clamp(0, W - 1)]
+        return torch.where(inb, val, fill)
+
+    w00 = (1 - du) * (1 - dv)
+    w01 = du * (1 - dv)
+    w10 = (1 - du) * dv
+    w11 = du * dv
+    return (w00 * tap(v0i, u0i) + w01 * tap(v0i, u0i + 1)
+            + w10 * tap(v0i + 1, u0i) + w11 * tap(v0i + 1, u0i + 1))
 
 
 def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:

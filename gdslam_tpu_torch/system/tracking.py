@@ -871,7 +871,7 @@ class Tracking:
             # 2D-3D PnP RANSAC: no keypoint depth required.
             res = solvers.ransac_pnp(pw, frame.uv, has_pt, _K(cfg), n_iters=300,
                                      min_inliers=10, px_threshold=px,
-                                     generator=self._generator())
+                                     generator=solvers.frame_generator(self.frame_id, self.device))
             if not bool(res.ok):
                 # fallback hypothesis from 3D-3D where depth exists
                 has_3d = has_pt & (frame.depth > 0)
@@ -880,7 +880,8 @@ class Tracking:
                 q = cam_ops.backproject(frame.uv, frame.depth, cam)
                 res = solvers.ransac_rigid(pw, q, has_3d, _K(cfg), frame.uv, n_iters=300,
                                            min_inliers=10, px_threshold=px * 2,
-                                           generator=self._generator())
+                                           generator=solvers.frame_generator(self.frame_id,
+                                                                             self.device))
                 if not bool(res.ok):
                     continue
             matched = has_pt & res.inliers
@@ -904,9 +905,6 @@ class Tracking:
                 self.arena = arena2
                 return True, T2, assoc2, n2
         return False, None, None, 0
-
-    def _generator(self) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(self.frame_id)
 
     def _need_keyframe_stats(self, n_inl: int, close_tracked: int,
                              close_untracked: int) -> bool:

@@ -7,12 +7,17 @@ start from identical edges."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from gdslam_tpu.backend import ba as jba
 from gdslam_tpu.backend import mapping as jmapping
 from gdslam_tpu_torch import convert
 from gdslam_tpu_torch.backend import ba as tba
 from test_torch_rig import SCFG, TCFG, assert_arena_equal, build, jax_arena, np_tree
+
+# One torch thread per test process: xdist's six workers share the cores,
+# and eight spinning OpenMP threads in each ran these tests twice as slow.
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,10 @@ from gdslam_tpu_torch.backend import map_arena as tma
 from gdslam_tpu_torch.system import tracking as ttr
 from test_torch_rig import KMAX, PMAX, SCFG, TCFG, assert_arena_equal, build, jax_arena, np_tree
 
+# One torch thread per test process: xdist's six workers share the cores,
+# and eight spinning OpenMP threads in each ran these tests twice as slow.
+torch.set_num_threads(1)
+
 
 N_KF = 12
 

@@ -11,10 +11,13 @@ import pytest
 import torch
 
 from gdslam_tpu_torch import CameraConfig, OrbConfig, SlamConfig
-from gdslam_tpu_torch.backend import mapping
+from gdslam_tpu_torch.backend import mapping, solvers
 from gdslam_tpu_torch.frontend import matcher
+from gdslam_tpu_torch.frontend import extractor
 from gdslam_tpu_torch.io import synthetic
+from gdslam_tpu_torch.masking import geomask
 from gdslam_tpu_torch.ops import match_kernel
+from gdslam_tpu_torch.system import slam as slam_mod
 from gdslam_tpu_torch.system.slam import System
 from gdslam_tpu_torch.utils import metrics
 
@@ -293,3 +296,108 @@ def test_slice_on_card_tracks_like_cpu(card):
         runs[str(dev)] = (s.keyframe_count, metrics.ate_rmse(est, gtp))
     (kc, ac), (kg, ag) = runs.values()
     assert abs(kc - kg) <= 1 and abs(ac - ag) < 0.005 and max(ac, ag) < 0.01, runs
+
+
+GD_CAM = CameraConfig(fx=320.0, fy=320.0, cx=160.0, cy=120.0, width=320, height=240, bf=25.6)
+GD_CFG = SlamConfig(camera=GD_CAM, orb=OrbConfig(n_features=1000, n_levels=4))
+
+
+def _gd_raw(n, dev="cpu"):
+    """Frames of the dynamic scene at 240x320 as the CLI feeds them (uint8
+    gray, uint16 depth), with the renderer's frames."""
+    frames = [synthetic.render_frame(i, GD_CAM, with_dynamic=True, device=dev) for i in range(n)]
+    raw = [(f.gray.cpu().numpy().astype(np.uint8),
+            (f.depth.cpu().numpy() * GD_CAM.depth_map_factor).astype(np.uint16)) for f in frames]
+    return frames, raw
+
+
+@pytest.mark.parametrize("pipeline", [True, False], ids=["fast", "staged"])
+def test_gd_slice_on_card_tracks_like_cpu(card, pipeline, monkeypatch):
+    """12 frames of the dynamic scene through System.track_rgbd_gd on the card
+    and on the CPU, pipelined (the packed fast path once the ring is warm)
+    and not (the staged path): both OK, the masks stay on their device and
+    agree to a mean IoU > 0.9 (the RANSAC draws of the two generators
+    differ), ATEs under 1 cm and within 5 mm, keyframes within two."""
+    frames, raw = _gd_raw(12)
+    packed = []
+    real = slam_mod.unpack_gd_frame
+    monkeypatch.setattr(slam_mod, "unpack_gd_frame", lambda *a: packed.append(1) or real(*a))
+    runs = {}
+    for dev in ("cpu", card):
+        s = System(GD_CFG, kmax=32, pmax=16384, pipeline=pipeline, device=dev)
+        masks = []
+        for i, (g, d) in enumerate(raw):
+            _, m = s.track_rgbd_gd(g, d, None, i / 30.0)
+            assert m.device.type == torch.device(dev).type
+            masks.append(m.cpu().numpy() < 0.5)
+        s.shutdown()
+        assert s.tracking_state.name == "OK"
+        traj = s.tracker.camera_trajectory()
+        est = np.stack([T[:3, 3] for _, T in traj])
+        gt0 = np.linalg.inv(frames[0].T_wc.numpy())
+        gtp = np.stack([(gt0 @ f.T_wc.numpy())[:3, 3] for f in frames])
+        runs[str(dev)] = (s.keyframe_count, metrics.ate_rmse(est, gtp), masks)
+    assert len(packed) == (2 * (12 - 5) if pipeline else 0)
+    (kc, ac, mc), (kg, ag, mg) = runs.values()
+    ious = [(a & b).sum() / max((a | b).sum(), 1) for a, b in zip(mc[5:], mg[5:])]
+    assert np.mean(ious) > 0.9, ious
+    assert abs(kc - kg) <= 2 and abs(ac - ag) < 0.005 and max(ac, ag) < 0.01, runs
+
+
+def test_gd_step_waits_for_nothing(card):
+    """gd_step on the card under torch's sync debug mode "error": no upload,
+    no read, no solver that checks its result on the host (the Horn
+    rotation is the quaternion form, not an SVD)."""
+    frames, raw = _gd_raw(6, card)
+    gray = frames[5].gray
+    depth = frames[5].depth
+    ref = frames[0]
+    feats = extractor.extract(ref.gray, GD_CFG.orb, 240, 320)
+    sem = torch.ones_like(gray)
+    gen = solvers.frame_generator(5, card)
+    geomask.gd_step(gray, depth, sem, ref.gray, ref.depth, feats, GD_CFG, gen)   # warm caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, refined = geomask.gd_step(gray, depth, sem, ref.gray, ref.depth, feats, GD_CFG, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert refined.shape == (240, 320) and bool((refined < 0.5).any())
+
+
+def test_packed_upload_round_trip(card):
+    """Frames uploaded back to back through the pinned ring unpack to the
+    host's gray and half-resolution depth exactly; the ring holds no more
+    buffers than frames were in flight."""
+    _, raw = _gd_raw(3)
+    up = slam_mod.PackedUpload(240, 320, card)
+    outs = [up(g, d) for g, d in raw * 4]
+    for (g, d), packed in zip(raw * 4, outs):
+        gray, depth = slam_mod.unpack_gd_frame(packed, 240, 320, 1.0)
+        assert torch.equal(gray.cpu(), torch.from_numpy(g).float())
+        half = np.repeat(np.repeat(d[::2, ::2], 2, 0), 2, 1).astype(np.float32)
+        assert torch.equal(depth.cpu(), torch.from_numpy(half))
+    assert 1 <= len(up.ring) <= 12
+
+
+def test_gd_match_call_site_equals_plain(card):
+    """The cur x ref match of gd_step_core (1000 x 1000, no window, level
+    slack n_levels) on the kernel equals match_top2_plain exactly, with the
+    kernel choosing its path (tiled) and with each path forced."""
+    frames, _ = _gd_raw(6, card)
+    fa, fb = (extractor.extract(f.gray, GD_CFG.orb, 240, 320) for f in (frames[5], frames[0]))
+    calls = []
+    real = geomask.match_top2
+    geomask.match_top2 = lambda *a, **k: calls.append(a) or real(*a, **k)
+    try:
+        geomask.ratio_matches(fa, fb, GD_CFG.orb.n_levels)
+    finally:
+        geomask.match_top2 = real
+    args = calls[0]
+    want = match_kernel.match_top2_plain(*args)
+    for path in (None, "cells", "tiled"):
+        got = match_kernel.match_top2(*args, path=path)
+        if path is None:
+            assert match_kernel.last_call()["path"] == "tiled"
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

@@ -19,6 +19,10 @@ from gdslam_tpu_torch.frontend import frame as tframe
 from gdslam_tpu_torch.ops import fast as tfast
 from gdslam_tpu_torch.ops import image as timg
 
+# One torch thread per test process: xdist's six workers share the cores,
+# and eight spinning OpenMP threads in each ran these tests twice as slow.
+torch.set_num_threads(1)
+
 SCAM = CameraConfig(fx=160.0, fy=160.0, cx=80.0, cy=60.0, width=160, height=120,
                     bf=160.0 * 0.08)
 SORB = OrbConfig(n_features=384, n_levels=4)

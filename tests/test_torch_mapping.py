@@ -29,6 +29,10 @@ from gdslam_tpu_torch.backend import mapping as tmapping
 from test_torch_rig import SCFG, assert_arena_equal, build, jax_arena, np_tree
 from test_torch_rig import TCFG as RIG_TCFG
 
+# One torch thread per test process: xdist's six workers share the cores,
+# and eight spinning OpenMP threads in each ran these tests twice as slow.
+torch.set_num_threads(1)
+
 K, P, N, N_KF = 8, 64, 16, 6
 JCFG = SlamConfig(orb=OrbConfig(n_features=N, n_levels=4))
 TCFG = TSlamConfig(orb=TOrbConfig(n_features=N, n_levels=4))

@@ -17,6 +17,10 @@ from gdslam_tpu.ops import pallas_match
 from gdslam_tpu_torch.frontend import matcher as tmatcher
 from gdslam_tpu_torch.ops import match_kernel
 
+# One torch thread per test process: xdist's six workers share the cores,
+# and eight spinning OpenMP threads in each ran these tests twice as slow.
+torch.set_num_threads(1)
+
 
 def _inputs(seed, M, N, extent=160.0, n_levels=8, dup_rows=0):
     r = np.random.default_rng(seed)

@@ -34,6 +34,10 @@ from gdslam_tpu_torch.system import tracking as ttracking
 from gdslam_tpu_torch.system import trajectory as ttraj
 from gdslam_tpu_torch.utils import metrics as tmetrics
 
+# One torch thread per test process: xdist's six workers share the cores,
+# and eight spinning OpenMP threads in each ran these tests twice as slow.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "gdslam_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "gdslam_tpu")
@@ -92,7 +96,7 @@ def test_tf32_is_off():
 def test_config_copy_matches_jax():
     """Same fields and defaults as the JAX package's dataclasses, and
     convert.config_from_jax_dict round-trips them."""
-    for name in ("CameraConfig", "OrbConfig", "TrackingConfig"):
+    for name in ("CameraConfig", "OrbConfig", "GeoMaskConfig", "TrackingConfig"):
         assert dataclasses.asdict(getattr(tconfig, name)()) == \
             dataclasses.asdict(getattr(jconfig, name)())
     jcfg = jconfig.SlamConfig(camera=jconfig.CameraConfig(fx=500.0, width=320, height=240),
@@ -109,7 +113,7 @@ def test_opencv_yaml_reader_matches_jax(tmp_path):
                     "DepthMapFactor: 5208.0  # comment\n")
     got = tconfig.SlamConfig.from_opencv_yaml(str(path))
     want = jconfig.SlamConfig.from_opencv_yaml(str(path))
-    for section in ("camera", "orb", "tracking"):
+    for section in ("camera", "orb", "geomask", "tracking"):
         assert dataclasses.asdict(getattr(got, section)) == \
             dataclasses.asdict(getattr(want, section))
 
@@ -163,10 +167,14 @@ def test_not_ported_entry_points_raise():
     cfg = tconfig.SlamConfig(camera=tconfig.CameraConfig(width=160, height=120),
                              orb=tconfig.OrbConfig(n_features=64, n_levels=2))
     s = tslam.System(cfg, kmax=4, pmax=64, device="cpu")
-    for name in ("track_rgbd_gd", "track_rgbd_geom", "track_stereo", "track_monocular",
+    for name in ("track_rgbd_geom", "track_stereo", "track_monocular",
                  "save_map", "load_map", "save_trajectory_kitti"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(s, name)()
+    # the GD path is ported; its inpainting output comes with the geometry path
+    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 10"):
+        s.track_rgbd_gd(np.zeros((120, 160, 3), np.uint8), np.zeros((120, 160)), None, 0.0,
+                        inpaint=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         s.track_rgbd(np.zeros((120, 160)), np.zeros((120, 160)), None, 0.0, use_geometry=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

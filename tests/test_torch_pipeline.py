@@ -20,6 +20,10 @@ from gdslam_tpu_torch.system import tracking as ttr
 from test_torch_tracking import (KMAX, N_FRAMES, ONES, PMAX, SCAM, TCFG, _ate, _jax_frame,
                                  _jax_tracker, _torch_frame)
 
+# One torch thread per test process: xdist's six workers share the cores,
+# and eight spinning OpenMP threads in each ran these tests twice as slow.
+torch.set_num_threads(1)
+
 N_SHARED = 6
 
 

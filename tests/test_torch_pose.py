@@ -17,6 +17,10 @@ from gdslam_tpu_torch.backend import optimizer as topt
 from gdslam_tpu_torch.core import camera as tcam
 from gdslam_tpu_torch.core import lie as tlie
 
+# One torch thread per test process: xdist's six workers share the cores,
+# and eight spinning OpenMP threads in each ran these tests twice as slow.
+torch.set_num_threads(1)
+
 RNG = np.random.default_rng(7)
 XI = np.concatenate([RNG.normal(0, 0.3, (16, 3)), RNG.normal(0, 0.4, (16, 3))],
                     1).astype(np.float32)

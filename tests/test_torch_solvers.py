@@ -15,6 +15,10 @@ from gdslam_tpu.core import lie as jlie
 from gdslam_tpu_torch import convert
 from gdslam_tpu_torch.backend import solvers as tsolvers
 
+# One torch thread per test process: xdist's six workers share the cores,
+# and eight spinning OpenMP threads in each ran these tests twice as slow.
+torch.set_num_threads(1)
+
 K = (160.0, 160.0, 80.0, 60.0)
 
 
@@ -44,6 +48,44 @@ def _jax_draw(key, valid, n_iters: int, size: int) -> np.ndarray:
     idx = jax.random.categorical(
         key, jnp.log(probs + 1e-12)[None, :].repeat(n_iters * size, 0))
     return np.asarray(idx.reshape(n_iters, size))
+
+
+@pytest.mark.parametrize("kind", ["random", "aligned", "zero"])
+def test_rotation_from_cross_covariance_is_the_svd_optimum(kind):
+    """Horn's quaternion form gives the rotation of the SVD with the
+    reflection fix (float64 numpy) to 2e-5 on well-posed inputs, a proper
+    rotation always, and the identity for H = 0. "random": any 3x3 H, half
+    of them with det < 0 (where the reflection fix acts); "aligned": the
+    cross-covariance of 3-point samples under a rotation plus noise."""
+    r = np.random.default_rng(5)
+    if kind == "random":
+        H = r.normal(size=(500, 3, 3))
+    elif kind == "aligned":
+        P = r.normal(size=(500, 3, 3))
+        T = np.asarray(jax.vmap(jlie.se3_exp)(jnp.asarray(r.normal(0, 0.5, (500, 6)),
+                                                          jnp.float32)))
+        Q = np.einsum("bij,bnj->bni", T[:, :3, :3], P) + r.normal(0, 0.01, P.shape)
+        Pc, Qc = P - P.mean(1, keepdims=True), Q - Q.mean(1, keepdims=True)
+        H = np.einsum("bni,bnj->bij", Pc, Qc)
+    else:
+        H = np.zeros((2, 3, 3))
+    U, S, Vt = np.linalg.svd(H)
+    d = np.linalg.det(np.einsum("bji,bkj->bik", Vt, U))
+    D = np.zeros_like(H)
+    D[:, 0, 0] = D[:, 1, 1] = 1.0
+    D[:, 2, 2] = d
+    want = np.einsum("bji,bjk,blk->bil", Vt, D, U)
+    got = tsolvers._rotation_from_cross_covariance(torch.from_numpy(H.astype(np.float32)))
+    got = got.double().numpy()
+    np.testing.assert_allclose(np.linalg.det(got), 1.0, atol=1e-5)
+    if kind == "zero":
+        np.testing.assert_array_equal(got, np.broadcast_to(np.eye(3), got.shape))
+        return
+    # the optimum is unique where the two smallest singular values (with the
+    # reflection's sign) are apart; compare there
+    posed = (S[:, 1] + d * S[:, 2]) > 1e-2 * S[:, 0]
+    assert posed.mean() > 0.9
+    np.testing.assert_allclose(got[posed], want[posed], atol=2e-5)
 
 
 @pytest.mark.parametrize("with_scale", [False, True])
