@@ -52,6 +52,31 @@ then prints one JSON line per phase:
   gd_staged
            20 frames the same way without pipelining: every frame takes the
            staged path (the ring's get_mask, then the tracker's body);
+  geom_slice
+           the DynaSLAM geometry path as bench.py::bench_geometry runs it:
+           System.track_rgbd(use_geometry=True), pipelined with commit_every
+           6, on the dynamic scene (gray + depth on the card, no semantic
+           mask): warm-up until 8 keyframes, a timed 30-frame window, the 10
+           quality frames bench scores, two more timed windows (frame time:
+           the median of the three); every frame OK,
+           ATE <= 0.1 m, mask recall >= 0.5, IoU >= 0.35 (the JAX package's
+           numbers printed beside), host synchronisations per frame (the
+           flush alone, 1/6), DB inserts against keyframes, match_top2
+           launches by call site (LightTrack's two searches named apart);
+  geom_staged
+           20 frames of System.track_rgbd_geom, not pipelined (RGB in,
+           inpainted RGB and depth and the refined mask out): the JAX test's
+           hole rule on every frame with a hole and a DB view, and the
+           inpainted share of the hole;
+  gd_inpaint
+           20 frames of System.track_rgbd_gd(inpaint=True) as the CLI's
+           output-directory mode runs it (pipelined, host uint8 RGB + uint16
+           depth), with the same hole guard;
+  cli      both CLIs on a 40-frame TUM-layout sequence of the dynamic scene
+           written with io/png.py under build/: rgbd_tum in its three modes
+           and evaluate --mode gd and --mode geometry with --ref-masks, held
+           to the JAX CLI tests' ATE gates; trajectory files, epoch
+           timestamps, output PNGs that round-trip; which frame loader ran;
   stages   per-stage times on the slice's final state (the tracking
            programs, the keyframe program and its parts, the RANSACs), and
            the kernel timed against its bounds and the launch floor on the
@@ -63,12 +88,19 @@ then prints one JSON line per phase:
            match (also exact against match_top2_plain, timed against its
            bound) and ransac_rigid: ms through the host, device busy and
            device operations per call; gd_step must not wait for the card;
+  geom_stages
+           the geometry frame's parts on geom_slice's final state:
+           extract_dynamic_seeds, depth_region_growing, correction_dynamic_mask,
+           inpaint (the 20-frame DB), LightTrack (both searches) and the whole
+           pipelined frame's device work, which must not wait for the card:
+           ms through the host, device busy and device operations per call;
+           a profiler window over 10 whole geometry frames;
   profile  torch.profiler windows over whole frames (pipelined and not, and
            GD frames), over one pose solve and over one local BA: device
            busy share, device operations, host operators.
 
-Then the card's name and power limit as nvidia-smi gives them, the kernels
-line and, last, the ok line. Without a card, or when any phase fails, it
+Then the seconds each phase took (phase_seconds), the card's name and power
+limit as nvidia-smi gives them, the kernels line and, last, the ok line. Without a card, or when any phase fails, it
 exits non-zero and prints no ok line.
 
 --ab-source names an earlier version of the kernel's source (one
@@ -88,6 +120,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -99,6 +132,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and f32 FLOP/s
 # outside the tensor cores. The INT32 rate is derived from the f32 one: an SM
@@ -130,9 +164,33 @@ GD_MASK_GUARD = (0.5, 0.35)    # recall, IoU
 # quality reference only, printed beside the port's
 GD_JAX_QUALITY = dict(ate_m=0.017, mask_recall=0.781, mask_iou=0.502)
 
+# The DynaSLAM geometry path, as bench.py::bench_geometry runs it (on the GD
+# slice's dynamic frames): pipelined with commit_every 6, warm-up until 8
+# keyframes, then timed windows and 10 quality frames; its guards are the GD
+# slice's. The JAX package's quality there (BENCH_r05, a TPU v5e run), a
+# quality reference only.
+GEOM_COMMIT_EVERY = 6
+GEOM_WARMUP_KEYFRAMES = 8
+GEOM_WINDOW = 30
+GEOM_TAIL = 10
+GEOM_PROFILE_FRAMES = 10
+GEOM_STAGED_FRAMES = 20
+GD_INPAINT_FRAMES = 20
+GEOM_JAX_QUALITY = dict(ate_m=0.0423, mask_recall=1.0, mask_iou=0.715)
+CLI_FRAMES = 40
+CLI_EPOCH = 1305031790.0       # TUM epoch seconds: timestamps must stay float64
+
+
+PHASE_SECONDS: dict = {}           # each phase line: seconds since the line before it
+_LAST_LINE = [time.perf_counter()]
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+    now = time.perf_counter()
+    if "phase" in obj:
+        PHASE_SECONDS[obj["phase"]] = now - _LAST_LINE[0]
+    _LAST_LINE[0] = now
 
 
 def fail(msg: str) -> None:
@@ -955,7 +1013,8 @@ class GdCounters:
     that took the packed fast path, and the GD pose RANSAC's inlier counts
     (device scalars, read once at the end)."""
 
-    def __init__(self, matcher, tracking, geomask, solvers, slam_mod):
+    def __init__(self, matcher, tracking, geomask, solvers, slam_mod, by_caller=False):
+        self.by_caller = by_caller      # the motion model's calls named by their caller
         self.sites = collections.Counter()
         self.inliers, self.packed = [], 0
         self.mods = ((matcher, "match_top2", self._top2_matcher),
@@ -966,7 +1025,10 @@ class GdCounters:
         self.real = {}
 
     def _top2_matcher(self, real, *a, **k):
-        self.sites[sys._getframe(3).f_code.co_name] += 1     # match_candidates' caller
+        site = sys._getframe(3).f_code.co_name                # match_candidates' caller
+        if self.by_caller and site == "track_motion_model":
+            site += "<" + sys._getframe(4).f_code.co_name
+        self.sites[site] += 1
         return real(*a, **k)
 
     def _top2_named(self, site):
@@ -1260,6 +1322,433 @@ def record_top2_calls(module, fn) -> list:
     return calls
 
 
+# ----------------------------------------------------------------------------
+# the DynaSLAM geometry path, inpainting and the CLIs
+# ----------------------------------------------------------------------------
+
+def hole_fill(torch, depth_in, rgb_in, rgb_out, depth_out, mask_out) -> tuple:
+    """(the JAX test's rule, the inpainted share) over the hole, the pixels
+    the refined mask removed (tests/test_geometry_path.py: a hole pixel
+    counts as filled where the input had no depth or the output has some);
+    the inpainted share is the hole's pixels whose output came from the DB.
+    None where the mask removed nothing."""
+    hole = mask_out < 0.5
+    if not bool(hole.any()):
+        return None, None
+    rule = ((depth_in[hole] == 0) | (depth_out[hole] > 0)).float().mean().item()
+    changed = (depth_out != depth_in) | (rgb_out != rgb_in).any(-1)
+    return rule, changed[hole].float().mean().item()
+
+
+def phase_geom_slice(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, dev,
+                     counters_args):
+    """bench.py::bench_geometry's protocol on the port: System.track_rgbd(
+    use_geometry=True), pipelined with commit_every 6, mask None, fed the
+    dynamic scene's gray and depth on the card as bench feeds them. Warm-up
+    until 8 keyframes, a timed window of GEOM_WINDOW frames ended by a flush
+    and a synchronise, then GEOM_TAIL frames whose refined masks are scored
+    (bench's frames: the masks' quality depends on where the sphere is, and
+    the JAX package's numbers were taken on these), then two more timed
+    windows; the frame time is the median of the three (bench times one).
+    The kernel's counts are set to 0 just before the run and read just
+    after; host synchronisations are counted over the timed windows."""
+    slam = System(cfg, kmax=256, pmax=65536, pipeline=True, device=dev)
+    tr = slam.tracker
+    tr.commit_every = GEOM_COMMIT_EVERY
+    states, windows, masks = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(mk)
+    counters = GdCounters(*counters_args, by_caller=True)
+
+    def frame(k):
+        slam.track_rgbd(frames[k].gray, frames[k].depth, None, k / 30.0, use_geometry=True)
+        states.append(slam.tracking_state)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with counters:
+                k = 0
+                last_warm = len(frames) - 3 * GEOM_WINDOW - GEOM_TAIL - GEOM_PROFILE_FRAMES - 1
+                while k < last_warm and slam.keyframe_count < GEOM_WARMUP_KEYFRAMES:
+                    frame(k)
+                    k += 1
+                warm = k
+                tr.flush()
+                torch.cuda.synchronize()
+                timed = []
+                for w in range(3):
+                    start, stop = k, k + GEOM_WINDOW
+                    before = len(caught)
+                    t0 = time.perf_counter()
+                    for k in range(start, stop):
+                        frame(k)
+                    tr.flush()
+                    torch.cuda.synchronize()
+                    windows.append((time.perf_counter() - t0) * 1e3 / (stop - start))
+                    timed += [x for x in caught[before:] if "synchroniz" in str(x.message)]
+                    k = stop
+                    if w == 0:      # bench_geometry's quality frames follow its one window
+                        tail = range(k, k + GEOM_TAIL)
+                        for k in tail:
+                            frame(k)
+                            masks.append(slam._last_refined_mask)
+                        tr.flush()
+                        torch.cuda.synchronize()
+                        k = tail[-1] + 1
+                slam.shutdown()
+                torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n = k
+    traj = tr.camera_trajectory()
+    recall, iou = mask_quality(masks, frames, tail)
+    sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in timed)
+    n_timed = 3 * GEOM_WINDOW
+    res = dict(phase="geom_slice", frames=n, warmup_frames=warm, timed_frames=n_timed,
+               quality_frames=[tail[0], tail[-1]], width=cfg.camera.width,
+               height=cfg.camera.height, n_features=cfg.orb.n_features, kmax=256, pmax=65536,
+               pipeline=True, commit_every=GEOM_COMMIT_EVERY, dynamic_scene=True,
+               input="gray + depth on the card", semantic_mask=None,
+               all_ok=all(s == TrackState.OK for s in states)
+               and not any(r[3] for r in tr.records),
+               frame_ms_windows=windows, frame_ms=statistics.median(windows),
+               fps=1e3 / statistics.median(windows),
+               host_syncs_timed=len(timed), host_syncs_per_frame=len(timed) / n_timed,
+               host_sync_sites=dict(sites.most_common(12)),
+               match_top2_launches=mk.match_top2.launches,
+               match_top2_by_site=dict(counters.sites), kp_grid_launches=mk.kp_grid.launches,
+               keyframes=slam.keyframe_count, keyframe_slots_used=tr.n_kf_host,
+               db_inserts=slam._geometry.inserted, db_valid=int(slam._geometry.db.valid.sum()),
+               map_points=slam.map_point_count, mask_recall=recall, mask_iou=iou,
+               jax_tpu_quality_reference=GEOM_JAX_QUALITY,
+               peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20, card=nvidia_smi_line(),
+               **ate_pair(torch, synthetic, metrics, traj,
+                          [f.T_wc.cpu().numpy() for f in frames[:n]]))
+    emit(res)
+    gd_guards(res, n, len(traj))
+    if not 1 <= res["db_inserts"] <= res["keyframe_slots_used"]:
+        fail(f"geom_slice: {res['db_inserts']} DB inserts for {res['keyframe_slots_used']} "
+             "keyframes")
+    if res["host_syncs_per_frame"] > 1.0 / GEOM_COMMIT_EVERY + 0.05:
+        fail(f"geom_slice: {res['host_syncs_per_frame']} host synchronisations per frame at "
+             f"{res['host_sync_sites']}; the flush alone is 1/{GEOM_COMMIT_EVERY}")
+    if counters.sites["track_motion_model<light_track_dispatched"] < 2 * n_timed:
+        fail(f"geom_slice: LightTrack did not run on every frame: {dict(counters.sites)}")
+    return slam, res, n
+
+
+def phase_geom_staged(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, dev):
+    """GEOM_STAGED_FRAMES frames through System.track_rgbd_geom without
+    pipelining (RGB in; inpainted RGB and depth and the refined mask out),
+    each timed with a synchronise. Guard: on every frame where the mask
+    removed pixels and the DB held a view, the JAX test's hole rule holds
+    for more than half of the hole."""
+    n = GEOM_STAGED_FRAMES
+    slam = System(cfg, kmax=256, pmax=65536, pipeline=False, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(mk)
+    times, states, rules, shares = [], [], [], []
+    for k in range(n):
+        fr = frames[k]
+        had_view = slam._geometry is not None and slam._geometry.inserted > 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rgb_o, d_o, m_o = slam.track_rgbd_geom(fr.rgb, fr.depth, None, k / 30.0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        states.append(slam.tracking_state)
+        rule, share = hole_fill(torch, fr.depth, fr.rgb, rgb_o, d_o, m_o)
+        if had_view and rule is not None:
+            rules.append(rule)
+            shares.append(share)
+    traj = slam.tracker.camera_trajectory()
+    steady = sorted(times[5:])
+    res = dict(phase="geom_staged", frames=n, pipeline=False, dynamic_scene=True,
+               input="rgb + depth on the card",
+               all_ok=all(s == TrackState.OK for s in states),
+               frame_ms_median=statistics.median(steady), frame_ms_max=steady[-1],
+               first_frame_ms=times[0], match_top2_launches=mk.match_top2.launches,
+               keyframes=slam.keyframe_count, db_inserts=slam._geometry.inserted,
+               frames_with_hole_and_view=len(rules),
+               hole_rule_min=min(rules) if rules else None,
+               inpainted_share_of_hole_mean=float(np.mean(shares)) if shares else None,
+               inpainted_share_of_hole_min=min(shares) if shares else None,
+               peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20, card=nvidia_smi_line(),
+               **ate_pair(torch, synthetic, metrics, traj,
+                          [f.T_wc.cpu().numpy() for f in frames[:n]]))
+    emit(res)
+    if not res["all_ok"] or len(traj) != n:
+        fail("geom_staged: a frame was not tracked OK")
+    if not rules or min(rules) <= 0.5:
+        fail(f"geom_staged: the hole rule {rules} (needs > 0.5 on every frame with a hole)")
+    return res
+
+
+def phase_gd_inpaint(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, dev):
+    """GD_INPAINT_FRAMES frames through System.track_rgbd_gd(inpaint=True) as
+    the CLI's output-directory mode runs it: pipelined (commit_every 3), host
+    uint8 RGB + uint16 depth, mask None; each frame's outputs read back (the
+    CLI writes them). The same hole guard as geom_staged, and the DB inserts
+    (the JAX package's rule, ROADMAP.md section 3) beside the keyframes."""
+    n = GD_INPAINT_FRAMES
+    dmf = cfg.camera.depth_map_factor
+    raw = [(fr.rgb.cpu().numpy().astype(np.uint8),
+            (fr.depth.cpu().numpy() * dmf).astype(np.uint16)) for fr in frames[:n]]
+    slam = System(cfg, kmax=256, pmax=65536, pipeline=True, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(mk)
+    times, rules, shares = [], [], []
+    for k, (rgb, d16) in enumerate(raw):
+        had_view = slam._geometry is not None and slam._geometry.inserted > 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m_o, rgb_o, d_o = slam.track_rgbd_gd(rgb, d16, None, k / 30.0, inpaint=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        depth_in = torch.from_numpy(d16.astype(np.int32)).to(dev).float() * (1.0 / dmf)
+        rule, share = hole_fill(torch, depth_in, torch.from_numpy(rgb).to(dev).float(),
+                                rgb_o, d_o, m_o)
+        if had_view and rule is not None:
+            rules.append(rule)
+            shares.append(share)
+    slam.shutdown()
+    traj = slam.tracker.camera_trajectory()
+    steady = sorted(times[5:])
+    res = dict(phase="gd_inpaint", frames=n, pipeline=True, commit_every=3,
+               input="uint8 rgb + uint16 depth from the host", semantic_mask=None,
+               all_ok=slam.tracking_state == TrackState.OK
+               and not any(r[3] for r in slam.tracker.records),
+               frame_ms_median=statistics.median(steady), frame_ms_max=steady[-1],
+               first_frame_ms=times[0], match_top2_launches=mk.match_top2.launches,
+               keyframes=slam.keyframe_count,
+               keyframe_frames=[round(t * 30.0) for t in slam.tracker.kf_timestamps],
+               db_inserts=slam._geometry.inserted, frames_with_hole_and_view=len(rules),
+               hole_rule_min=min(rules) if rules else None,
+               inpainted_share_of_hole_mean=float(np.mean(shares)) if shares else None,
+               inpainted_share_of_hole_min=min(shares) if shares else None,
+               peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20, card=nvidia_smi_line(),
+               **ate_pair(torch, synthetic, metrics, traj,
+                          [f.T_wc.cpu().numpy() for f in frames[:n]]))
+    emit(res)
+    if not res["all_ok"] or len(traj) != n:
+        fail("gd_inpaint: a frame was not tracked OK")
+    if not rules or min(rules) <= 0.5:
+        fail(f"gd_inpaint: the hole rule {rules} (needs > 0.5 on every frame with a hole)")
+    return res
+
+
+def phase_geom_stages(torch, slam, frame, more_frames, t_first, cfg, modules) -> dict:
+    """The geometry frame's parts on the final state of geom_slice (its
+    20-frame DB) and the next frame: extract_dynamic_seeds and
+    depth_region_growing on the half grid as correction_dynamic_mask runs
+    them, correction_dynamic_mask whole, inpaint over the DB, LightTrack
+    (both searches) and the pipelined geometry frame's device work (its
+    extraction, LightTrack, correction, frame build and track_frame_core,
+    not adopted): ms through the host, device busy and device operations per
+    call. The geometry frame must not wait for the card. Then a profiler
+    window over whole frames through the entry point."""
+    geometry, extractor, build_frame = modules
+    tr, geo, cam = slam.tracker, slam._geometry, cfg.camera
+    g = cfg.geometry
+    gray, depth = frame.gray, frame.depth
+    sem = torch.ones_like(gray)
+    feats = extractor.extract(gray, cfg.orb, cam.height, cam.width)
+    frame0 = build_frame(feats, depth, sem, cam)
+    T_lt, n_lt = tr.light_track_dispatched(frame0)
+    cam_h = dataclasses.replace(cam, fx=cam.fx / 2, fy=cam.fy / 2, cx=cam.cx / 2,
+                                cy=cam.cy / 2, width=(cam.width + 1) // 2,
+                                height=(cam.height + 1) // 2)
+    cfg_h = dataclasses.replace(cfg, camera=cam_h)
+    db = geo.db
+    db_h = db._replace(gray=db.gray[:, ::2, ::2], depth=db.depth[:, ::2, ::2],
+                       mask=db.mask[:, ::2, ::2], rgb=db.rgb[:, ::2, ::2])
+    d_h = depth[::2, ::2]
+    dil = max(int(round(g.dilation_px * cam.width / 640.0 / 2)), 2)
+    seeds = geometry.extract_dynamic_seeds(db_h, d_h, T_lt, cfg_h)
+    grown = geometry.correction_dynamic_mask(db, depth, T_lt, cfg)
+    refined = geometry.combine_masks(sem, grown)
+
+    def geometry_frame():
+        f = extractor.extract(gray, cfg.orb, cam.height, cam.width)
+        fr0 = build_frame(f, depth, sem, cam)
+        T, n_in = tr.light_track_dispatched(fr0)
+        ref = torch.where(n_in >= 10, geometry.combine_masks(
+            sem, geometry.correction_dynamic_mask(geo.db, depth, T, cfg)), sem)
+        return tr._dispatch(build_frame(f, depth, ref, cam))
+
+    sites = sync_sites(torch, geometry_frame)
+    if sites:
+        fail(f"the geometry frame synchronises with the card at {sites}")
+    stages = {
+        "extract_dynamic_seeds": stage_numbers(torch, lambda: geometry.extract_dynamic_seeds(
+            db_h, d_h, T_lt, cfg_h)),
+        "depth_region_growing": stage_numbers(torch, lambda: geometry.depth_region_growing(
+            seeds, d_h, g.region_growing_threshold, 40, dil)),
+        "correction_dynamic_mask": stage_numbers(
+            torch, lambda: geometry.correction_dynamic_mask(db, depth, T_lt, cfg)),
+        "inpaint": stage_numbers(torch, lambda: geometry.inpaint(db, frame.rgb, depth, refined,
+                                                                 T_lt, cfg)),
+        "light_track_narrow_and_wide": stage_numbers(
+            torch, lambda: tr.light_track_dispatched(frame0)),
+        "geometry_frame_dispatch": stage_numbers(torch, geometry_frame),
+    }
+
+    def whole_frames():
+        for i, f in enumerate(more_frames):
+            slam.track_rgbd(f.gray, f.depth, None, (t_first + i) / 30.0, use_geometry=True)
+        slam.shutdown()
+
+    return dict(phase="geom_stages", card=nvidia_smi_line(),
+                half_grid=[cam_h.height, cam_h.width], db_frames=int(db.valid.sum()),
+                seeds=int(seeds.sum()), grown_full_grid=int(grown.sum()),
+                light_track_inliers=int(n_lt), ms={k: v["ms"] for k, v in stages.items()},
+                stages=stages, frames_profiled=len(more_frames),
+                per_geom_frame_pipelined=profile_window(torch, whole_frames, len(more_frames)))
+
+
+CLI_SETTINGS = """%YAML:1.0
+Camera.fx: {c.fx}
+Camera.fy: {c.fy}
+Camera.cx: {c.cx}
+Camera.cy: {c.cy}
+Camera.width: {c.width}
+Camera.height: {c.height}
+Camera.fps: {c.fps}
+Camera.bf: {c.bf}
+Camera.RGB: {c.rgb}
+ThDepth: {c.th_depth}
+DepthMapFactor: {c.depth_map_factor}
+ORBextractor.nFeatures: {o.n_features}
+ORBextractor.scaleFactor: {o.scale_factor}
+ORBextractor.nLevels: {o.n_levels}
+ORBextractor.iniThFAST: {o.ini_th_fast}
+ORBextractor.minThFAST: {o.min_th_fast}
+"""
+
+
+def write_tum_sequence(cfg, frames, base: Path, png, traj_mod) -> list:
+    """The frames as a TUM-layout directory (rgb/, depth/ in DepthMapFactor
+    units, masks/ holding the renderer's dyn_mask as a mask cache,
+    assoc.txt, groundtruth.txt, settings.yaml), named by TUM epoch
+    timestamps. Returns the ground-truth poses."""
+    for sub in ("rgb", "depth", "masks"):
+        (base / sub).mkdir(parents=True)
+    assoc, gts = [], []
+    dmf = cfg.camera.depth_map_factor
+    for i, fr in enumerate(frames):
+        ts = CLI_EPOCH + i / 30.0
+        name = f"{ts:.6f}.png"
+        png.write(base / "rgb" / name, fr.rgb.cpu().numpy().astype(np.uint8))
+        png.write(base / "depth" / name, (fr.depth.cpu().numpy() * dmf).astype(np.uint16))
+        png.write(base / "masks" / name, (fr.dyn_mask.cpu().numpy() * 255).astype(np.uint8))
+        assoc.append(f"{ts:.6f} rgb/{name} {ts:.6f} depth/{name}")
+        gts.append(fr.T_wc.cpu().numpy().astype(np.float64))
+    (base / "assoc.txt").write_text("\n".join(assoc) + "\n")
+    traj_mod.save_tum(str(base / "groundtruth.txt"),
+                      [(CLI_EPOCH + i / 30.0, T) for i, T in enumerate(gts)])
+    (base / "settings.yaml").write_text(CLI_SETTINGS.format(c=cfg.camera, o=cfg.orb))
+    return gts
+
+
+def run_cli(main, argv, cwd: Path) -> tuple[int, str, float]:
+    """main(argv) of a CLI in directory cwd, its standard output kept."""
+    import contextlib
+    import io
+    cwd.mkdir(parents=True, exist_ok=True)
+    old, buf = os.getcwd(), io.StringIO()
+    os.chdir(cwd)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    finally:
+        os.chdir(old)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def trajectory_file_ate(path: Path, gts, metrics) -> tuple[float, int]:
+    rows = [r.split() for r in path.read_text().strip().splitlines()]
+    if not rows or any(len(r) != 8 for r in rows):
+        fail(f"cli: {path} does not parse as a TUM trajectory")
+    T0inv = np.linalg.inv(gts[0])
+    est = np.array([[float(x) for x in r[1:4]] for r in rows])
+    gt = np.stack([(T0inv @ gts[round((float(r[0]) - CLI_EPOCH) * 30.0)])[:3, 3] for r in rows])
+    return metrics.ate_rmse(est, gt), len(rows)
+
+
+def phase_cli(torch, mk, cfg, frames, metrics, dev) -> dict:
+    """The CLIs as a user runs them, on a TUM-layout sequence of the
+    dynamic scene (CLI_FRAMES frames at full size, written with io/png.py
+    into a directory under build/): rgbd_tum in its three modes (plain; the
+    mask cache, which runs the geometry path; an output directory, GD
+    masking with inpainting), then evaluate --mode gd and --mode geometry
+    with the mask cache and --ref-masks. Gates as the JAX CLI tests use
+    them: plain ATE < 0.30 m, masked < 0.08 m, GD (evaluate and rgbd_tum's
+    output mode) < 0.15 m; the trajectory files parse and the first
+    keyframe keeps its epoch timestamp to within 2 s; the output PNGs read
+    back and round-trip through io/png.py."""
+    from gdslam_tpu_torch.cli import evaluate, rgbd_tum
+    from gdslam_tpu_torch.io import native_loader, png
+    from gdslam_tpu_torch.system import trajectory as traj_mod
+    (ROOT / "build").mkdir(exist_ok=True)
+    base = Path(tempfile.mkdtemp(prefix="cli_smoke_", dir=ROOT / "build"))
+    seq = base / "seq"
+    t0 = time.perf_counter()
+    gts = write_tum_sequence(cfg, frames[:CLI_FRAMES], seq, png, traj_mod)
+    write_s = time.perf_counter() - t0
+    settings, assoc = str(seq / "settings.yaml"), str(seq / "assoc.txt")
+    masks, gt_file = str(seq / "masks"), str(seq / "groundtruth.txt")
+    reset_launch_counts(mk)
+    runs = {}
+    for mode, extra, gate in (("plain", [], 0.30), ("geometry", [masks], 0.08),
+                              ("gd_inpaint", [masks, str(base / "out")], 0.15)):
+        rc, out, sec = run_cli(rgbd_tum.main, ["none", settings, str(seq), assoc, *extra,
+                                                  "--device", dev], base / mode)
+        if rc != 0:
+            fail(f"cli: rgbd_tum {mode} returned {rc}: {out[-2000:]}")
+        ate, n = trajectory_file_ate(base / mode / "CameraTrajectory.txt", gts, metrics)
+        kf_rows = (base / mode / "KeyFrameTrajectory.txt").read_text().strip().splitlines()
+        kf0 = float(kf_rows[0].split()[0]) if kf_rows else float("nan")
+        runs[f"rgbd_tum_{mode}"] = dict(
+            seconds=sec, ate_m=ate, poses=n, keyframes=len(kf_rows), first_keyframe_ts=kf0,
+            loader="native" if "(native loader)" in out else "TumSequence",
+            median_tracking_s=float(out.split("median tracking time:")[1].split()[0]))
+        if not (n >= CLI_FRAMES - 3 and ate < gate and abs(kf0 - CLI_EPOCH) < 2.0):
+            fail(f"cli: rgbd_tum {mode}: {runs[f'rgbd_tum_{mode}']} (ATE gate {gate} m)")
+    out_dir = base / "out"
+    names = sorted(os.listdir(out_dir / "rgb"))
+    for sub, shape, dtype in (("rgb", (cfg.camera.height, cfg.camera.width, 3), np.uint8),
+                              ("depth", (cfg.camera.height, cfg.camera.width), np.uint16),
+                              ("mask", (cfg.camera.height, cfg.camera.width), np.uint8)):
+        if sorted(os.listdir(out_dir / sub)) != names or len(names) != CLI_FRAMES:
+            fail(f"cli: {sub}/ holds {len(os.listdir(out_dir / sub))} images")
+        img = png.read(out_dir / sub / names[-1])
+        png.write(base / "round_trip.png", img)
+        if img.shape != shape or img.dtype != dtype or \
+                not np.array_equal(png.read(base / "round_trip.png"), img):
+            fail(f"cli: {sub}/{names[-1]} does not round-trip ({img.shape}, {img.dtype})")
+    last_mask = png.read(out_dir / "mask" / names[-1])
+    runs["rgbd_tum_gd_inpaint"]["last_mask_dynamic_px"] = int((last_mask < 128).sum())
+    for mode, gate in (("gd", 0.15), ("geometry", 0.08)):
+        rc, out, sec = run_cli(evaluate.main, [
+            str(seq), assoc, gt_file, "--mode", mode, "--settings", settings, "--masks", masks,
+            "--ref-masks", masks, "--rpe-delta", "5", "--device", dev], base / f"eval_{mode}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        runs[f"evaluate_{mode}"] = dict(seconds=sec, **rec)
+        if rc != 0 or not (rec["associated"] >= CLI_FRAMES - 4 and rec["ate_rmse_m"] < gate
+                           and rec["rpe_rmse_m"] < 0.5 and "mask_iou" in rec):
+            fail(f"cli: evaluate --mode {mode}: {rec} (ATE gate {gate} m)")
+    res = dict(phase="cli", frames=CLI_FRAMES, width=cfg.camera.width,
+               height=cfg.camera.height, write_s=write_s,
+               native_loader=native_loader.available(),
+               match_top2_launches=mk.match_top2.launches, runs=runs, card=nvidia_smi_line())
+    emit(res)
+    shutil.rmtree(base)
+    return res
+
+
 def phase_stages(torch, mk, slam, frame, cfg, modules, ransacs, old=None):
     """Per-stage medians on the slice's final state and the next frame; the
     functions are pure (they return new state), so the state is reused."""
@@ -1456,7 +1945,7 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
     from gdslam_tpu_torch.frontend import extractor, matcher
     from gdslam_tpu_torch.frontend.frame import build_frame
     from gdslam_tpu_torch.io import synthetic
-    from gdslam_tpu_torch.masking import geomask
+    from gdslam_tpu_torch.masking import geomask, geometry
     from gdslam_tpu_torch.ops import edges as edge_ops
     from gdslam_tpu_torch.ops import flow as flow_ops
     from gdslam_tpu_torch.ops import match_kernel as mk
@@ -1517,6 +2006,14 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
                                          synthetic, metrics, dev, counters_args)
     sgres = phase_gd_staged(torch, mk, cfg, dyn, raw, System, TrackState, synthetic, metrics,
                             dev, counters_args)
+
+    # the DynaSLAM geometry path, inpainting and the CLIs, on the same scene
+    geom_slam, geores, n_geom = phase_geom_slice(torch, mk, cfg, dyn, System, TrackState,
+                                                 synthetic, metrics, dev, counters_args)
+    geostres = phase_geom_staged(torch, mk, cfg, dyn, System, TrackState, synthetic, metrics,
+                                 dev)
+    gdires = phase_gd_inpaint(torch, mk, cfg, dyn, System, TrackState, synthetic, metrics, dev)
+    clires = phase_cli(torch, mk, cfg, dyn, metrics, dev)
     stages, path_calls, gn_call, ba_call = phase_stages(
         torch, mk, slam, frames[n_frames], cfg,
         (extractor, build_frame, tracking, optimizer, matcher, mapping, ba), (pnp, rigid), old)
@@ -1534,6 +2031,13 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
     gstages["render_s"] = gd_render_s
     emit(gstages)
     path_calls.append(gd_call)
+    geo_st = phase_geom_stages(torch, geom_slam, dyn[n_geom],
+                               dyn[n_geom + 1:n_geom + 1 + GEOM_PROFILE_FRAMES], n_geom + 1, cfg,
+                               (geometry, extractor, build_frame))
+    geo_st["ms"]["whole_geom_frame_pipelined"] = geores["frame_ms"]
+    geo_st["ms"]["whole_geom_frame_staged_with_inpaint"] = geostres["frame_ms_median"]
+    geo_st["ms"]["whole_gd_inpaint_frame"] = gdires["frame_ms_median"]
+    emit(geo_st)
     emit(phase_profile(torch, slam, slam_pipe, frames[n_frames + 1:], n_frames + 1, gn_call,
                        ba_call, gd_slam, raw[n_gd:n_gd + GD_PROFILE_FRAMES], n_gd))
 
@@ -1542,9 +2046,15 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
                    gd_staged=sgres["match_top2_launches"],
                    slice=sres["match_top2_launches"],
                    slice_pipelined=pres["match_top2_launches"],
-                   reloc=rres["match_top2_launches"])
+                   reloc=rres["match_top2_launches"],
+                   geom_slice=geores["match_top2_launches"],
+                   geom_staged=geostres["match_top2_launches"],
+                   gd_inpaint=gdires["match_top2_launches"],
+                   cli=clires["match_top2_launches"])
     if min(by_path.values()) < 1:
         fail(f"a path launched no kernel: {by_path}")
+    emit(dict(phase="phase_seconds", seconds=dict(PHASE_SECONDS),
+              total_s=time.perf_counter() - T_START))
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": [{
         "name": "match_top2", "route": "cuda",
@@ -1552,6 +2062,7 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "replaces": "gdslam_tpu/ops/pallas_match.py:98",
         "launches": by_path["gd_slice"], "launches_by_path": by_path,
         "launches_by_site_gd_slice": gres["match_top2_by_site"],
+        "launches_by_site_geom_slice": geores["match_top2_by_site"],
         "max_abs_err": max([err] + [c["max_abs_err"] for c in path_calls]),
         "ms": local_map["ms"], "plain_ms": local_map["plain_ms"],
         "bound_ms": local_map["bound_ms"], "bound_by": local_map["bound_by"],

@@ -1,6 +1,6 @@
 """Typed configuration with loader for the reference's OpenCV-YAML settings.
 
-The port's own copy of the camera / ORB / GD-mask / tracking settings (the JAX
+The port's own copy of the camera / ORB / GD-mask / geometry / tracking settings (the JAX
 package's `config.py` carries the same fields and defaults). Files start
 with an OpenCV ``%YAML:1.0`` directive and use flat ``Section.key: value``
 keys; this module reads that dialect without OpenCV.
@@ -65,6 +65,21 @@ class GeoMaskConfig:
 
 
 @dataclass(frozen=True)
+class GeometryConfig:
+    """DynaSLAM Geometry module settings (reference include/Geometry.h:19-22)."""
+
+    max_ref_frames: int = 5         # MAX_REF_FRAMES (Geometry.h:20)
+    max_db_size: int = 20           # MAX_DB_SIZE ring DB (Geometry.h:19)
+    depth_threshold: float = 0.6    # projDepth - z dynamic gate (Geometry.cc:373)
+    var_threshold: float = 0.001    # 41x41 patch depth variance gate (Geometry.cc:377)
+    min_depth_threshold: float = 0.2  # MIN_DEPTH_THRESHOLD (Geometry.h:22)
+    parallax_deg: float = 30.0      # parallax filter (Geometry.cc:158,176)
+    window_radius: int = 20         # (2*20+1)^2 search window (Geometry.cc:1036)
+    region_growing_threshold: float = 0.20  # depth region grow (Geometry.cc:415-450)
+    dilation_px: int = 15           # elliptical dilation after grow
+
+
+@dataclass(frozen=True)
 class TrackingConfig:
     """Tracking/backend thresholds (reference Tracking.cc / LocalMapping.cc)."""
 
@@ -85,6 +100,7 @@ class SlamConfig:
     camera: CameraConfig = field(default_factory=CameraConfig)
     orb: OrbConfig = field(default_factory=OrbConfig)
     geomask: GeoMaskConfig = field(default_factory=GeoMaskConfig)
+    geometry: GeometryConfig = field(default_factory=GeometryConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
 
     @staticmethod

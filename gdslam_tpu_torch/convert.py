@@ -13,10 +13,11 @@ import torch
 from gdslam_tpu_torch.backend.ba import LocalBAProblem
 from gdslam_tpu_torch.backend.map_arena import MapArena
 from gdslam_tpu_torch.backend.solvers import RansacResult
-from gdslam_tpu_torch.config import (CameraConfig, GeoMaskConfig, OrbConfig, SlamConfig,
-                                     TrackingConfig)
+from gdslam_tpu_torch.config import (CameraConfig, GeoMaskConfig, GeometryConfig, OrbConfig,
+                                     SlamConfig, TrackingConfig)
 from gdslam_tpu_torch.frontend.extractor import Features
 from gdslam_tpu_torch.frontend.frame import Frame
+from gdslam_tpu_torch.masking.geometry import GeometryDB
 from gdslam_tpu_torch.system.tracking import FrameState
 
 
@@ -70,8 +71,17 @@ def features_to_numpy(feats: Features) -> dict:
 
 
 def config_from_jax_dict(d: dict) -> SlamConfig:
-    """SlamConfig from `dataclasses.asdict` of the JAX package's SlamConfig;
-    the section the port does not have yet (geometry) is ignored."""
+    """SlamConfig from `dataclasses.asdict` of the JAX package's SlamConfig."""
     return SlamConfig(camera=CameraConfig(**d["camera"]), orb=OrbConfig(**d["orb"]),
                       geomask=GeoMaskConfig(**d["geomask"]),
+                      geometry=GeometryConfig(**d["geometry"]),
                       tracking=TrackingConfig(**d["tracking"]))
+
+
+def geometry_db_from_numpy(d: dict, device="cuda") -> GeometryDB:
+    """GeometryDB from a {field: array} dict (every GeometryDB field)."""
+    return GeometryDB(**{k: _to_torch(d[k], device) for k in GeometryDB._fields})
+
+
+def geometry_db_to_numpy(db: GeometryDB) -> dict:
+    return {k: getattr(db, k).cpu().numpy() for k in GeometryDB._fields}

@@ -119,3 +119,31 @@ def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
     q = torch.gather(cands, -2, idx)[..., 0, :]
     q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
     return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [qx, qy, qz, qw] -> rotation matrix."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = torch.where(n > _EPS, 2.0 / n, 0.0)
+    xx, yy, zz = x * x * s, y * y * s, z * z * s
+    xy, xz, yz = x * y * s, x * z * s, y * z * s
+    wx, wy, wz = w * x * s, w * y * s, w * z * s
+    return torch.stack([
+        torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1),
+        torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1),
+        torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1),
+    ], dim=-2)
+
+
+def rotm_to_euler(R: torch.Tensor) -> torch.Tensor:
+    """XYZ Euler angles, matching the reference's `rotm2euler`
+    (Geometry.cc:1003-1031) used for reference-frame selection; near the
+    gimbal lock (sy < 1e-6) z is 0 and x comes from the second row."""
+    sy = torch.sqrt(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2)
+    singular = sy < 1e-6
+    x = torch.where(singular, torch.atan2(-R[..., 1, 2], R[..., 1, 1]),
+                    torch.atan2(R[..., 2, 1], R[..., 2, 2]))
+    y = torch.atan2(-R[..., 2, 0], sy)
+    z = torch.where(singular, torch.zeros_like(sy), torch.atan2(R[..., 1, 0], R[..., 0, 0]))
+    return torch.stack([x, y, z], dim=-1)

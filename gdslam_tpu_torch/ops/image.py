@@ -24,6 +24,17 @@ def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
     return k.astype(np.float32)
 
 
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """a * b + c rounded once to float32, through a float64 carrier (a
+    product of two float32 values is exact there): the fused multiply-add
+    into which XLA's CPU compiler contracts a product and a sum, where the
+    port must round as the JAX package does. b and c may be Python floats,
+    taken as float32 constants."""
+    b = b.double() if isinstance(b, torch.Tensor) else float(np.float32(b))
+    c = c.double() if isinstance(c, torch.Tensor) else float(np.float32(c))
+    return (a.double() * b + c).float()
+
+
 def _reflect_pad(x: torch.Tensor, pad: int, dim: int) -> torch.Tensor:
     """numpy 'reflect' padding (edge not repeated) along one dim."""
     n = x.shape[dim]

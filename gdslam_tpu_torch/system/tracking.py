@@ -580,6 +580,24 @@ class Tracking:
                                                 temporal_points=True)
         return int(n_inl) >= 10, T
 
+    def light_track_dispatched(self, frame: Frame):
+        """light_track with nothing read on the host, for a frame dispatched
+        in the pipeline: both the narrow search from the predicted pose and
+        the wide retry from the last pose are computed, and the wide one is
+        taken where the narrow one found fewer than 10 inliers (the JAX
+        package's lax.cond, `_geometry_track_program`). The caller must have
+        checked that the tracker is OK. Returns (T_cw, n_inliers) as tensors
+        on the device."""
+        pts_w = self._world_points_for_last()
+        T_pred = self.velocity @ self.last.T_cw if self.velocity is not None \
+            else self.last.T_cw
+        T_n, _, n_n, _ = track_motion_model(self.last, pts_w, frame, T_pred, self.cfg,
+                                            temporal_points=True)
+        T_w, _, n_w, _ = track_motion_model(self.last, pts_w, frame, self.last.T_cw, self.cfg,
+                                            radius_px=30.0, temporal_points=True)
+        wide = n_n < 10
+        return torch.where(wide, T_w, T_n), torch.where(wide, n_w, n_n)
+
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
             return x.to(self.device, torch.float32)

@@ -1,8 +1,8 @@
-"""Trajectory evaluation: ATE RMSE (TUM benchmark semantics), numpy.
+"""Trajectory evaluation: ATE and RPE RMSE (TUM benchmark semantics), numpy.
 
-The port's own copy of gdslam_tpu.utils.metrics.ate_rmse: rigid
-(Horn/Umeyama) alignment of estimated to ground-truth positions, then RMSE
-of the residual translations.
+The port's own copy of gdslam_tpu.utils.metrics' ate_rmse (rigid
+Horn/Umeyama alignment of estimated to ground-truth positions, then RMSE of
+the residual translations) and rpe_rmse.
 """
 
 from __future__ import annotations
@@ -38,3 +38,15 @@ def ate_rmse(est_positions: np.ndarray, gt_positions: np.ndarray,
         est = (s * (R @ est.T)).T + t
     err = np.linalg.norm(est - gt, axis=1)
     return float(np.sqrt((err ** 2).mean()))
+
+
+def rpe_rmse(est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1) -> float:
+    """Relative pose error RMSE (translation, meters) at frame spacing delta."""
+    est = np.asarray(est_poses, np.float64)   # [N, 4, 4] T_wc
+    gt = np.asarray(gt_poses, np.float64)
+    errs = []
+    for i in range(len(est) - delta):
+        de = np.linalg.inv(est[i]) @ est[i + delta]
+        dg = np.linalg.inv(gt[i]) @ gt[i + delta]
+        errs.append(np.linalg.norm((np.linalg.inv(dg) @ de)[:3, 3]))
+    return float(np.sqrt(np.mean(np.square(errs))))

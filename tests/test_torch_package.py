@@ -96,7 +96,8 @@ def test_tf32_is_off():
 def test_config_copy_matches_jax():
     """Same fields and defaults as the JAX package's dataclasses, and
     convert.config_from_jax_dict round-trips them."""
-    for name in ("CameraConfig", "OrbConfig", "GeoMaskConfig", "TrackingConfig"):
+    for name in ("CameraConfig", "OrbConfig", "GeoMaskConfig", "GeometryConfig",
+                 "TrackingConfig"):
         assert dataclasses.asdict(getattr(tconfig, name)()) == \
             dataclasses.asdict(getattr(jconfig, name)())
     jcfg = jconfig.SlamConfig(camera=jconfig.CameraConfig(fx=500.0, width=320, height=240),
@@ -113,7 +114,7 @@ def test_opencv_yaml_reader_matches_jax(tmp_path):
                     "DepthMapFactor: 5208.0  # comment\n")
     got = tconfig.SlamConfig.from_opencv_yaml(str(path))
     want = jconfig.SlamConfig.from_opencv_yaml(str(path))
-    for section in ("camera", "orb", "geomask", "tracking"):
+    for section in ("camera", "orb", "geomask", "geometry", "tracking"):
         assert dataclasses.asdict(getattr(got, section)) == \
             dataclasses.asdict(getattr(want, section))
 
@@ -163,20 +164,16 @@ def test_entry_points_default_to_the_card():
 
 
 def test_not_ported_entry_points_raise():
-    """What is still to port raises NotImplementedError naming ROADMAP.md."""
+    """What is still to port raises NotImplementedError naming ROADMAP.md
+    (the geometry path, track_rgbd_geom and GD inpainting are ported: see
+    test_ported_entry_points_no_longer_raise)."""
     cfg = tconfig.SlamConfig(camera=tconfig.CameraConfig(width=160, height=120),
                              orb=tconfig.OrbConfig(n_features=64, n_levels=2))
     s = tslam.System(cfg, kmax=4, pmax=64, device="cpu")
-    for name in ("track_rgbd_geom", "track_stereo", "track_monocular",
+    for name in ("track_stereo", "track_monocular",
                  "save_map", "load_map", "save_trajectory_kitti"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(s, name)()
-    # the GD path is ported; its inpainting output comes with the geometry path
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 10"):
-        s.track_rgbd_gd(np.zeros((120, 160, 3), np.uint8), np.zeros((120, 160)), None, 0.0,
-                        inpaint=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.track_rgbd(np.zeros((120, 160)), np.zeros((120, 160)), None, 0.0, use_geometry=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         s.tracker.loop_closer = object()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -213,6 +210,33 @@ def test_ported_entry_points_no_longer_raise(tmp_path):
     assert (tmp_path / "k.txt").read_text() == ""
     for name in ("local_keyframes", "compact_keyframes"):
         assert callable(getattr(map_arena, name))
+    # the DynaSLAM geometry path, track_rgbd_geom and GD inpainting run on a
+    # frame too poor to initialize; inpainting wants a 3-channel image
+    s = tslam.System(cfg, kmax=4, pmax=64, device="cpu")
+    z, rgb = np.zeros((120, 160)), np.zeros((120, 160, 3), np.uint8)
+    s.track_rgbd(rgb, z, None, 0.0, use_geometry=True)
+    T, rgb_o, d_o, m_o = s.track_rgbd_geom(rgb, z, None, 1.0)
+    assert rgb_o.shape == (120, 160, 3) and d_o.shape == m_o.shape == (120, 160)
+    T, m, rgb_o, d_o = s.track_rgbd_gd(rgb, z, None, 2.0, inpaint=True)
+    assert rgb_o.shape == (120, 160, 3) and s._geometry.inserted == 0
+    with pytest.raises(ValueError, match="3-channel"):
+        s.track_rgbd_gd(z, z, None, 3.0, inpaint=True)
+    s.reset()
+    assert s._geometry is None and s._last_refined_mask is None
+
+
+NEW_MODULES = ("masking/geometry.py", "masking/masknet.py", "io/png.py", "io/tum.py",
+               "io/native_loader.py", "cli/rgbd_tum.py", "cli/evaluate.py")
+
+
+def test_no_import_check_covers_the_geometry_and_cli_modules():
+    """The static scan and the fresh-interpreter import above reach the
+    modules of the geometry path and the CLIs (the scan takes every file
+    of the package)."""
+    for rel in NEW_MODULES:
+        assert ROOT / "gdslam_tpu_torch" / rel in PORT_FILES, rel
+        assert not [m for m in _imported_roots(ROOT / "gdslam_tpu_torch" / rel)
+                    if m in FORBIDDEN], rel
 
 
 def _cuda_inputs(M, N):
