@@ -1455,7 +1455,7 @@ def phase_geom_staged(torch, mk, cfg, frames, System, TrackState, synthetic, met
         had_view = slam._geometry is not None and slam._geometry.inserted > 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, rgb_o, d_o, m_o = slam.track_rgbd_geom(fr.rgb, fr.depth, None, k / 30.0)
+        T, rgb_o, d_o, m_o = slam.track_rgbd_geom(fr.rgb, fr.depth, None, k / 30.0)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         states.append(slam.tracking_state)
@@ -1483,6 +1483,8 @@ def phase_geom_staged(torch, mk, cfg, frames, System, TrackState, synthetic, met
         fail("geom_staged: a frame was not tracked OK")
     if not rules or min(rules) <= 0.5:
         fail(f"geom_staged: the hole rule {rules} (needs > 0.5 on every frame with a hole)")
+    fr = frames[n - 1]
+    res["inpaint_inputs"] = (slam._geometry, fr.rgb, fr.depth, m_o, slam._pose_tensor(T))
     return res
 
 
@@ -1731,12 +1733,15 @@ def phase_cli(torch, mk, cfg, frames, metrics, dev) -> dict:
             fail(f"cli: {sub}/{names[-1]} does not round-trip ({img.shape}, {img.dtype})")
     last_mask = png.read(out_dir / "mask" / names[-1])
     runs["rgbd_tum_gd_inpaint"]["last_mask_dynamic_px"] = int((last_mask < 128).sum())
-    for mode, gate in (("gd", 0.15), ("geometry", 0.08)):
+    for mode, gate, vocab in (("gd", 0.15, "none"), ("geometry", 0.08, "none"),
+                              ("gd", 0.15, "default")):
+        name = f"evaluate_{mode}" + ("_vocab_default" if vocab != "none" else "")
         rc, out, sec = run_cli(evaluate.main, [
             str(seq), assoc, gt_file, "--mode", mode, "--settings", settings, "--masks", masks,
-            "--ref-masks", masks, "--rpe-delta", "5", "--device", dev], base / f"eval_{mode}")
+            "--ref-masks", masks, "--rpe-delta", "5", "--vocab", vocab, "--device", dev],
+            base / name)
         rec = json.loads(out.strip().splitlines()[-1])
-        runs[f"evaluate_{mode}"] = dict(seconds=sec, **rec)
+        runs[name] = dict(seconds=sec, **rec)
         if rc != 0 or not (rec["associated"] >= CLI_FRAMES - 4 and rec["ate_rmse_m"] < gate
                            and rec["rpe_rmse_m"] < 0.5 and "mask_iou" in rec):
             fail(f"cli: evaluate --mode {mode}: {rec} (ATE gate {gate} m)")
@@ -1929,6 +1934,392 @@ def phase_profile(torch, slam, slam_pipe, frames, t_first: int, gn_call, ba_call
                 per_run_local_ba=profile_window(torch, ba_call, 1))
 
 
+# ----------------------------------------------------------------------------
+# loop closing and BoW place recognition, and determinism
+# ----------------------------------------------------------------------------
+
+# The revisit run of the JAX package's loop test (tests/test_loop_e2e.py):
+# the circuit io.synthetic.gt_pose_loop with period 120, 180 frames (1.5
+# laps), and at frame 100 a progressive drift of the second half of the
+# keyframes, so the revisit cannot rejoin the first lap's map by matching
+# and must go through place recognition. At 480x640 with the SlamConfig()
+# defaults the JAX package fires no loop on this sequence (on the CPU,
+# tools/loop_quality_cpu.py: 15 keyframes, no loop), so the full-width run
+# is held to tracking and its numbers, and the loop guard is held on the
+# JAX test's own configuration (320x240, 512 features, 4 levels), where the
+# JAX package fires one; LOOP_JAX_* are its numbers there and at full size.
+LOOP_PERIOD = 120
+LOOP_FRAMES = 180
+LOOP_DRIFT_AT = 100
+LOOP_XI_DRIFT = (0.20, 0.05, 0.0, 0.01, 0.08, 0.0)
+LOOP_MIN_SPAN = 10             # cur - cand of a genuine revisit
+LOOP_KMAX = 512
+LOOP_JAX_FULL = dict(loops=[], keyframes=15, keyframe_ate_after_m=0.06839393672122954)
+LOOP_JAX_SMALL = dict(loops=[[17, 3]], keyframes=21,
+                      keyframe_ate_before_correction_m=0.13958463111446542,
+                      keyframe_ate_after_m=0.14679970139941517)
+
+
+def inject_drift(torch, lie, tr, xi) -> None:
+    """The JAX loop test's `_inject_drift` on the port's tracker: keyframe k
+    of the second half gets G_k = exp(alpha_k xi), alpha ramping to 1 over
+    the recent keyframes, its points move with their keyframe's G, and the
+    live pose gets the full G."""
+    arena = tr.arena
+    dev = arena.kf_pose.device
+    n = tr.n_kf_host
+    k0 = n // 2
+    alphas = np.zeros(arena.kmax, np.float32)
+    for k in range(k0, n):
+        alphas[k] = (k - k0 + 1) / (n - k0)
+    Gs = np.stack([lie.se3_exp(torch.from_numpy(a * np.asarray(xi, np.float32))).numpy()
+                   for a in alphas])
+    G_inv = torch.from_numpy(np.linalg.inv(Gs).astype(np.float32)).to(dev)
+    Gs_d = torch.from_numpy(Gs).to(dev)
+    ids = torch.arange(arena.kmax, device=dev)
+    sel_kf = (ids >= k0) & arena.kf_valid
+    ref = arena.pt_ref_kf.clamp(0, arena.kmax - 1).long()
+    sel_pt = (arena.pt_ref_kf >= k0) & arena.pt_valid
+    tr.arena = arena._replace(
+        kf_pose=torch.where(sel_kf[:, None, None], arena.kf_pose @ G_inv, arena.kf_pose),
+        pt_pos=torch.where(sel_pt[:, None], lie.se3_apply(Gs_d[ref], arena.pt_pos),
+                           arena.pt_pos))
+    tr.last = tr.last._replace(T_cw=tr.last.T_cw @ G_inv[n - 1])
+
+
+def loop_frames(torch, synthetic, cfg, dev, n: int):
+    return [synthetic.render(synthetic.gt_pose_loop(i, LOOP_PERIOD, device=dev), cfg.camera,
+                             False, 30.0, i) for i in range(n)]
+
+
+def synthetic_loop_T_wc(i: int) -> np.ndarray:
+    from gdslam_tpu_torch.io import synthetic
+    return synthetic.gt_pose_loop(i, LOOP_PERIOD).numpy().astype(np.float64)
+
+
+def pose_error_to(T_cw: np.ndarray, want_cw: np.ndarray):
+    """Translation (m) and rotation (degrees) between two T_cw."""
+    cos = (np.trace(T_cw[:3, :3].T @ want_cw[:3, :3]) - 1.0) / 2.0
+    return (float(np.linalg.norm(T_cw[:3, 3] - want_cw[:3, 3])),
+            float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))))
+
+
+def keyframe_ate(metrics, synthetic, kf_pose, kf_timestamps) -> float:
+    """The JAX loop test's keyframe ATE: keyframe camera centres against the
+    circuit's, both relative to frame 0."""
+    T0 = synthetic.gt_pose_loop(0, LOOP_PERIOD).numpy()
+    est, gt = [], []
+    for k, ts in enumerate(kf_timestamps):
+        est.append(np.linalg.inv(kf_pose[k])[:3, 3])
+        gt.append((np.linalg.inv(T0) @ synthetic.gt_pose_loop(round(ts * 30.0),
+                                                             LOOP_PERIOD).numpy())[:3, 3])
+    return metrics.ate_rmse(np.asarray(est), np.asarray(gt))
+
+
+class LoopProbe:
+    """While installed: the ms of the loop closer's steps (each call ended by
+    a synchronise; the GBA and the pose graph inside `correct` too), host
+    synchronisations inside process_keyframe, the keyframe's whole cost
+    (Tracking._do_keyframe), match_top2 calls by call site, the keyframe
+    ATE just before each correction, and the state at the first one."""
+
+    def __init__(self, torch, modules, on_correct):
+        lc_mod, pg_mod, gba_mod, matcher, tracking = modules
+        self.torch, self.on_correct = torch, on_correct
+        self.ms = collections.defaultdict(list)
+        self.sites = collections.Counter()
+        self.syncs, self.first = [], None
+        self.patches = [(lc_mod.LoopCloser, "detect"), (lc_mod.LoopCloser, "compute_transform"),
+                        (lc_mod.LoopCloser, "correct"), (pg_mod, "optimize"),
+                        (gba_mod, "global_bundle_adjustment"),
+                        (lc_mod.LoopCloser, "process_keyframe"),
+                        (tracking.Tracking, "_do_keyframe")]
+        self.top2 = [(matcher, "match_top2"), (lc_mod, "match_top2")]
+        self.real = {}
+
+    def _timed(self, name, real):
+        torch = self.torch
+
+        def call(*a, **k):
+            if name == "correct" and self.first is None:
+                self.first = a[1:5]                  # arena, kf_id, cand, T
+            if name == "correct":
+                self.on_correct(a[1])
+            if name == "process_keyframe":
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        out = real(*a, **k)
+                        torch.cuda.synchronize()
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                self.syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*a, **k)
+                torch.cuda.synchronize()
+            self.ms[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def _site(self, module_name, real):
+        def call(*a, **k):
+            site = "bow_guided_matches" if module_name == "loop_closing" else \
+                sys._getframe(2).f_code.co_name
+            self.sites[site] += 1
+            return real(*a, **k)
+        return call
+
+    def __enter__(self):
+        for owner, name in self.patches:
+            self.real[(owner, name)] = getattr(owner, name)
+            setattr(owner, name, self._timed(name, getattr(owner, name)))
+        for owner, name in self.top2:
+            self.real[(owner, name)] = getattr(owner, name)
+            setattr(owner, name, self._site(owner.__name__.rsplit(".", 1)[-1],
+                                            getattr(owner, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, name), real in self.real.items():
+            setattr(owner, name, real)
+
+    def medians(self) -> dict:
+        return {k: dict(calls=len(v), median_ms=statistics.median(v), max_ms=max(v))
+                for k, v in self.ms.items()}
+
+
+def phase_loop(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, dev, modules,
+               label: str, expect_loop: bool, kmax: int = LOOP_KMAX, pmax: int = 65536,
+               reference: dict | None = None):
+    """The revisit run through System(vocabulary="default"), not pipelined,
+    the drift injected at LOOP_DRIFT_AT. Guards: every frame OK; with
+    expect_loop at least one loop with cur - cand >= LOOP_MIN_SPAN and the
+    verification's call sites launched; the BoW database queried."""
+    from gdslam_tpu_torch.core import lie
+    slam = System(cfg, vocabulary="default", kmax=kmax, pmax=pmax, device=dev)
+    tr = slam.tracker
+    ate_pre = []
+    probe = LoopProbe(torch, modules, lambda arena: ate_pre.append(keyframe_ate(
+        metrics, synthetic, arena.kf_pose.cpu().numpy(), tr.kf_timestamps)))
+    reset_launch_counts(mk)
+    states = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with probe:
+        for i, fr in enumerate(frames):
+            if i == LOOP_DRIFT_AT:
+                inject_drift(torch, lie, tr, LOOP_XI_DRIFT)
+            slam.track_rgbd(fr.gray, fr.depth, None, i / 30.0)
+            states.append(slam.tracking_state)
+        slam.shutdown()
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    lc = tr.loop_closer
+    traj = tr.camera_trajectory()
+    n_kf = tr.n_kf_host
+    kf_pose = tr.arena.kf_pose[:n_kf].cpu().numpy()
+    ms = probe.medians()
+    kf_ms, lc_ms = probe.ms["_do_keyframe"], probe.ms["process_keyframe"]
+    res = dict(phase=label, frames=len(frames), width=cfg.camera.width,
+               height=cfg.camera.height, n_features=cfg.orb.n_features, kmax=kmax,
+               pmax=pmax, vocabulary="default", drift_at=LOOP_DRIFT_AT, jax_cpu=reference,
+               all_ok=all(s == TrackState.OK for s in states), run_s=run_s,
+               loops=[[a, b] for a, b, _ in lc.loops], keyframes=n_kf,
+               map_points=slam.map_point_count,
+               keyframe_ate_before_correction_m=ate_pre[0] if ate_pre else None,
+               keyframe_ate_after_m=keyframe_ate(metrics, synthetic, kf_pose, tr.kf_timestamps),
+               ms=ms,
+               keyframe_ms_median=statistics.median(kf_ms),
+               keyframe_ms_without_loop_closer_median=statistics.median(
+                   [a - b for a, b in zip(kf_ms, lc_ms)]),
+               loop_closer_ms_median=statistics.median(lc_ms),
+               host_syncs_per_keyframe=float(np.mean(probe.syncs)),
+               host_syncs_per_keyframe_max=max(probe.syncs),
+               match_top2_launches=mk.match_top2.launches,
+               match_top2_by_site=dict(probe.sites), card=nvidia_smi_line())
+    emit(res)
+    if not res["all_ok"] or len(traj) != len(frames):
+        fail(f"{label}: a frame was not tracked OK ({len(traj)} poses)")
+    genuine = [l for l in res["loops"] if l[0] - l[1] >= LOOP_MIN_SPAN]
+    if expect_loop and not genuine:
+        fail(f"{label}: no loop with cur - cand >= {LOOP_MIN_SPAN}: {res['loops']}")
+    if probe.ms["detect"] == [] or (expect_loop and probe.sites["bow_guided_matches"] < 1):
+        fail(f"{label}: the BoW database was not queried")
+    if genuine and not (probe.sites["_search_by_sim3"] >= 2 and
+                        probe.sites["_search_loop_points"] >= 1):
+        fail(f"{label}: the verification's call sites did not launch: {dict(probe.sites)}")
+    out = dict(traj=np.stack([T for _, T in traj]), kf_pose=kf_pose,
+               map_points=res["map_points"], loops=res["loops"])
+    return slam, res, out, probe.first
+
+
+def phase_loop_reloc(torch, mk, slam, frame, kdb, loop_closing, TrackState, label):
+    """A forced loss on the loop run's final state: the last pose 1 m off
+    and no velocity, so the next frame fails both motion-model searches and
+    must relocalize through the BoW database (reloc_candidates) and the
+    BoW-guided match, with RELOC_GUARD's inliers, and within RELOC_GUARD of
+    the renderer's pose carried into the map region it relocalized in: the
+    map holds the injected drift, so the pose the map can give is the
+    renderer's pose relative to the keyframe that most of the frame's
+    matched points come from, composed with that keyframe's pose in the
+    map. The error against the renderer's pose alone is printed too."""
+    tr = fork_tracker(slam.tracker)
+    T_bad = tr.last.T_cw.clone()
+    T_bad[0, 3] += 1.0
+    tr.last, tr.velocity = tr.last._replace(T_cw=T_bad), None
+    n_kf = tr.n_kf_host
+    counts = collections.Counter()
+    real_rc, real_bow = kdb.reloc_candidates, loop_closing._bow_guided_matches
+
+    def rc(*a, **k):
+        counts["reloc_candidates"] += 1
+        return real_rc(*a, **k)
+
+    def bow(*a, **k):
+        counts["bow_guided_matches"] += 1
+        return real_bow(*a, **k)
+
+    kdb.reloc_candidates, loop_closing._bow_guided_matches = rc, bow
+    reset_launch_counts(mk)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T = tr.process(frame.gray, frame.depth, torch.ones_like(frame.gray), LOOP_FRAMES / 30.0)
+        torch.cuda.synchronize()
+    finally:
+        kdb.reloc_candidates, loop_closing._bow_guided_matches = real_rc, real_bow
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    T = np.asarray(T)
+
+    def gt_cw(i):           # the renderer's T_cw, relative to frame 0 as the map is
+        return np.linalg.inv(synthetic_loop_T_wc(i)) @ synthetic_loop_T_wc(0)
+
+    assoc = tr.last.assoc
+    refs = tr.arena.pt_ref_kf[assoc[assoc >= 0].long()].cpu().numpy()
+    refs = refs[(refs >= 0) & (refs < n_kf)]       # not the frame's own keyframe, if it became one
+    k = int(np.bincount(refs).argmax())
+    kf_frame = round(tr.kf_timestamps[k] * 30.0)
+    expected = gt_cw(LOOP_FRAMES) @ np.linalg.inv(gt_cw(kf_frame)) @ \
+        tr.arena.kf_pose[k].cpu().numpy()
+    err_m, err_deg = pose_error_to(T, expected)
+    gt_m, gt_deg = pose_error_to(T, gt_cw(LOOP_FRAMES))
+    res = dict(phase=label, frame=LOOP_FRAMES, state=tr.state.name, n_inliers=tr.n_inliers,
+               region_keyframe=k, region_keyframe_frame=kf_frame, err_m=err_m, err_deg=err_deg,
+               err_to_renderer_m=gt_m, err_to_renderer_deg=gt_deg, frame_ms=frame_ms,
+               calls=dict(counts), match_top2_launches=mk.match_top2.launches)
+    emit(res)
+    if tr.state != TrackState.OK or counts["reloc_candidates"] != 1 or \
+            counts["bow_guided_matches"] < 1:
+        fail(f"{label}: the forced loss did not relocalize through the BoW database")
+    if not (err_m <= RELOC_GUARD[0] and err_deg <= RELOC_GUARD[1]
+            and tr.n_inliers >= RELOC_GUARD[2]):
+        fail(f"{label}: relocalized pose off by {err_m} m, {err_deg} degrees with "
+             f"{tr.n_inliers} inliers")
+    return res
+
+
+def revisit_pair(tr) -> tuple[int, int]:
+    """The last keyframe and the first-half keyframe nearest to it on the
+    circuit (the pair a loop closer would verify)."""
+    n = tr.n_kf_host
+    at = [round(ts * 30.0) % LOOP_PERIOD for ts in tr.kf_timestamps]
+
+    def dist(k):
+        d = abs(at[k] - at[n - 1])
+        return min(d, LOOP_PERIOD - d)
+    return n - 1, min(range(n // 2), key=dist)
+
+
+def phase_loop_stages(torch, mk, states, cfg, modules) -> tuple[dict, list]:
+    """The kernel at the loop closer's four call sites (the BoW-guided match,
+    both SearchBySim3 growths, the loop-point projection), on the full-width
+    run's revisit pair where its verification gets that far, else on the
+    state the small run's first correction met: exact against the plain
+    version with each path forced, timed against its bound. Then the
+    verification, the essential graph and the global BA timed alone on the
+    full-width arena (512 keyframe slots x 1500 keypoints, 65536 points)."""
+    lc_mod, pg_mod, gba_mod, matcher, _ = modules
+    sites = {}
+    for tag, arena, kf_id, cand, lc in states:
+        lc = copy.copy(lc)
+        db = lc.db
+        bow = record_top2_calls(lc_mod, lambda: lc_mod._bow_guided_matches(
+            arena.kf_desc[kf_id], arena.kf_kp_valid[kf_id], db.words[kf_id],
+            arena.kf_desc[cand], arena.kf_kp_valid[cand], db.words[cand]))
+        verify = record_top2_calls(matcher, lambda: lc.compute_transform(arena, kf_id, cand))
+        for role, args in zip(("loop_bow_guided", "loop_sim3_growth_cur",
+                               "loop_sim3_growth_cand", "loop_point_projection"),
+                              bow[:1] + verify[:3]):
+            sites.setdefault(role, (tag, args))
+    if len(sites) != 4:
+        fail(f"loop_stages: call sites recorded: {sorted(sites)}")
+    calls = []
+    for role, (tag, args) in sites.items():
+        err, info = compare_top2(torch, mk, args)
+        calls.append(dict(role=role, state=tag, M=args[0].shape[0], N=args[5].shape[0],
+                          max_abs_err=err, path=info["path"], **time_top2(torch, mk, args),
+                          **top2_bound(torch, mk, args)))
+    tag, arena, kf_id, cand, lc = states[0]
+    lc = copy.copy(lc)
+    T = torch.eye(4, device=arena.kf_pose.device)
+    loop_i, loop_j, loop_valid = lc._loop_edge(kf_id, cand)
+
+    def graph():
+        edges = pg_mod.build_edges(arena.kf_pose, arena.kf_valid, arena.kf_parent, arena.covis,
+                                   loop_i, loop_j, T[None], loop_valid)
+        return pg_mod.optimize(arena.kf_pose, arena.kf_valid, edges)
+
+    def gba():
+        return gba_mod.global_bundle_adjustment(arena, cfg, gate_outliers=True)
+
+    ms = dict(compute_transform=wall_ms(torch, lambda: lc.compute_transform(arena, kf_id, cand),
+                                        reps=3, warmup=1),
+              pose_graph_optimize=wall_ms(torch, graph, reps=3, warmup=1),
+              global_bundle_adjustment=wall_ms(torch, gba, reps=3, warmup=1))
+    # the pose graph and the global BA wait for the card nowhere
+    for name, fn in (("pose_graph.optimize", graph), ("global_bundle_adjustment", gba)):
+        sites = sync_sites(torch, fn)
+        if sites:
+            fail(f"{name} synchronises with the card at {sites}")
+    res = dict(phase="loop_stages", card=nvidia_smi_line(), state=tag, pair=[kf_id, cand],
+               keyframes=int(arena.kf_valid.sum()), map_points=int(arena.pt_valid.sum()),
+               gba_observations=int((arena.kf_obs >= 0).sum()), ms=ms, match_top2_calls=calls)
+    emit(res)
+    return res, calls
+
+
+def same_arrays(a: dict, b: dict) -> dict:
+    """{key: bitwise equal} over two dicts of arrays and numbers."""
+    return {k: bool(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))) for k in a}
+
+
+def run_summary(slam) -> dict:
+    tr = slam.tracker
+    n = tr.n_kf_host
+    return dict(traj=np.stack([T for _, T in tr.camera_trajectory()]),
+                kf_pose=tr.arena.kf_pose[:n].cpu().numpy(), map_points=slam.map_point_count)
+
+
+def deterministic_mode_warnings(torch, fn) -> list:
+    """The first line of every warning torch's deterministic mode (warn
+    only) raises while fn runs: the ops on the path that have no ordered
+    implementation. The mode is switched off again after."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split("\n")[0][:160] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
 def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         keyframes_pipelined=(4, 7), ab_source=None) -> int:
     """All phases on device `dev` at configuration `cfg`. keyframes,
@@ -1940,7 +2331,9 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
     same flush, because the new keyframe's match count is read only at the
     next flush (in both packages), so the count moves by one or two with the
     place of a trigger inside its flush; `keyframe_frames` shows the pairs."""
-    from gdslam_tpu_torch.backend import ba, mapping, optimizer, solvers
+    from gdslam_tpu_torch.backend import ba, gba, mapping, optimizer, pose_graph, solvers
+    from gdslam_tpu_torch.backend import keyframe_db as kdb
+    from gdslam_tpu_torch.backend import loop_closing
     from gdslam_tpu_torch.core import camera as cam_ops
     from gdslam_tpu_torch.frontend import extractor, matcher
     from gdslam_tpu_torch.frontend.frame import build_frame
@@ -1992,8 +2385,20 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
     # The compact phase's saturated run is the slice's work once more, not
     # pipelined; with a second pipelined run after it the two modes have
     # alternated (not, pipelined, not, pipelined) inside one process.
-    _, pres2 = phase_slice(torch, mk, *slice_args[:-1], keyframes_pipelined,
-                           label="slice_pipelined_again", pipeline=True)
+    slam_pipe2, pres2 = phase_slice(torch, mk, *slice_args[:-1], keyframes_pipelined,
+                                    label="slice_pipelined_again", pipeline=True)
+    # determinism: the default slice once more not pipelined, to hold against
+    # the first run as the two pipelined runs are held against each other
+    slam_again, _ = phase_slice(torch, mk, *slice_args, label="slice_again")
+
+    def short_slices():
+        for pipeline in (False, True):
+            s = System(cfg, kmax=256, pmax=65536, pipeline=pipeline, device=dev)
+            for i, fr in enumerate(frames[:20]):
+                s.track_rgbd(fr.gray, fr.depth, None, i / 30.0)
+            s.shutdown()
+
+    nondet_ops = deterministic_mode_warnings(torch, short_slices)
 
     # the main path: GD masking on the dynamic scene
     t0 = time.perf_counter()
@@ -2014,6 +2419,50 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
                                  dev)
     gdires = phase_gd_inpaint(torch, mk, cfg, dyn, System, TrackState, synthetic, metrics, dev)
     clires = phase_cli(torch, mk, cfg, dyn, metrics, dev)
+
+    # loop closing and BoW place recognition: the revisit run at full width,
+    # a forced loss relocalized on its map, then twice at the JAX test's
+    # size, where the reference closes a loop
+    t0 = time.perf_counter()
+    lframes = loop_frames(torch, synthetic, cfg, dev, LOOP_FRAMES + 1)
+    scfg = dataclasses.replace(cfg, camera=dataclasses.replace(
+        cfg.camera, fx=320.0, fy=320.0, cx=160.0, cy=120.0, width=320, height=240,
+        bf=320.0 * 0.08), orb=dataclasses.replace(cfg.orb, n_features=512, n_levels=4))
+    sframes = loop_frames(torch, synthetic, scfg, dev, LOOP_FRAMES)
+    loop_render_s = time.perf_counter() - t0
+    loop_mods = (loop_closing, pose_graph, gba, matcher, tracking)
+    loop_slam, lres, _, _ = phase_loop(torch, mk, cfg, lframes[:LOOP_FRAMES], System,
+                                       TrackState, synthetic, metrics, dev, loop_mods, "loop",
+                                       expect_loop=False, reference=LOOP_JAX_FULL)
+    lres_reloc = phase_loop_reloc(torch, mk, loop_slam, lframes[LOOP_FRAMES], kdb, loop_closing,
+                                  TrackState, "loop_reloc")
+    small = [phase_loop(torch, mk, scfg, sframes, System, TrackState, synthetic, metrics, dev,
+                        loop_mods, label, expect_loop=True, kmax=64, pmax=32768,
+                        reference=LOOP_JAX_SMALL) for label in ("loop_small", "loop_small_again")]
+    first = small[0][3]
+    if first is None:
+        fail("loop_small: no correction to measure the loop closer's call sites on")
+    ltr = loop_slam.tracker
+    cur, cand = revisit_pair(ltr)
+    loop_st, loop_calls = phase_loop_stages(
+        torch, mk, [("full_width_revisit_pair", ltr.arena, cur, cand, ltr.loop_closer),
+                    ("small_first_correction", *first[:3], small[0][0].tracker.loop_closer)],
+        cfg, loop_mods)
+
+    # determinism: every pair of runs bitwise identical
+    geo_db, im, depth_i, mask_i, T_i = geostres.pop("inpaint_inputs")
+    inp = [geo_db.inpaint_frames(im, depth_i, mask_i, T_i) for _ in range(2)]
+    torch.cuda.synchronize()
+    det = dict(slice_sync=same_arrays(run_summary(slam), run_summary(slam_again)),
+               slice_pipelined=same_arrays(run_summary(slam_pipe), run_summary(slam_pipe2)),
+               loop_small=same_arrays(small[0][2], small[1][2]),
+               inpaint=dict(rgb=bool(torch.equal(inp[0][0], inp[1][0])),
+                            depth=bool(torch.equal(inp[0][1], inp[1][1]))))
+    all_same = all(v for d in det.values() for v in d.values())
+    emit(dict(phase="determinism", bitwise_identical=all_same, compared=det,
+              deterministic_mode_warnings=nondet_ops, loop_render_s=loop_render_s))
+    if not all_same:
+        fail(f"determinism: two runs differ: {det}")
     stages, path_calls, gn_call, ba_call = phase_stages(
         torch, mk, slam, frames[n_frames], cfg,
         (extractor, build_frame, tracking, optimizer, matcher, mapping, ba), (pnp, rigid), old)
@@ -2050,7 +2499,10 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
                    geom_slice=geores["match_top2_launches"],
                    geom_staged=geostres["match_top2_launches"],
                    gd_inpaint=gdires["match_top2_launches"],
-                   cli=clires["match_top2_launches"])
+                   cli=clires["match_top2_launches"],
+                   loop=lres["match_top2_launches"],
+                   loop_small=small[0][1]["match_top2_launches"],
+                   loop_reloc=lres_reloc["match_top2_launches"])
     if min(by_path.values()) < 1:
         fail(f"a path launched no kernel: {by_path}")
     emit(dict(phase="phase_seconds", seconds=dict(PHASE_SECONDS),
@@ -2063,7 +2515,9 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "launches": by_path["gd_slice"], "launches_by_path": by_path,
         "launches_by_site_gd_slice": gres["match_top2_by_site"],
         "launches_by_site_geom_slice": geores["match_top2_by_site"],
-        "max_abs_err": max([err] + [c["max_abs_err"] for c in path_calls]),
+        "launches_by_site_loop": lres["match_top2_by_site"],
+        "launches_by_site_loop_small": small[0][1]["match_top2_by_site"],
+        "max_abs_err": max([err] + [c["max_abs_err"] for c in path_calls + loop_calls]),
         "ms": local_map["ms"], "plain_ms": local_map["plain_ms"],
         "bound_ms": local_map["bound_ms"], "bound_by": local_map["bound_by"],
         "library_ms": None,
@@ -2075,7 +2529,7 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "shape": [local_map["M"], local_map["N"]], "role": local_map["role"],
         "call_sites": [{k: c[k] for k in ("role", "M", "N", "path", "ms", "device_ms",
                                           "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
-                       for c in path_calls]}]})
+                       for c in path_calls + loop_calls]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -17,7 +17,8 @@ is read on the host: the step's acceptance is a device scalar.
 The scatters whose indices repeat in the JAX functions (a dump slot that is
 also a live keyframe or point) are written through `map_arena.last_writer`,
 which gives the result of XLA's serial scatter on the CPU (ROADMAP.md
-section 3).
+section 3). The point blocks are summed by `map_arena.add_rows`, in a fixed
+order on the card too.
 """
 
 from __future__ import annotations
@@ -208,8 +209,7 @@ def run_local_ba(arena: ma.MapArena, prob: LocalBAProblem, cfg: SlamConfig,
         JpwJp = torch.einsum("anri,an,anrj->anij", Jp, w, Jp).reshape(A, N, 9)
         Jpwr = torch.einsum("anri,an,anr->ani", Jp, w, r)
         pt_blocks = torch.cat([JpwJp, Jpwr], dim=-1)                  # [A,N,12]
-        acc = torch.zeros((P_CAP + 1, 12), device=dev).index_add(
-            0, flat_slot, pt_blocks.reshape(-1, 12))[:P_CAP]
+        acc = ma.add_rows(flat_slot, pt_blocks.reshape(-1, 12), flat_slot < P_CAP, P_CAP)
         Hpp = acc[:, :9].reshape(P_CAP, 3, 3)
         # Marquardt damping: scale the diagonal (lam is relative) + a small
         # absolute floor to keep empty blocks invertible.

@@ -143,6 +143,33 @@ def last_writer(tgt: torch.Tensor, mask: torch.Tensor, size: int) -> torch.Tenso
     return last_wins(tgt, torch.ones_like(mask), size) & mask
 
 
+DUMP_SPREAD = 1 << 16   # dump slots of add_rows (a power of two)
+
+
+def add_rows(index: torch.Tensor, src: torch.Tensor, mask: torch.Tensor, size: int) -> torch.Tensor:
+    """[size, ...] sums of the masked rows of src by target row `index`:
+    the JAX package's `zeros.at[where(mask, index, dump)].add(src)` with the
+    dump dropped, in a fixed order on every device.
+
+    On the card `index_add_` sums by float atomics, whose order changes from
+    run to run; `index_put_(accumulate=True)` sorts the targets and sums
+    each target's rows in one thread group (the form torch's deterministic
+    mode uses for index_add_). A sorted run of equal targets is summed
+    serially, so the rows outside the mask are spread over DUMP_SPREAD dump
+    slots rather than aimed at one. On the CPU `index_add_` applies the rows
+    serially in row order, the order of XLA's scatter on the CPU, so the
+    sums agree with the JAX package bit for bit."""
+    rows = torch.arange(index.shape[0], device=index.device) & (DUMP_SPREAD - 1)
+    tgt = torch.where(mask, index.long(), size + rows)
+    out = torch.zeros((size + DUMP_SPREAD,) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    if out.is_cuda:
+        out.index_put_((tgt,), src, accumulate=True)
+    else:
+        out.index_add_(0, tgt, src)
+    return out[:size]
+
+
 def row(t: torch.Tensor, i) -> torch.Tensor:
     """t[i] for a row index that may be a 0-d tensor on the device (indexing
     with one would read it on the host)."""

@@ -16,8 +16,10 @@ exit); consensus is scored by reprojection error in the target view.
 Random numbers: the JAX functions draw their samples from a `jax.random`
 key, which the port cannot replay. Here the samples come from a
 `torch.Generator`, or from `sample_idx` when the caller supplies the draw
-(the parity tests pass the JAX package's). `ransac_sim3` and `optimize_sim3`
-come with loop closing (see ROADMAP.md).
+(the parity tests pass the JAX package's).
+
+- `ransac_sim3` / `optimize_sim3`: the loop closer's Sim3 (SE3 for RGB-D)
+  RANSAC and its Gauss-Newton refinement (Sim3Solver, OptimizeSim3).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from gdslam_tpu_torch.core import lie
 
@@ -222,3 +225,135 @@ def ransac_pnp(pw: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor, K: tuple
     n_best = inl_best.sum()
     return RansacResult(T=T_best, inliers=inl_best, n_inliers=n_best,
                         ok=n_best >= min_inliers)
+
+
+def _sim3_apply_batch(R, t, s, p):
+    """(R [B,3,3], t [B,3], s [B]) applied to p [N,3] -> [B, N, 3]."""
+    return s[:, None, None] * torch.einsum("bij,nj->bni", R, p) + t[:, None]
+
+
+def _reproj(Xc: torch.Tensor, K: tuple):
+    """Pixels of camera points (depth clamped at 1e-6) and their z > 0."""
+    fx, fy, cx, cy = K
+    z = Xc[..., 2].clamp(min=1e-6)
+    return torch.stack([fx * Xc[..., 0] / z + cx, fy * Xc[..., 1] / z + cy], -1), Xc[..., 2] > 0
+
+
+def ransac_sim3(P: torch.Tensor, Q: torch.Tensor, valid: torch.Tensor, n_iters: int = 300,
+                min_inliers: int = 20, err_threshold: float = 0.05, with_scale: bool = False,
+                uv_p: Optional[torch.Tensor] = None, uv_q: Optional[torch.Tensor] = None,
+                K: Optional[tuple] = None, px_threshold=3.04, *,
+                generator: Optional[torch.Generator] = None,
+                sample_idx: Optional[torch.Tensor] = None):
+    """RANSAC Sim3/SE3 on 3D-3D correspondences with Sim3Solver::iterate
+    semantics (RANSAC(0.99, 20, 300), LoopClosing.cc:279); the scale is 1
+    unless with_scale. Consensus is metric (|S P - Q| < err_threshold), or,
+    when uv_p / uv_q / K are given, bidirectional reprojection in pixels
+    (Sim3Solver::CheckInliers, Sim3Solver.cc:180-209): S P projected into
+    the current image against uv_q and S^-1 Q into the candidate's against
+    uv_p, px_threshold a scalar or per point [N]. The draws come from
+    `generator` (the loop closer seeds it from the keyframe id, as the JAX
+    package seeds its key) or from `sample_idx` [n_iters * 3].
+
+    Returns (R, t, s, inliers [N], n_inliers, ok), all on the device."""
+    idx = _draw(valid, n_iters, 3, generator, sample_idx)
+    Rs, ts, ss = horn_alignment(P[idx], Q[idx], torch.ones(idx.shape, device=P.device),
+                                with_scale=with_scale)
+
+    def score(R, t, s):
+        # batched over hypotheses: R [B, 3, 3], t [B, 3], s [B]
+        if uv_p is not None:
+            uq, zq = _reproj(_sim3_apply_batch(R, t, s, P), K)
+            Ri, ti, si = lie.sim3_inverse(R, t, s)
+            up, zp = _reproj(_sim3_apply_batch(Ri, ti, si, Q), K)
+            eq = torch.hypot(uq[..., 0] - uv_q[:, 0], uq[..., 1] - uv_q[:, 1])
+            ep = torch.hypot(up[..., 0] - uv_p[:, 0], up[..., 1] - uv_p[:, 1])
+            inl = valid & zq & zp & (eq < px_threshold) & (ep < px_threshold)
+        else:
+            err = torch.linalg.vector_norm(_sim3_apply_batch(R, t, s, P) - Q, dim=-1)
+            inl = valid & (err < err_threshold)
+        return inl.sum(dim=-1), inl
+
+    scores, inls = score(Rs, ts, ss)
+    w = inls.index_select(0, _argmax_row(scores))[0].float()
+    R, t, s = horn_alignment(P, Q, w, with_scale=with_scale)
+    n_fin, inl_fin = score(R[None], t[None], s[None])
+    n_fin, inl_fin = n_fin[0], inl_fin[0]
+    return R, t, s, inl_fin, n_fin, n_fin >= min_inliers
+
+
+def jacobian_fwd(fn, x: torch.Tensor) -> torch.Tensor:
+    """d fn / d x for x [..., D] by forward mode, all D directions in one
+    pass: fn is evaluated once on a leading axis of D copies of x, copy d
+    carrying the tangent e_d, so fn must broadcast over that axis. Returns
+    [*fn(x).shape, D]. (torch.func.jacfwd vmaps per-row scalars instead, and
+    a 0-d dual plus a Python float comes out float64.)"""
+    D = x.shape[-1]
+    eye = torch.eye(D, dtype=x.dtype, device=x.device)
+    shape = (D,) + tuple(x.shape)
+    X = x[None].expand(shape).clone()
+    tangent = eye.reshape((D,) + (1,) * (x.dim() - 1) + (D,)).expand(shape).clone()
+    with fwAD.dual_level():
+        out = fn(fwAD.make_dual(X, tangent))
+        return fwAD.unpack_dual(out).tangent.movedim(0, -1)
+
+
+def optimize_sim3(X1, X2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid, S12_init, K: tuple,
+                  with_scale: bool = False, th2: float = 10.0):
+    """Gauss-Newton Sim3 refinement on bidirectional reprojection residuals,
+    Optimizer::OptimizeSim3 (Optimizer.cc:1262-1391) semantics: per match
+    e12 = uv1 - proj(S12 X2) and e21 = uv2 - proj(S12^-1 X1), Huber, a chi2
+    cull at th2 per direction after the first round of 5 iterations, a
+    second round of 5 on the survivors, inliers = both directions under th2.
+    S12_init = (R, t, s) maps camera-2 coordinates into camera 1. The scale
+    column of the Jacobian is zero unless with_scale. The loops have fixed
+    counts; nothing is read on the host.
+
+    Returns (R, t, s, inliers [N] bool, n_inliers)."""
+    delta = th2 ** 0.5
+    R0, t0, s0 = S12_init
+    sq1, sq2 = torch.sqrt(inv_sigma2_1)[:, None], torch.sqrt(inv_sigma2_2)[:, None]
+    dev = X1.device
+    eye7 = torch.eye(7, device=dev)
+    scale_col = torch.ones(7, device=dev) if with_scale else (torch.arange(7, device=dev) < 6).float()
+
+    def residuals(xi, R, t, s):
+        # left-multiplicative tangent update S = exp(xi) o S; xi is [..., 1, 7]
+        dR, dt, ds = lie.sim3_exp(xi)
+        Rn, tn, sn = lie.sim3_compose(dR, dt, ds, R, t, s)
+        Ri, ti, si = lie.sim3_inverse(Rn, tn, sn)
+        r12 = (uv1 - _reproj(lie.sim3_apply(Rn, tn, sn, X2), K)[0]) * sq1
+        r21 = (uv2 - _reproj(lie.sim3_apply(Ri, ti, si, X1), K)[0]) * sq2
+        return r12, r21
+
+    def chi2_pair(R, t, s):
+        r12, r21 = residuals(torch.zeros((1, 7), device=dev), R, t, s)
+        return (r12 * r12).sum(-1), (r21 * r21).sum(-1)
+
+    def gn_round(R, t, s, active):
+        w_act = torch.cat([active, active]).float()
+        for _ in range(5):
+            def flat(xi):
+                return torch.cat(residuals(xi, R, t, s), dim=-2)     # [..., 2N, 2]
+
+            zero = torch.zeros((1, 7), device=dev)
+            r = flat(zero)
+            J = jacobian_fwd(flat, zero) * scale_col                 # [2N, 2, 7]
+            chi = (r * r).sum(-1)
+            w = torch.where(chi <= th2, 1.0, delta / torch.sqrt(chi.clamp(min=1e-12))) * w_act
+            JW = J * w[:, None, None]
+            H = torch.einsum("nri,nrj->ij", JW, J) + 1e-6 * eye7
+            if not with_scale:
+                H = torch.where(eye7 * (1 - scale_col) > 0, 1.0, H)
+            g = torch.einsum("nri,nr->i", JW, r)
+            xi = -torch.linalg.solve_ex(H, g[:, None])[0][:, 0]
+            dR, dt, ds = lie.sim3_exp(xi)
+            R, t, s = lie.sim3_compose(dR, dt, ds, R, t, s)
+        return R, t, s
+
+    R1, t1, s1 = gn_round(R0, t0, s0, valid)
+    c12, c21 = chi2_pair(R1, t1, s1)
+    R2, t2, s2 = gn_round(R1, t1, s1, valid & (c12 <= th2) & (c21 <= th2))
+    c12, c21 = chi2_pair(R2, t2, s2)
+    inl = valid & (c12 <= th2) & (c21 <= th2)
+    return R2, t2, s2, inl, inl.sum()

@@ -4,7 +4,8 @@ truth and print ATE / RPE and one JSON line.
 
     python -m gdslam_tpu_torch.cli.evaluate SEQ_DIR ASSOC GROUNDTRUTH \\
         [--mode plain|geometry|gd] [--settings TUM.yaml] [--masks DIR] \\
-        [--ref-masks DIR] [--max-frames N] [--rpe-delta N] [--device cuda|cpu]
+        [--ref-masks DIR] [--vocab default|none|PATH] [--max-frames N] \\
+        [--rpe-delta N] [--device cuda|cpu]
 
 The estimated trajectory is associated to ground truth by timestamp
 (nearest neighbour within 20 ms, the TUM tools' rule). With --ref-masks it
@@ -18,8 +19,8 @@ Modes (BASELINE.md configs):
   gd       - GD dense-scene-flow masking (TrackRGBD_GD, Tracking.cc:212-269),
              fed uint8 gray + uint16 depth as a camera gives them; --masks
              adds the semantic prior
---vocab takes 'none' only (ROADMAP.md section 1, item 11) and --segmenter
-raises (item 12).
+--vocab default (or a vocabulary .npz) turns on loop closing and BoW
+relocalization; --segmenter raises (ROADMAP.md section 1, item 12).
 """
 
 from __future__ import annotations
@@ -68,17 +69,14 @@ def main(argv=None) -> int:
     ap.add_argument("--masks", default=None, help="semantic-mask cache dir (MaskNet protocol)")
     ap.add_argument("--ref-masks", default=None,
                     help="reference dynamic-mask dir ({ts}.png) for mask IoU")
-    ap.add_argument("--vocab", default="none")
+    ap.add_argument("--vocab", default="none",
+                    help="'default', a vocabulary .npz, or 'none' (no loop closing)")
     ap.add_argument("--segmenter", default=None)
     ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument("--rpe-delta", type=int, default=30,
                     help="RPE frame spacing (default 30 = 1 s at 30 fps)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.vocab not in ("none", "-"):
-        raise NotImplementedError(
-            f"--vocab {args.vocab}: loop closing and BoW relocalization are not ported to "
-            "gdslam_tpu_torch yet; see ROADMAP.md section 1, item 11")
     if args.segmenter:
         raise NotImplementedError(
             "--segmenter: the live Mask R-CNN segmenter is not ported to gdslam_tpu_torch "
@@ -94,7 +92,8 @@ def main(argv=None) -> int:
 
     cfg = SlamConfig.from_opencv_yaml(args.settings) if args.settings else SlamConfig()
     segmenter = SegmentDynObject(None, cache_dir=args.masks) if args.masks else None
-    slam = System(cfg, Sensor.RGBD, pipeline=True, device=args.device)
+    vocab = None if args.vocab in ("none", "-") else args.vocab
+    slam = System(cfg, Sensor.RGBD, vocabulary=vocab, pipeline=True, device=args.device)
     seq = TumSequence(args.seq_dir, args.assoc, cfg.camera.depth_map_factor)
     n = len(seq) if args.max_frames is None else min(len(seq), args.max_frames)
     ious = []

@@ -6,8 +6,9 @@ Usage (positional, mirroring rgbd_tum.cc:30-33):
     python -m gdslam_tpu_torch.cli.rgbd_tum VOCAB SETTINGS SEQUENCE_DIR ASSOC \\
         [MASKS_DIR|no_save [OUTPUT_DIR]] [--device cuda|cpu]
 
-- VOCAB: 'none' (or '-'); loop closing and BoW relocalization, which need a
-  vocabulary, are not ported yet (ROADMAP.md section 1, item 11)
+- VOCAB: 'default' (the shipped 10k-leaf vocabulary), the path of a
+  vocabulary .npz, or 'none' (or '-'): no loop closing, relocalization from
+  the recent keyframes
 - SETTINGS: OpenCV-YAML camera/ORB settings (e.g. TUM3.yaml)
 - MASKS_DIR: semantic-mask cache directory (the PATH_TO_MASKS protocol,
   rgbd_tum.cc:99-109; 'no_save' reads without writing back); with it the
@@ -61,10 +62,7 @@ def main(argv=None) -> int:
     vocab_arg, settings_path, seq_dir, assoc_path = argv[:4]
     masks_dir = argv[4] if len(argv) > 4 else None
     output_dir = argv[5] if len(argv) > 5 else None
-    if vocab_arg not in ("none", "-"):
-        raise NotImplementedError(
-            f"vocabulary {vocab_arg!r}: loop closing and BoW relocalization are not ported "
-            "to gdslam_tpu_torch yet; see ROADMAP.md section 1, item 11 (pass 'none')")
+    vocab = None if vocab_arg in ("none", "-") else vocab_arg
 
     from gdslam_tpu_torch.config import SlamConfig
     from gdslam_tpu_torch.io import native_loader, png
@@ -86,7 +84,7 @@ def main(argv=None) -> int:
         print(f"Loaded {len(seq)} frames from {seq_dir} (TumSequence)")
 
     segmenter = SegmentDynObject(None, cache_dir=masks_dir) if masks_dir else None
-    slam = System(cfg, Sensor.RGBD, pipeline=True, device=device)
+    slam = System(cfg, Sensor.RGBD, vocabulary=vocab, pipeline=True, device=device)
     use_gd = output_dir is not None
     if use_gd:
         for sub in ("rgb", "depth", "mask"):

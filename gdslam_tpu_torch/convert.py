@@ -11,8 +11,10 @@ import numpy as np
 import torch
 
 from gdslam_tpu_torch.backend.ba import LocalBAProblem
+from gdslam_tpu_torch.backend.keyframe_db import BowDatabase
 from gdslam_tpu_torch.backend.map_arena import MapArena
 from gdslam_tpu_torch.backend.solvers import RansacResult
+from gdslam_tpu_torch.backend.vocabulary import Vocabulary
 from gdslam_tpu_torch.config import (CameraConfig, GeoMaskConfig, GeometryConfig, OrbConfig,
                                      SlamConfig, TrackingConfig)
 from gdslam_tpu_torch.frontend.extractor import Features
@@ -85,3 +87,18 @@ def geometry_db_from_numpy(d: dict, device="cuda") -> GeometryDB:
 
 def geometry_db_to_numpy(db: GeometryDB) -> dict:
     return {k: getattr(db, k).cpu().numpy() for k in GeometryDB._fields}
+
+
+def bow_db_from_numpy(d: dict, device="cuda") -> BowDatabase:
+    """BowDatabase from a {field: array} dict (every BowDatabase field)."""
+    return BowDatabase(**{k: _to_torch(d[k], device) for k in BowDatabase._fields})
+
+
+def bow_db_to_numpy(db: BowDatabase) -> dict:
+    return {k: getattr(db, k).cpu().numpy() for k in BowDatabase._fields}
+
+
+def vocabulary_from_numpy(centers, k: int, levels: int, device="cuda") -> Vocabulary:
+    """Vocabulary from its centres [n_nodes, 32] uint8 and its shape."""
+    return Vocabulary(centers=_to_torch(np.asarray(centers, np.uint8), device), k=int(k),
+                      levels=int(levels))

@@ -11,6 +11,7 @@ agree closely but not bit for bit.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -99,6 +100,41 @@ def gt_pose(frame_idx, fps: float = 30.0, device="cpu") -> torch.Tensor:
         0.03 * torch.sin(0.7 * t + 0.9),
     ])
     return lie.se3_exp(xi)
+
+
+def _pose_from(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    T = torch.eye(4, device=t.device)
+    T[:3, :3] = R
+    T[:3, 3] = t
+    return T
+
+
+def _rot_y(a: torch.Tensor) -> torch.Tensor:
+    c, s, z, o = torch.cos(a), torch.sin(a), torch.zeros_like(a), torch.ones_like(a)
+    return torch.stack([torch.stack([c, z, s]), torch.stack([z, o, z]), torch.stack([-s, z, c])])
+
+
+def gt_pose_loop(frame_idx, n_frames: int, device="cpu") -> torch.Tensor:
+    """Closed-loop revisit trajectory T_wc for loop-closure runs: a full yaw
+    circuit with a small orbit, back at the first view at frame n_frames
+    (fr2_desk-style revisit)."""
+    th = 2.0 * math.pi * torch.tensor(frame_idx, dtype=torch.float32, device=device) / n_frames
+    trans = torch.stack([0.25 * torch.sin(th), 0.05 * torch.sin(2 * th),
+                         0.15 * (1 - torch.cos(th))])
+    ax = 0.03 * torch.sin(2 * th)
+    cx, sx, z, o = torch.cos(ax), torch.sin(ax), torch.zeros_like(ax), torch.ones_like(ax)
+    Rx = torch.stack([torch.stack([o, z, z]), torch.stack([z, cx, -sx]), torch.stack([z, sx, cx])])
+    return _pose_from(_rot_y(th) @ Rx, trans)
+
+
+def gt_pose_loop_mono(frame_idx, n_frames: int, device="cpu") -> torch.Tensor:
+    """Closed-loop revisit trajectory with parallax for monocular runs: a
+    wide lateral oval (up to ~1.8 m) with a mild look-around yaw (+-0.35 rad)
+    facing the textured back wall."""
+    th = 2.0 * math.pi * torch.tensor(frame_idx, dtype=torch.float32, device=device) / n_frames
+    c = torch.stack([0.9 * torch.sin(th), 0.06 * torch.sin(2.0 * th),
+                     0.30 * (1.0 - torch.cos(th))])
+    return _pose_from(_rot_y(0.35 * torch.sin(th)), c)
 
 
 def sphere_center(frame_idx, fps: float = 30.0, device="cpu") -> torch.Tensor:

@@ -27,8 +27,9 @@ The five references of `extract_dynamic_seeds` and the twenty DB frames of
 package loops over them; the results are the same, and the scatters keep
 the JAX package's order of updates (frame, then corner, then pixel), so
 on the CPU, where a scatter is applied serially, they agree bit for bit.
-On the card the float accumulation of `inpaint` is made by atomics, whose
-order is not fixed. The programs read nothing on the host.
+On the card the float accumulation of `inpaint` sorts its targets first
+(`map_arena.add_rows`), so two runs agree bit for bit there too. The
+programs read nothing on the host.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gdslam_tpu_torch.backend import map_arena as ma
 from gdslam_tpu_torch.config import SlamConfig
 from gdslam_tpu_torch.core import lie
 from gdslam_tpu_torch.frontend import extractor
@@ -341,9 +343,10 @@ def inpaint(db: GeometryDB, cur_rgb, cur_depth, cur_mask, T_cw, cfg: SlamConfig)
     Geometry.cc:587-601). Pass 1 is a z-buffer: per target pixel the least
     projected depth over every DB frame (scatter-min, exact in any order).
     Pass 2 accumulates (w, w * rgb, w * z) of the contributions within
-    max(0.04 z, 0.05) m of that winner. Idle rows go to a dump slot HW of an
-    HW + 1 buffer. All DB frames and corners form one batch, in the JAX
-    package's order (frame, corner, pixel)."""
+    max(0.04 z, 0.05) m of that winner, summed by `map_arena.add_rows` (the
+    JAX package aims idle rows at a dump slot HW of an HW + 1 buffer). All
+    DB frames and corners form one batch, in the JAX package's order (frame,
+    corner, pixel)."""
     cam, g = cfg.camera, cfg.geometry
     H, W = cam.height, cam.width
     HW = H * W
@@ -372,17 +375,14 @@ def inpaint(db: GeometryDB, cur_rgb, cur_depth, cur_mask, T_cw, cfg: SlamConfig)
     # which rejects contributions occluded by a nearer surface
     near = z4 <= best_z[idx.clamp(0, HW - 1)] + torch.clamp(0.04 * z4, min=0.05)
     keep = ok4 & near
-    flat = torch.where(keep, idx, HW).reshape(-1)
     wk = torch.where(keep, w, 0.0)
-    acc_w = torch.zeros(HW + 1, device=cur_depth.device).index_add_(0, flat, wk.reshape(-1))
-    acc_z = torch.zeros(HW + 1, device=cur_depth.device).index_add_(
-        0, flat, (wk * z4).reshape(-1))
-    acc_rgb = torch.stack([torch.zeros(HW + 1, device=cur_depth.device).index_add_(
-        0, flat, (wk * db.rgb[:, None, ..., c]).reshape(-1)) for c in range(3)], -1)
-    acc_w = acc_w[:HW].view(H, W)
+    acc = ma.add_rows(idx.reshape(-1), torch.stack(
+        [wk, wk * z4] + [wk * db.rgb[:, None, ..., c] for c in range(3)], -1).reshape(-1, 5),
+        keep.reshape(-1), HW)
+    acc_w = acc[:, 0].view(H, W)
     wsum = torch.clamp(acc_w, min=1e-9)
-    mean_rgb = acc_rgb[:HW].view(H, W, 3) / wsum[..., None]
-    mean_z = acc_z[:HW].view(H, W) / wsum
+    mean_rgb = acc[:, 2:].view(H, W, 3) / wsum[..., None]
+    mean_z = acc[:, 1].view(H, W) / wsum
     have = (acc_w > 1e-6) & torch.isfinite(best_z[:HW].view(H, W))
     fill = ((cur_mask < 0.5) | (cur_depth <= 0)) & have
     return torch.where(fill[..., None], mean_rgb, cur_rgb), torch.where(fill, mean_z, cur_depth)

@@ -6,10 +6,11 @@ gdslam_tpu.system.slam).
 `use_geometry=True` behind the DynaSLAM geometric masker; `track_rgbd_geom`
 adds background inpainting; `track_rgbd_gd` runs the tracker behind the GD
 masker (dense scene flow + Mahalanobis masking, the main path), with
-`inpaint=True` also inpainting; `reset`, the localization-mode toggles,
-`shutdown` and the TUM trajectory writers are ported. Every other entry
-point of the JAX package's System raises NotImplementedError until its slice
-is ported (see ROADMAP.md).
+`inpaint=True` also inpainting; with a vocabulary every entry point also
+closes loops and relocalizes through the BoW database. `reset`, the
+localization-mode toggles, `shutdown` and the TUM trajectory writers are
+ported. Every other entry point of the JAX package's System raises
+NotImplementedError until its slice is ported (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import numpy as np
 import torch
 
 from gdslam_tpu_torch.backend import solvers
+from gdslam_tpu_torch.backend import vocabulary as voc_mod
+from gdslam_tpu_torch.backend.loop_closing import LoopCloser
 from gdslam_tpu_torch.config import SlamConfig
 from gdslam_tpu_torch.frontend import extractor
 from gdslam_tpu_torch.frontend.frame import build_frame
@@ -92,23 +95,33 @@ class PackedUpload:
 class System:
     """SLAM system with the reference's System API surface (TrackRGBD
     System.cc:157-312, SaveTrajectoryTUM :418-476). Runs on `device`
-    ("cuda" unless the caller asks for "cpu")."""
+    ("cuda" unless the caller asks for "cpu").
+
+    vocabulary: None (no loop closing; relocalization from the recent
+    keyframes), "default" (the shipped 10k-leaf vocabulary), the path of a
+    vocabulary .npz (vocabulary.save), or a vocabulary.Vocabulary. With
+    one, a LoopCloser runs at every keyframe."""
 
     def __init__(self, settings: SlamConfig | str, sensor: Sensor = Sensor.RGBD,
-                 use_viewer: bool = False, vocabulary: Optional[str] = None,
+                 use_viewer: bool = False,
+                 vocabulary: Optional[str | voc_mod.Vocabulary] = None,
                  kmax: int = 512, pmax: int = 65536, pipeline: bool = False,
                  device="cuda"):
         if isinstance(settings, str):
             settings = SlamConfig.from_opencv_yaml(settings)
         if sensor != Sensor.RGBD:
             raise _not_ported(f"the {sensor.name} sensor")
-        if vocabulary is not None:
-            raise _not_ported("loop closing (vocabulary=...)")
         self.cfg = settings
         self.sensor = sensor
         self.device = torch.device(device)
         self.tracker = Tracking(settings, kmax=kmax, pmax=pmax, pipeline=pipeline,
                                 device=self.device)
+        self._vocab = None
+        if vocabulary is not None:
+            self._vocab = load_vocabulary(vocabulary, self.device)
+            self.tracker.loop_closer = LoopCloser(settings, self._vocab, kmax, self.device)
+            # bFixScale (Sim3Solver.h:20): the scale is fixed with metric depth
+            self.tracker.loop_closer.fix_scale = sensor != Sensor.MONOCULAR
         self._geo: Optional[geomask.GeoMaskMaker] = None    # built at the first GD frame
         self._ones_mask: Optional[torch.Tensor] = None
         self._packed: Optional[PackedUpload] = None
@@ -367,11 +380,16 @@ class System:
 
     def reset(self):
         """System::Reset (System.cc:391): a fresh tracker with the same
-        arena sizes, pipeline flag and commit interval."""
+        arena sizes, pipeline flag and commit interval; the loop closer is
+        kept with its state cleared (the reference's Reset keeps the threads
+        alive, System.cc:391-395)."""
         old = self.tracker
         self.tracker = Tracking(self.cfg, kmax=old.arena.kmax, pmax=old.arena.pmax,
                                 pipeline=old.pipeline, device=self.device)
         self.tracker.commit_every = old.commit_every
+        if old.loop_closer is not None:
+            old.loop_closer.reset()
+            self.tracker.loop_closer = old.loop_closer
         self._geo = None
         self._clear_geometry()
 
@@ -397,6 +415,16 @@ class System:
 
     def save_keyframe_trajectory_tum(self, path: str):
         traj.save_tum(path, self.tracker.keyframe_trajectory())
+
+
+def load_vocabulary(vocabulary, device) -> voc_mod.Vocabulary:
+    """A Vocabulary from System's `vocabulary` argument: "default", the
+    path of an .npz of vocabulary.save, or a Vocabulary."""
+    if isinstance(vocabulary, voc_mod.Vocabulary):
+        return vocabulary.to(device)
+    if vocabulary == "default":
+        return voc_mod.default_vocabulary(device)
+    return voc_mod.load(vocabulary, device)
 
 
 def _not_ported_method(name: str):

@@ -9,10 +9,11 @@ MapArena. Host branching happens at frame granularity.
 
 The RGB-D tracker runs as the JAX package runs it by default: the full
 keyframe program (fuse -> insert -> triangulate -> fuse duplicates ->
-refresh -> cull -> local BA), relocalization from the recent keyframes,
-keyframe culling and arena compaction, and the pipelined commit protocol.
-Loop closing, the BoW route of relocalization and the other sensors raise
-NotImplementedError (see ROADMAP.md).
+refresh -> cull -> local BA), relocalization, keyframe culling and arena
+compaction, and the pipelined commit protocol; with a loop closer
+(`Tracking.loop_closer`, a backend.loop_closing.LoopCloser) also loop
+closing at every keyframe and relocalization from the BoW database. The
+other sensors raise NotImplementedError (see ROADMAP.md).
 
 Host reads: the tracking programs read nothing on the host. The wide-radius
 retry of the motion model, which the JAX package decides on the device with
@@ -34,8 +35,11 @@ import torch
 
 from gdslam_tpu_torch.backend import ba as ba_mod
 from gdslam_tpu_torch.backend import gba
+from gdslam_tpu_torch.backend import keyframe_db as kdb
+from gdslam_tpu_torch.backend import loop_closing
 from gdslam_tpu_torch.backend import map_arena as ma
 from gdslam_tpu_torch.backend import mapping, optimizer, solvers
+from gdslam_tpu_torch.backend import vocabulary as voc
 from gdslam_tpu_torch.config import SlamConfig
 from gdslam_tpu_torch.core import camera as cam_ops
 from gdslam_tpu_torch.core import lie
@@ -468,6 +472,7 @@ class Tracking:
         self.use_triangulation: bool = True  # CreateNewMapPoints epipolar stage
         self.compact_min_gain = 8           # min slots a compaction must free
         self._eye4 = torch.eye(4, device=self.device)
+        self._loop_closer: Optional[loop_closing.LoopCloser] = None
         self._clear()
 
     def _clear(self):
@@ -487,15 +492,22 @@ class Tracking:
         self.arena_full_warned = False
         self.kf_arena_full_warned = False
         self._compact_requested = False
+        # (pre, post) pose of the keyframe a loop correction moved, for a
+        # caller holding a later in-flight pose; and the composed re-anchor
+        # inv(pre) @ post of the corrections inside the current flush
+        self._loop_delta = None
+        self._flush_delta: Optional[torch.Tensor] = None
 
     @property
-    def loop_closer(self):
-        return None
+    def loop_closer(self) -> Optional[loop_closing.LoopCloser]:
+        """The loop closer run at every keyframe (None: no loop closing)."""
+        return self._loop_closer
 
     @loop_closer.setter
-    def loop_closer(self, value):
-        if value is not None:
-            raise _not_ported("loop closing")
+    def loop_closer(self, value: Optional[loop_closing.LoopCloser]):
+        if value is not None and not isinstance(value, loop_closing.LoopCloser):
+            raise TypeError("loop_closer must be a backend.loop_closing.LoopCloser or None")
+        self._loop_closer = value
 
     @property
     def n_kf_host(self) -> int:
@@ -505,10 +517,12 @@ class Tracking:
 
     def _do_keyframe(self, frame: Frame, T, assoc, timestamp: float):
         """The LocalMapping duties at keyframe insertion (LocalMapping::Run,
-        LocalMapping.cc:47-112) as one program, then the host bookkeeping.
-        Returns (assoc, T_refined, T_refined on the host). Reads the host
-        once (the reference-match count and the pose in one copy), or not at
-        all when pipelined (the host pose is then None)."""
+        LocalMapping.cc:47-112) as one program, then the host bookkeeping
+        and loop closing. Returns (assoc, T_refined, T_refined on the host).
+        Reads the host once (the reference-match count and the pose in one
+        copy), or not at all when pipelined (the host pose is then None),
+        besides the loop closer's reads."""
+        self._loop_delta = None
         new_n_kf = self.n_kf_host + 1
         self.arena, assoc, T_out, ref_m = keyframe_program(
             self.arena, frame, T, assoc, timestamp, self.cfg,
@@ -526,6 +540,26 @@ class Tracking:
             ref_m, T_host = _read(ref_m, T_out)
             self.ref_kf_matches = int(ref_m)
         self.frames_since_kf = 0
+        lc = self.loop_closer
+        if lc is not None:
+            pre_pose = self.arena.kf_pose[self.ref_kf]
+            n_loops = len(lc.loops)
+            self.arena = lc.process_keyframe(self.arena, self.ref_kf)
+            if len(lc.loops) > n_loops:
+                # A loop correction moved the map: the tracker goes on from
+                # the corrected keyframe pose (the reference's Tracking after
+                # CorrectLoop); a later in-flight pose follows through
+                # _loop_delta, keeping its pose relative to this keyframe.
+                # The seam fusion redirected map points, so the keyframe's
+                # fused observations are the association, and the velocity,
+                # estimated against the map before the correction, is dropped.
+                post_pose = self.arena.kf_pose[self.ref_kf]
+                self._loop_delta = (pre_pose, post_pose)
+                T_out = post_pose
+                assoc = self.arena.kf_obs[self.ref_kf]
+                self.velocity = None
+                if T_host is not None:
+                    T_host = post_pose.cpu().numpy()
         return assoc, T_out, T_host
 
     def _note_keyframe(self, timestamp: float):
@@ -550,6 +584,8 @@ class Tracking:
         self.arena = ma.new_arena(self.arena.kmax, self.arena.pmax,
                                   self.cfg.orb.n_features, self.device)
         self._clear()
+        if self.loop_closer is not None:
+            self.loop_closer.reset()
 
     def _on_lost(self, timestamp: float, T_last):
         """LOST handling incl. the early-loss auto-reset: LOST with <= 5
@@ -723,10 +759,15 @@ class Tracking:
         the current arena, so the arena is then kept, with the dropped
         frames' visibility counts in it, and only the frame state goes back
         (the JAX package restores the backup's arena there and loses the
-        keyframe; see ROADMAP.md section 3)."""
+        keyframe; see ROADMAP.md section 3). If a loop correction moved the
+        kept arena, the restored frame state is re-anchored in it as the
+        live pose was, and its velocity dropped."""
         arena, self.last, self.velocity = pending.backup
         if self.n_kf_host == n_kf_before:
             self.arena = arena
+        elif self._flush_delta is not None and self.last is not None:
+            self.last = self.last._replace(T_cw=self.last.T_cw @ self._flush_delta)
+            self.velocity = None
 
     def _commit(self, pending: Pending, stats_host, n_kf_before: int) -> bool:
         """Run the state machine on a lagged frame's (read) scalars."""
@@ -761,6 +802,17 @@ class Tracking:
                 n_inl, close_tracked, close_untracked):
             done = pending.last
             self._do_keyframe(done.frame, done.T_cw, done.assoc, pending.timestamp)
+            if self._loop_delta is not None:
+                # a loop correction moved the map while later frames were in
+                # flight: re-anchor the live pose, keeping its transform to
+                # the corrected keyframe; a rollback later in this flush
+                # re-anchors its restored state the same way (_roll_back)
+                pre, post = self._loop_delta
+                self._loop_delta = None
+                D = lie.se3_inverse(pre) @ post
+                self._flush_delta = D if self._flush_delta is None else self._flush_delta @ D
+                if self.last is not None:
+                    self.last = self.last._replace(T_cw=self.last.T_cw @ D)
             if self.n_kf_host % 8 == 0:
                 self.arena = gba.keyframe_culling(self.arena)
         return True
@@ -779,6 +831,7 @@ class Tracking:
                 self.ref_kf_matches = got.pop()[0]
                 self._ref_m_dev = None
             n_kf_before = self.n_kf_host
+            self._flush_delta = None
             for k, (pend, st) in enumerate(zip(batch, got)):
                 if st[0] < 10 and not pend.wide:
                     # The narrow motion-model search failed: this frame takes
@@ -811,9 +864,8 @@ class Tracking:
 
         Culls redundant keyframes first, then compacts survivors to the
         front (recency == slot order preserved) and remaps every host-side
-        slot reference: timestamps, trajectory records, ref_kf. (The loop
-        closer's BoW database is remapped here too once loop closing is
-        ported; see ROADMAP.md.)"""
+        slot reference: timestamps, trajectory records, ref_kf, and the loop
+        closer's BoW database and loops."""
         if not self._compact_requested:
             return
         self._compact_requested = False
@@ -850,28 +902,45 @@ class Tracking:
         self.records = [(ts, int(new_of_old[ref]), T_cr, lost)
                         for ts, ref, T_cr, lost in self.records]
         self.ref_kf = int(new_of_old[self.ref_kf])
+        if self.loop_closer is not None:
+            self.loop_closer.remap(perm, new_of_old, len(keep))
 
     def _relocalize(self, frame: Frame):
-        """Relocalization (Tracking.cc:1670-1832) on its vocabulary-free
-        route: the most recent keyframes as candidates (short-term loss
-        recovery near the last mapped region), descriptor matching, batched
-        2D-3D RANSAC (PnPsolver semantics, RANSAC(0.99,10,300) at
-        Tracking.cc:1715; works for depthless keypoints), then pose
-        optimization and a growth of the match set by projection, with a
-        >= 50-inlier acceptance. Where the frame has depth, a 3D-3D rigid
-        RANSAC is the fallback hypothesis. Candidates from the BoW database
-        come with loop closing (see ROADMAP.md), which this tracker refuses.
-        Returns (ok, T, assoc, n_inliers)."""
+        """Relocalization (Tracking.cc:1670-1832): candidate keyframes from
+        the BoW database with a loop closer, or else (or when it finds none)
+        the most recent keyframes (short-term loss recovery near the last
+        mapped region); descriptor matching (BoW-guided with a vocabulary,
+        all pairs without), batched 2D-3D RANSAC (PnPsolver semantics,
+        RANSAC(0.99,10,300) at Tracking.cc:1715; works for depthless
+        keypoints), then pose optimization and a growth of the match set by
+        projection, with a >= 50-inlier acceptance. Where the frame has
+        depth, a 3D-3D rigid RANSAC is the fallback hypothesis. Returns (ok,
+        T, assoc, n_inliers)."""
         cfg, cam, arena = self.cfg, self.cfg.camera, self.arena
         n_kf = self.n_kf_host
         if n_kf == 0:
             return False, None, None, 0
-        candidates = list(range(n_kf - 1, max(-1, n_kf - 6), -1))
+        lc = self.loop_closer
+        words = None
+        candidates: list[int] = []
+        if lc is not None:
+            words = lc.words_of(frame.desc, frame.valid)
+            vec = voc.bow_vector(words, words >= 0, lc.vocab.n_leaves)
+            ids, scores, ok_c = kdb.reloc_candidates(lc.db, arena, vec)
+            ids, scores, ok_c = _read(ids, scores, ok_c)
+            candidates = [int(ids[i]) for i in range(ids.shape[0]) if ok_c[i] and scores[i] > 0]
+        if not candidates:
+            candidates = list(range(n_kf - 1, max(-1, n_kf - 6), -1))
 
         # Match all candidates first, then read every match count in one copy.
-        matches = [_dense_ratio_matches(frame, arena.kf_uv[kf], arena.kf_desc[kf],
-                                        arena.kf_level[kf], arena.kf_kp_valid[kf],
-                                        cfg.orb.n_levels) for kf in candidates]
+        if words is not None:
+            matches = [loop_closing._bow_guided_matches(
+                frame.desc, frame.valid, words, arena.kf_desc[kf], arena.kf_kp_valid[kf],
+                lc.db.words[kf]) for kf in candidates]
+        else:
+            matches = [_dense_ratio_matches(frame, arena.kf_uv[kf], arena.kf_desc[kf],
+                                            arena.kf_level[kf], arena.kf_kp_valid[kf],
+                                            cfg.orb.n_levels) for kf in candidates]
         n_ms = torch.stack([n for _, n in matches]).tolist()
         # Try candidates best-first (the reference iterates all candidates'
         # PnP solvers round-robin, Tracking.cc:1737; best-first reaches the

@@ -423,18 +423,22 @@ def test_evaluate_geometry_matches_jax(tum_seq, tmp_path, monkeypatch, capsys):
     assert abs(ate_t - ate_j) <= 1e-3, (ate_t, ate_j)
 
 
-def test_clis_refuse_what_is_not_ported(tum_seq):
-    """A vocabulary other than none and the live segmenter raise, naming
-    their ROADMAP items."""
+def test_clis_refuse_what_is_not_ported(tum_seq, tmp_path, monkeypatch):
+    """The live segmenter raises, naming its ROADMAP item; a vocabulary is
+    ported (loop closing and BoW relocalization): `--vocab default` runs
+    evaluate's plain mode to the end, and a vocabulary file that is not
+    there fails to load."""
     from gdslam_tpu_torch.cli import evaluate, rgbd_tum
     seq_dir, _ = tum_seq
     _, assoc, gt, settings, masks = _paths(seq_dir)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        rgbd_tum.main(["default", settings, seq_dir, assoc, "--device", "cpu"])
+    monkeypatch.chdir(tmp_path)
+    assert evaluate.main([seq_dir, assoc, gt, "--vocab", "default", "--settings", settings,
+                          "--rpe-delta", "5", "--device", "cpu"]) == 0
+    with pytest.raises(FileNotFoundError):
+        rgbd_tum.main([str(tmp_path / "missing.npz"), settings, seq_dir, assoc,
+                       "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 12"):
         rgbd_tum.main(["none", settings, seq_dir, assoc, "--segmenter", "flax"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        evaluate.main([seq_dir, assoc, gt, "--vocab", "default", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 12"):
         evaluate.main([seq_dir, assoc, gt, "--segmenter", "flax", "--device", "cpu"])
     assert rgbd_tum.main(["none"]) == 1

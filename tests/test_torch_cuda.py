@@ -11,13 +11,16 @@ import pytest
 import torch
 
 from gdslam_tpu_torch import CameraConfig, OrbConfig, SlamConfig
-from gdslam_tpu_torch.backend import mapping, solvers
+from gdslam_tpu_torch.backend import gba, loop_closing, mapping, pose_graph, solvers
+from gdslam_tpu_torch.backend import vocabulary
+from gdslam_tpu_torch.core import lie
 from gdslam_tpu_torch.frontend import matcher
 from gdslam_tpu_torch.frontend import extractor
 from gdslam_tpu_torch.io import synthetic
 from gdslam_tpu_torch.masking import geomask, geometry
 from gdslam_tpu_torch.ops import match_kernel
 from gdslam_tpu_torch.system import slam as slam_mod
+from gdslam_tpu_torch.system import tracking
 from gdslam_tpu_torch.system.slam import System
 from gdslam_tpu_torch.utils import metrics
 
@@ -427,7 +430,8 @@ def test_geometry_on_card_equals_cpu(card):
     card against the CPU on the same DB: the reprojections round the same way
     on both (float64 carriers, IEEE division), so the dynamic maps and the
     filled pixels are the same; the inpainted colours and depths differ only
-    by the order of the card's atomic additions."""
+    by the order of the card's sums (the card sorts the targets and sums
+    each target's rows in order, map_arena.add_rows)."""
     out = {}
     for dev in ("cpu", card):
         g, cur, T = _geometry_rig(dev)
@@ -495,3 +499,164 @@ def test_geometry_slice_on_card_tracks_like_cpu(card, pipeline):
     assert ious and np.mean(ious) > 0.8, ious
     assert abs(kc - kg) <= 2 and abs(ac - ag) < 0.01 and max(ac, ag) < 0.02, \
         {k: v[:2] for k, v in runs.items()}
+
+
+# --------------------------------------------------------------------------
+# bit-reproducibility and loop closing on the card
+# --------------------------------------------------------------------------
+
+DET_CAM = CameraConfig(fx=160.0, fy=160.0, cx=80.0, cy=60.0, width=160, height=120, bf=12.8)
+DET_CFG = SlamConfig(camera=DET_CAM, orb=OrbConfig(n_features=384, n_levels=4))
+
+
+@pytest.mark.parametrize("pipeline", [False, True], ids=["sync", "pipelined"])
+def test_tracker_is_bitwise_reproducible_on_card(card, pipeline):
+    """The port's twin of tests/test_determinism.py: two in-process runs of
+    24 dynamic frames through the tracker on the card give bitwise-identical
+    trajectories, keyframe poses and map points (no unordered float sum)."""
+    frames = [synthetic.render_frame(i, DET_CAM, with_dynamic=True, device=card)
+              for i in range(24)]
+    runs = []
+    for _ in range(2):
+        tr = tracking.Tracking(DET_CFG, kmax=32, pmax=16384, pipeline=pipeline, device=card)
+        ones = torch.ones_like(frames[0].gray)
+        for i, fr in enumerate(frames):
+            tr.process(fr.gray, fr.depth, ones, i / 30.0)
+        tr.flush()
+        runs.append((np.stack([T for _, T in tr.camera_trajectory()]),
+                     tr.arena.kf_pose.cpu().numpy(), tr.arena.pt_pos.cpu().numpy(),
+                     int(tr.arena.pt_valid.sum())))
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_inpaint_is_bitwise_reproducible_on_card(card):
+    g, cur, T = _geometry_rig(card)
+    mask = 1.0 - cur.dyn_mask.float()
+    (r1, d1), (r2, d2) = (g.inpaint_frames(cur.rgb, cur.depth, mask, T) for _ in range(2))
+    assert torch.equal(r1, r2) and torch.equal(d1, d2)
+    assert not torch.equal(r1, cur.rgb)
+
+
+def test_add_rows_is_ordered_on_card(card):
+    """map_arena.add_rows: bitwise the same on every call on the card (where
+    index_add_'s float atomics are not), and equal to the CPU's serial sum
+    to rounding."""
+    from gdslam_tpu_torch.backend import map_arena
+    g = torch.Generator(device=card).manual_seed(0)
+    idx = torch.randint(0, 1000, (1_000_000,), device=card, generator=g)
+    src = torch.randn(1_000_000, 5, device=card, generator=g)
+    mask = torch.rand(1_000_000, device=card, generator=g) < 0.7
+    outs = [map_arena.add_rows(idx, src, mask, 1000) for _ in range(5)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    cpu = map_arena.add_rows(idx.cpu(), src.cpu(), mask.cpu(), 1000)
+    np.testing.assert_allclose(outs[0].cpu().numpy(), cpu.numpy(), atol=1e-3)
+
+
+LOOP_CAM = CameraConfig(fx=320.0, fy=320.0, cx=160.0, cy=120.0, width=320, height=240, bf=25.6)
+LOOP_CFG = SlamConfig(camera=LOOP_CAM, orb=OrbConfig(n_features=512, n_levels=4))
+
+
+def _revisit(dev):
+    """tests/test_torch_loop.py's revisit state built by the port on the
+    CPU (keyframes of the loop circuit at ground truth, two of the second
+    lap drifted), moved to `dev`, with a loop closer holding every keyframe."""
+    from gdslam_tpu_torch.backend import map_arena
+    from gdslam_tpu_torch.frontend.frame import build_frame
+    G = lie.se3_exp(torch.tensor([0.10, 0.03, 0.0, 0.0, 0.05, 0.0]))
+    arena = map_arena.new_arena(48, 16384, 512, "cpu")
+    ids = tuple(range(0, 120, 10)) + (116, 121)
+    for i, idx in enumerate(ids):
+        fr = synthetic.render(synthetic.gt_pose_loop(idx, 120), LOOP_CAM, False, 30.0, idx)
+        f = build_frame(extractor.extract(fr.gray, LOOP_CFG.orb, 240, 320), fr.depth,
+                        torch.ones_like(fr.gray), LOOP_CAM)
+        T_cw = lie.se3_inverse(fr.T_wc)
+        if idx >= 116:
+            T_cw = T_cw @ lie.se3_inverse(G)
+        if i == 0:
+            arena, _ = tracking.stereo_initialize(arena, f, T_cw, LOOP_CFG)
+            continue
+        assoc = -torch.ones(512, dtype=torch.int32)
+        if idx != 116:
+            assoc = tracking.fuse_associate(arena, f, T_cw, assoc, LOOP_CFG)
+        arena, _ = tracking._insert_keyframe(arena, f, T_cw, assoc, idx / 30.0, LOOP_CFG, kf_id=i)
+    arena = map_arena.MapArena(*(x.to(dev) for x in arena))
+    lc = loop_closing.LoopCloser(LOOP_CFG, vocabulary.default_vocabulary(), 48, dev)
+    for k in range(len(ids)):
+        lc.add_keyframe(arena, k)
+    return arena, lc, len(ids) - 1, 0
+
+
+def _draw(lc, arena, cur, cand):
+    """A RANSAC draw made on the CPU, for both devices."""
+    m_idx, _ = loop_closing._bow_guided_matches(
+        arena.kf_desc[cur], arena.kf_kp_valid[cur], lc.db.words[cur], arena.kf_desc[cand],
+        arena.kf_kp_valid[cand], lc.db.words[cand])
+    ok = (m_idx >= 0).cpu().float() + 1e-12
+    return torch.multinomial(ok, 900, replacement=True,
+                             generator=torch.Generator().manual_seed(cur))
+
+
+def test_loop_call_sites_equal_plain(card):
+    """The loop closer's four call sites of match_top2 (the BoW-guided match,
+    both SearchBySim3 growths, the loop-point projection) on the revisit
+    state: the kernel exactly equal to match_top2_plain with the path chosen
+    by the kernel and with each path forced."""
+    arena, lc, cur, cand = _revisit(card)
+    calls = []
+    real_m, real_l = matcher.match_top2, loop_closing.match_top2
+
+    def rec(real):
+        return lambda *a, **k: calls.append(a) or real(*a, **k)
+
+    matcher.match_top2, loop_closing.match_top2 = rec(real_m), rec(real_l)
+    try:
+        ok, T, n = lc.compute_transform(arena, cur, cand)
+    finally:
+        matcher.match_top2, loop_closing.match_top2 = real_m, real_l
+    assert ok and len(calls) == 4, (ok, n, len(calls))
+    for args in calls:
+        want = match_kernel.match_top2_plain(*args)
+        for path in (None, "cells", "tiled"):
+            for g, w in zip(match_kernel.match_top2(*args, path=path), want):
+                assert torch.equal(g, w.to(torch.int32)), path
+
+
+def test_loop_correction_on_card_equals_cpu(card, monkeypatch):
+    """compute_transform and correct on the revisit state, the same draw on
+    both devices: the same verdict, n_total within 2, T to 1e-4, corrected
+    keyframe poses to 1e-3 m."""
+    out = {}
+    real = solvers.ransac_sim3
+    for dev in ("cpu", card):
+        arena, lc, cur, cand = _revisit(dev)
+        draw = _draw(lc, arena, cur, cand).to(dev)
+        monkeypatch.setattr(solvers, "ransac_sim3", lambda *a, _r=real, _d=draw, **k: _r(
+            *a, **{**k, "sample_idx": _d}))
+        ok, T, n = lc.compute_transform(arena, cur, cand)
+        assert ok
+        post = lc.correct(arena, cur, cand, T)
+        out[str(dev)] = (n, T.cpu().numpy(), post.kf_pose[:cur + 1].cpu().numpy())
+    (nc, Tc, Pc), (ng, Tg, Pg) = out.values()
+    assert abs(nc - ng) <= 2
+    np.testing.assert_allclose(Tg, Tc, atol=1e-4)
+    np.testing.assert_allclose(Pg, Pc, atol=1e-3)
+
+
+def test_pose_graph_and_gba_wait_for_nothing(card):
+    """The essential graph and the global BA on the revisit state under
+    torch's sync debug mode "error": no read of the card inside."""
+    arena, lc, cur, cand = _revisit(card)
+    T = torch.eye(4, device=card)
+    li, lj, lv = lc._loop_edge(cur, cand)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        edges = pose_graph.build_edges(arena.kf_pose, arena.kf_valid, arena.kf_parent,
+                                       arena.covis, li, lj, T[None], lv)
+        poses = pose_graph.optimize(arena.kf_pose, arena.kf_valid, edges)
+        out = gba.global_bundle_adjustment(arena._replace(kf_pose=poses), LOOP_CFG,
+                                           gate_outliers=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(out.kf_pose).all()) and bool(torch.isfinite(out.pt_pos).all())

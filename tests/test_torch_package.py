@@ -25,7 +25,7 @@ from gdslam_tpu.system import trajectory as jtraj
 from gdslam_tpu.utils import metrics as jmetrics
 from gdslam_tpu_torch import config as tconfig
 from gdslam_tpu_torch import convert
-from gdslam_tpu_torch.backend import map_arena
+from gdslam_tpu_torch.backend import loop_closing, map_arena
 from gdslam_tpu_torch.io import synthetic as tsyn
 from gdslam_tpu_torch.ops import match_kernel
 from gdslam_tpu_torch.ops import orb as torb
@@ -165,8 +165,8 @@ def test_entry_points_default_to_the_card():
 
 def test_not_ported_entry_points_raise():
     """What is still to port raises NotImplementedError naming ROADMAP.md
-    (the geometry path, track_rgbd_geom and GD inpainting are ported: see
-    test_ported_entry_points_no_longer_raise)."""
+    (the geometry path, track_rgbd_geom, GD inpainting and loop closing with
+    a vocabulary are ported: see test_ported_entry_points_no_longer_raise)."""
     cfg = tconfig.SlamConfig(camera=tconfig.CameraConfig(width=160, height=120),
                              orb=tconfig.OrbConfig(n_features=64, n_levels=2))
     s = tslam.System(cfg, kmax=4, pmax=64, device="cpu")
@@ -174,10 +174,6 @@ def test_not_ported_entry_points_raise():
                  "save_map", "load_map", "save_trajectory_kitti"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(s, name)()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.tracker.loop_closer = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tslam.System(cfg, kmax=4, pmax=64, vocabulary="voc.npz", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tslam.System(cfg, sensor=tslam.Sensor.STEREO, kmax=4, pmax=64, device="cpu")
 
@@ -223,16 +219,31 @@ def test_ported_entry_points_no_longer_raise(tmp_path):
         s.track_rgbd_gd(z, z, None, 3.0, inpaint=True)
     s.reset()
     assert s._geometry is None and s._last_refined_mask is None
+    # a vocabulary: a loop closer at every keyframe, kept by reset; the
+    # tracker takes a LoopCloser or None
+    s = tslam.System(cfg, kmax=4, pmax=64, vocabulary="default", device="cpu")
+    lc = s.tracker.loop_closer
+    assert isinstance(lc, loop_closing.LoopCloser) and lc.fix_scale
+    assert lc.vocab.n_leaves == 10_000 and lc.db.vectors.shape == (4, 10_000)
+    s.track_rgbd(np.zeros((120, 160)), np.zeros((120, 160)), None, 0.0)
+    s.reset()
+    assert s.tracker.loop_closer is lc and lc.loops == []
+    with pytest.raises(TypeError):
+        s.tracker.loop_closer = object()
+    s.tracker.loop_closer = None
+    assert tslam.System(cfg, kmax=4, pmax=64, device="cpu").tracker.loop_closer is None
 
 
 NEW_MODULES = ("masking/geometry.py", "masking/masknet.py", "io/png.py", "io/tum.py",
-               "io/native_loader.py", "cli/rgbd_tum.py", "cli/evaluate.py")
+               "io/native_loader.py", "cli/rgbd_tum.py", "cli/evaluate.py",
+               "backend/vocabulary.py", "backend/keyframe_db.py", "backend/loop_closing.py",
+               "backend/pose_graph.py", "backend/gba.py")
 
 
 def test_no_import_check_covers_the_geometry_and_cli_modules():
     """The static scan and the fresh-interpreter import above reach the
-    modules of the geometry path and the CLIs (the scan takes every file
-    of the package)."""
+    modules of the geometry path, the CLIs and loop closing (the scan takes
+    every file of the package)."""
     for rel in NEW_MODULES:
         assert ROOT / "gdslam_tpu_torch" / rel in PORT_FILES, rel
         assert not [m for m in _imported_roots(ROOT / "gdslam_tpu_torch" / rel)
