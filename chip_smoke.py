@@ -9,7 +9,9 @@ Builds the port's CUDA kernels from gdslam_tpu_torch/csrc/ into build/kernels/,
 then prints one JSON line per phase:
 
   device   the card (torch and nvidia-smi);
-  build    the nvcc build, timed, and what ptxas reports for the kernels;
+  build    the nvcc builds of every csrc/*.cu (match_top2, nms_fixed,
+           roi_align, paste_masks), one nvcc per source started together,
+           timed, and what ptxas reports for each;
   kernel   match_top2 (CUDA) against match_top2_plain (PyTorch) on the card,
            exactly, with the kernel choosing its path and with each path
            forced: seeded random and rendered-frame inputs at (M, N) =
@@ -77,6 +79,22 @@ then prints one JSON line per phase:
            and evaluate --mode gd and --mode geometry with --ref-masks, held
            to the JAX CLI tests' ATE gates; trajectory files, epoch
            timestamps, output PNGs that round-trip; which frame loader ran;
+           and rgbd_tum with an empty mask directory and --segmenter
+           flax:<file> (the port's seeded ResNet50 weights, written under
+           build/seg/ by its save_variables): every frame cached, ATE under
+           the JAX live-segmenter test's 0.30 m;
+  seg      the live Mask R-CNN at full width (ResNet50-FPN, 81 classes,
+           pre_nms 1024, post_nms 128, max_det 32; 480x640 molded to
+           240x320) on 20 dynamic frames through SegmentDynObject and
+           System.track_rgbd(use_geometry=True), pipelined, as rgbd_tum's
+           argc==6 mode: every detection kernel launched, ATE < 0.30 m; the
+           segmenter's ms through the host, device busy ms, device
+           operations and idle share, the backbone's share, launches per
+           frame; each detection kernel against its plain version on that
+           run's intermediates at score_th 0.7 and 0 (NMS and ROIAlign
+           exact, the paste by the 1e-6 margin rule), with its ms through the
+           wrapper, replayed from a CUDA graph, the plain version's and its
+           bound, at every call shape;
   stages   per-stage times on the slice's final state (the tracking
            programs, the keyframe program and its parts, the RANSACs), and
            the kernel timed against its bounds and the launch floor on the
@@ -97,7 +115,12 @@ then prints one JSON line per phase:
            a profiler window over 10 whole geometry frames;
   profile  torch.profiler windows over whole frames (pipelined and not, and
            GD frames), over one pose solve and over one local BA: device
-           busy share, device operations, host operators.
+           busy share, device operations, host operators;
+  determinism
+           pairs of runs bitwise identical: the default slice sync and
+           pipelined, inpainting, the small loop runs, and two segmenters
+           built from the same weight file on the same 5 frames (the masks
+           and every detection output, with cuDNN's algorithm choice).
 
 Then the seconds each phase took (phase_seconds), the card's name and power
 limit as nvidia-smi gives them, the kernels line and, last, the ok line. Without a card, or when any phase fails, it
@@ -596,18 +619,28 @@ class OldKernel:
 # ----------------------------------------------------------------------------
 
 def phase_build(mk) -> dict:
+    """Every csrc/*.cu built by ops/cuda_build.py, one nvcc per source, all
+    started together; then what ptxas reports for each (also in parallel)."""
+    from gdslam_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    so = mk.build_library()
+    libs = cuda_build.build_all()
     build_s = time.perf_counter() - t0
     mk._load_library()
+    flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
-        flags = [f for f in mk.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-        out = subprocess.run([mk._nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o",
-                              os.path.join(tmp, "k.cubin"), str(mk._SRC)],
-                             capture_output=True, text=True, timeout=300, check=True)
-    ptxas = [ln.strip() for ln in out.stderr.splitlines() if "Used" in ln or "spill" in ln]
-    return dict(phase="build", library=str(so.relative_to(ROOT)), seconds=build_s,
-                nvcc_flags=list(mk.NVCC_FLAGS), ptxas=ptxas)
+        procs = {n: subprocess.Popen([cuda_build.nvcc(n), *flags, "-Xptxas", "-v", "-cubin", "-o",
+                                      os.path.join(tmp, f"{n}.cubin"), str(cuda_build.source(n))],
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for n in cuda_build.SOURCES}
+        ptxas = {}
+        for n, proc in procs.items():
+            _, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                fail(f"build: ptxas report of {n} failed:\n{err}")
+            ptxas[n] = [ln.strip() for ln in err.splitlines() if "Used" in ln or "spill" in ln]
+    return dict(phase="build", library=str(libs["match_top2"].relative_to(ROOT)),
+                libraries={n: str(v.relative_to(ROOT)) for n, v in libs.items()},
+                seconds=build_s, nvcc_flags=list(cuda_build.NVCC_FLAGS), ptxas=ptxas)
 
 
 def phase_kernel(torch, mk, frames, dev, old=None) -> tuple[dict, int]:
@@ -1680,7 +1713,7 @@ def trajectory_file_ate(path: Path, gts, metrics) -> tuple[float, int]:
     return metrics.ate_rmse(est, gt), len(rows)
 
 
-def phase_cli(torch, mk, cfg, frames, metrics, dev) -> dict:
+def phase_cli(torch, mk, cfg, frames, metrics, dev, seg_weights: Path) -> dict:
     """The CLIs as a user runs them, on a TUM-layout sequence of the
     dynamic scene (CLI_FRAMES frames at full size, written with io/png.py
     into a directory under build/): rgbd_tum in its three modes (plain; the
@@ -1690,7 +1723,11 @@ def phase_cli(torch, mk, cfg, frames, metrics, dev) -> dict:
     them: plain ATE < 0.30 m, masked < 0.08 m, GD (evaluate and rgbd_tum's
     output mode) < 0.15 m; the trajectory files parse and the first
     keyframe keeps its epoch timestamp to within 2 s; the output PNGs read
-    back and round-trip through io/png.py."""
+    back and round-trip through io/png.py. Then rgbd_tum with an empty mask
+    directory and --segmenter flax:<seg_weights> (the live Mask R-CNN on
+    every frame, written back to the cache; the geometry path tracks): every
+    frame gets a cached mask, ATE < 0.30 m (the JAX live-segmenter driver
+    test's gate)."""
     from gdslam_tpu_torch.cli import evaluate, rgbd_tum
     from gdslam_tpu_torch.io import native_loader, png
     from gdslam_tpu_torch.system import trajectory as traj_mod
@@ -1702,10 +1739,15 @@ def phase_cli(torch, mk, cfg, frames, metrics, dev) -> dict:
     write_s = time.perf_counter() - t0
     settings, assoc = str(seq / "settings.yaml"), str(seq / "assoc.txt")
     masks, gt_file = str(seq / "masks"), str(seq / "groundtruth.txt")
+    from gdslam_tpu_torch.ops import detect_kernels as dk
     reset_launch_counts(mk)
+    dk.reset_launch_counts()
     runs = {}
+    seg_cache = base / "seg_cache"
     for mode, extra, gate in (("plain", [], 0.30), ("geometry", [masks], 0.08),
-                              ("gd_inpaint", [masks, str(base / "out")], 0.15)):
+                              ("gd_inpaint", [masks, str(base / "out")], 0.15),
+                              ("segmenter", [str(seg_cache), "--segmenter",
+                                             f"flax:{seg_weights}"], SEG_ATE_GUARD_M)):
         rc, out, sec = run_cli(rgbd_tum.main, ["none", settings, str(seq), assoc, *extra,
                                                   "--device", dev], base / mode)
         if rc != 0:
@@ -1719,6 +1761,12 @@ def phase_cli(torch, mk, cfg, frames, metrics, dev) -> dict:
             median_tracking_s=float(out.split("median tracking time:")[1].split()[0]))
         if not (n >= CLI_FRAMES - 3 and ate < gate and abs(kf0 - CLI_EPOCH) < 2.0):
             fail(f"cli: rgbd_tum {mode}: {runs[f'rgbd_tum_{mode}']} (ATE gate {gate} m)")
+    cached = sorted(os.listdir(seg_cache))
+    runs["rgbd_tum_segmenter"]["cached_masks"] = len(cached)
+    if cached != sorted(os.listdir(seq / "rgb")):
+        fail(f"cli: rgbd_tum --segmenter cached {len(cached)} masks for {CLI_FRAMES} frames")
+    runs["rgbd_tum_segmenter"]["mask_cover_mean"] = float(np.mean(
+        [png.read(seg_cache / n).mean() / 255.0 for n in cached]))
     out_dir = base / "out"
     names = sorted(os.listdir(out_dir / "rgb"))
     for sub, shape, dtype in (("rgb", (cfg.camera.height, cfg.camera.width, 3), np.uint8),
@@ -1748,7 +1796,9 @@ def phase_cli(torch, mk, cfg, frames, metrics, dev) -> dict:
     res = dict(phase="cli", frames=CLI_FRAMES, width=cfg.camera.width,
                height=cfg.camera.height, write_s=write_s,
                native_loader=native_loader.available(),
-               match_top2_launches=mk.match_top2.launches, runs=runs, card=nvidia_smi_line())
+               match_top2_launches=mk.match_top2.launches,
+               detect_launches={n: getattr(dk, n).launches for n in SEG_DET_KERNELS},
+               runs=runs, card=nvidia_smi_line())
     emit(res)
     shutil.rmtree(base)
     return res
@@ -2293,6 +2343,294 @@ def phase_loop_stages(torch, mk, states, cfg, modules) -> tuple[dict, list]:
     return res, calls
 
 
+# ----------------------------------------------------------------------------
+# the live segmenter (Mask R-CNN) and its detection kernels
+# ----------------------------------------------------------------------------
+
+SEG_FRAMES = 20
+SEG_BLOCKS = (3, 4, 6, 3)      # ResNet50, MaskRCNN() defaults: FPN 256, 81 classes
+SEG_SEED = 0
+SEG_ATE_GUARD_M = 0.30         # the JAX live-segmenter driver test's gate
+SEG_DET_KERNELS = ("nms_fixed", "roi_align", "paste_masks")
+SEG_REPLACES = {"nms_fixed": "gdslam_tpu/models/maskrcnn.py:202",
+                "roi_align": "gdslam_tpu/models/maskrcnn.py:222",
+                "paste_masks": "gdslam_tpu/models/maskrcnn.py:744"}
+SEG_NO_LIBRARY = ("no PyTorch call computes it: torchvision is not installed, and torch has "
+                  "no fixed-budget NMS, per-box-level ROIAlign or mask paste")
+
+
+def write_seg_weights(path: Path) -> dict:
+    """The port's seeded ResNet50 weights (models/maskrcnn.init_variables,
+    seed 0) written with its save_variables. Raw seeded heads give boxes
+    pushed off the image and masks that cover up to 88% of a frame, on
+    which no tracker holds; so, as the CPU tests edit theirs, the class
+    head's kernel is scaled by 0.01 with bias[1] (person) raised by 6, the
+    box head's deltas by 0.01 (boxes stay the proposals) and the person mask
+    logit lowered by 6: 32 valid person detections a frame, masks over 0.5-
+    2.5% of it (measured on the CPU on this scene)."""
+    from gdslam_tpu_torch.models import maskrcnn
+    t0 = time.perf_counter()
+    flat = maskrcnn.init_variables(SEG_BLOCKS, SEG_SEED)
+    flat["params/box_head/Dense_2/kernel"] *= np.float32(0.01)
+    flat["params/box_head/Dense_2/bias"][1] += np.float32(6.0)
+    flat["params/box_head/Dense_3/kernel"] *= np.float32(0.01)
+    flat["params/mask_head/Conv_4/bias"][1] -= np.float32(6.0)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    maskrcnn.save_variables(flat, str(path), meta={"blocks": list(SEG_BLOCKS),
+                                                   "infer_hw": [240, 320]})
+    return dict(leaves=len(flat), parameters=int(sum(a.size for a in flat.values())),
+                file_mb=path.stat().st_size / 1e6, write_s=time.perf_counter() - t0)
+
+
+def detect_calls(dk, fn) -> tuple[list, object]:
+    """fn() with every detection wrapper recorded: [(name, args)] in call
+    order, and fn's result."""
+    calls, real = [], {n: getattr(dk, n) for n in SEG_DET_KERNELS}
+
+    def rec(name):
+        def call(*a, **k):
+            calls.append((name, a, k))
+            return real[name](*a, **k)
+        call.launches = real[name].launches   # the wrapper counts on its module's name
+        return call
+
+    spies = {n: rec(n) for n in SEG_DET_KERNELS}
+    for n, f in spies.items():
+        setattr(dk, n, f)
+    try:
+        out = fn()
+    finally:
+        for n, f in real.items():
+            f.launches = spies[n].launches
+            setattr(dk, n, f)
+    return calls, out
+
+
+def detect_compare(torch, dk, name, a, k) -> dict:
+    """The kernel against its plain version on one recorded call: exact
+    indices (NMS), the largest difference (ROIAlign), the pixels that
+    differ off and within the 1e-6 margin of the threshold (paste)."""
+    got = getattr(dk, name)(*a, **k)
+    want = getattr(dk, f"{name}_plain")(*a, **k)
+    torch.cuda.synchronize()
+    if name == "nms_fixed":
+        return dict(shape=[a[0].shape[0], a[3]], exact=bool(torch.equal(got, want)),
+                    max_abs_err=int((got != want).sum()), picked=int((got >= 0).sum()))
+    if name == "roi_align":
+        return dict(shape=[a[2].shape[0], a[3]], exact=bool(torch.equal(got, want)),
+                    max_abs_err=float((got - want).abs().max()) if got.numel() else 0.0)
+    det, hw = a[0], a[1]
+    near = ((dk.paste_values(det, hw) - 0.5).abs() < 1e-6)[dk.paste_ok(det)].any(0)
+    differ = got != want
+    return dict(shape=[det["boxes"].shape[0], *hw], exact=bool(torch.equal(got, want)),
+                max_abs_err=int((differ & ~near).sum()), within_margin=int((differ & near).sum()),
+                pasting=int(dk.paste_ok(det).sum()), mask_px=int(got.sum()))
+
+
+def detect_launch(torch, dk, name, a, k) -> tuple:
+    """(C launch function, its arguments up to the device and stream, the
+    tensors they point to) for one recorded call, built here with live
+    tensors so that a CUDA graph can replay the launch."""
+    lib = dk._library(name)
+    if name == "nms_fixed":
+        boxes, scores, th, n_out = a
+        out = torch.empty(n_out, dtype=torch.int32, device=boxes.device)
+        return lib.nms_fixed_launch, (boxes.data_ptr(), scores.data_ptr(), boxes.shape[0],
+                                      float(np.float32(th)), n_out, out.data_ptr()), (out,)
+    if name == "roi_align":
+        flat, shapes, boxes, size = a
+        pro = dk.roi_prologue(shapes, boxes, size)
+        out = torch.empty((boxes.shape[0], size, size, flat.shape[1]), device=flat.device)
+        return lib.roi_align_launch, (flat.data_ptr(), flat.shape[1],
+                                      *(t.data_ptr() for t in pro), boxes.shape[0], size,
+                                      out.data_ptr()), (out, *pro)
+    det, (H, W) = a[0], a[1]
+    ok = dk.paste_ok(det).to(torch.uint8)
+    out = torch.empty((H, W), dtype=torch.uint8, device=ok.device)
+    return lib.paste_masks_launch, (det["boxes"].data_ptr(), ok.data_ptr(),
+                                    det["masks"].data_ptr(), det["boxes"].shape[0], H, W,
+                                    float(np.float32(0.5)), out.data_ptr()), (out, ok)
+
+
+def detect_bound(torch, dk, name, a, k) -> dict:
+    """The least time the card could take for one call (H100 SXM peaks),
+    counted from this call's data: bytes each input read once and each
+    output written once (ROIAlign: the distinct feature rows its taps need),
+    and float operations at the f32 rate outside the tensor cores."""
+    if name == "nms_fixed":
+        boxes, scores, th, n_out = a
+        n = boxes.shape[0]
+        steps = int((dk.nms_fixed_plain(boxes, scores, th, n_out) >= 0).sum()) + 1
+        nbytes = n * 20 + n_out * 4
+        ops = min(steps, n_out) * n * 16           # IoU ~12 flops, argmax ~4 per box and step
+        extra = dict(dependent_steps=min(steps, n_out),
+                     bound_note="latency: a chain of dependent block-wide argmax + sweep "
+                                "steps, each a few barriers; neither bytes nor operations")
+    elif name == "roi_align":
+        flat, shapes, boxes, size = a
+        info, y0, x0, fy, fx = dk.roi_prologue(shapes, boxes, size)
+        off, h, w = (info[:, i].long()[:, None, None] for i in range(3))
+        rows = set()
+        for dy in (0, 1):
+            for dx in (0, 1):
+                yi = torch.minimum((y0.long() + dy).clamp(min=0)[:, :, None], h - 1)
+                xi = torch.minimum((x0.long() + dx).clamp(min=0)[:, None, :], w - 1)
+                rows.update((off + yi * w + xi).flatten().tolist())
+        C, R = flat.shape[1], boxes.shape[0]
+        nbytes = len(rows) * C * 4 + R * 16 + R * size * size * C * 4
+        ops = R * size * size * C * 11               # 8 multiplies, 3 adds per element
+        extra = dict(distinct_tap_rows=len(rows))
+    else:
+        det, (H, W) = a[0], a[1]
+        D = det["boxes"].shape[0]
+        b = det["boxes"][:, :, None, None]
+        ys = torch.arange(H, device=b.device, dtype=torch.float32)[None, :, None]
+        xs = torch.arange(W, device=b.device, dtype=torch.float32)[None, None, :]
+        inside = ((ys >= b[:, 0]) & (ys < b[:, 2]) & (xs >= b[:, 1]) & (xs < b[:, 3]))
+        pairs = int((inside & dk.paste_ok(det)[:, None, None]).sum())
+        nbytes = D * (16 + 1 + 28 * 28 * 4) + H * W
+        ops = H * W * D * 4 + pairs * 24              # box tests; two interp rows, 6 lerps
+        extra = dict(pixel_box_pairs=pairs)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops
+                else "operations", bytes=nbytes, operations=ops, **extra)
+
+
+def time_detect(torch, dk, name, a, k) -> dict:
+    """ms through the wrapper, device ms (the C launch replayed from a CUDA
+    graph), the plain version's ms and the bound, on one recorded call."""
+    fn, cargs, keep = detect_launch(torch, dk, name, a, k)
+    out = dict(ms=cuda_ms(torch, lambda: getattr(dk, name)(*a, **k), reps=100),
+               device_ms=graph_ms(torch, fn, cargs),
+               plain_ms=cuda_ms(torch, lambda: getattr(dk, f"{name}_plain")(*a, **k), reps=5,
+                                windows=3),
+               library_ms=None, **detect_bound(torch, dk, name, a, k))
+    del keep
+    return out
+
+
+def check_detect_kernels(torch, dk, seg, rgb_dev) -> dict:
+    """Each detection kernel against its plain version, and timed, on the
+    segmenter's real intermediates of one frame: at the main path's score
+    threshold (0.7) and at 0, where the detection NMS, the 14 x 14 ROIAlign
+    and the paste see 32 valid detections."""
+    out = {}
+    for label, th in (("score_th_0.7", 0.7), ("score_th_0", 0.0)):
+        calls, _ = detect_calls(dk, lambda: seg.segment(rgb_dev, th))
+        if [c[0] for c in calls] != ["nms_fixed", "roi_align", "nms_fixed", "roi_align",
+                                     "paste_masks"]:
+            fail(f"seg: the segmenter's detection calls were {[c[0] for c in calls]}")
+        sites = []
+        for (name, a, k), role in zip(calls, ("proposals", "box_head", "detections",
+                                              "mask_head", "paste")):
+            rec = dict(name=name, role=role, **detect_compare(torch, dk, name, a, k))
+            if rec["max_abs_err"] != 0:
+                fail(f"seg: {name} ({role}, {label}) differs from its plain version: {rec}")
+            rec.update(time_detect(torch, dk, name, a, k))
+            sites.append(rec)
+        out[label] = sites
+    if out["score_th_0"][4]["pasting"] < 32:
+        fail(f"seg: score_th 0 pasted {out['score_th_0'][4]['pasting']} detections, not 32")
+    return out
+
+
+def seg_run(torch, seg, frames_rgb) -> list:
+    """The segmenter's masks and detections on host frames."""
+    outs = []
+    for rgb in frames_rgb:
+        t = torch.from_numpy(rgb).to(seg.device)
+        outs.append(dict(mask=seg.segment(t).cpu().numpy(),
+                         **{k: v.cpu().numpy() for k, v in seg.detect(t).items()}))
+    return outs
+
+
+def phase_seg(torch, mk, cfg, frames, System, synthetic, metrics, dev, weights: Path,
+              weights_info: dict) -> tuple[dict, list]:
+    """The live segmenter on the card at full width, as rgbd_tum's argc==6
+    mode runs it: build_segmenter("flax:<file>") on the port's seeded
+    ResNet50 weights (480 x 640 frames molded to 240 x 320; pre_nms 1024,
+    post_nms 128, max_det 32), SEG_FRAMES dynamic frames through
+    SegmentDynObject (no cache: every frame runs the net) and
+    System.track_rgbd(use_geometry=True), pipelined as the driver runs it.
+    Guards: every detection kernel launched on this run, the ATE gate of
+    the JAX driver test, the tracked frames. Then the segmenter's time
+    through the host and on the device (profiler), the backbone's share,
+    and each detection kernel against its plain version and timed."""
+    from gdslam_tpu_torch.masking.masknet import SegmentDynObject
+    from gdslam_tpu_torch.models import maskrcnn
+    from gdslam_tpu_torch.ops import detect_kernels as dk
+    cam = cfg.camera
+    t0 = time.perf_counter()
+    seg = maskrcnn.build_segmenter(f"flax:{weights}", image_hw=(cam.height, cam.width),
+                                   device=dev)
+    bridge = SegmentDynObject(seg)                # its warm-up call: a zero frame
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rgbs = [fr.rgb.cpu().numpy().astype(np.uint8) for fr in frames[:SEG_FRAMES]]
+    depths = [fr.depth.cpu().numpy() for fr in frames[:SEG_FRAMES]]
+    slam = System(cfg, pipeline=True, device=dev)
+    reset_launch_counts(mk)
+    dk.reset_launch_counts()
+    seg_ms, frame_ms, cover = [], [], []
+    for i, (rgb, depth) in enumerate(zip(rgbs, depths)):
+        t0 = time.perf_counter()
+        dyn = bridge.get_segmentation(rgb)
+        t1 = time.perf_counter()
+        slam.track_rgbd(rgb, depth, 1.0 - dyn, i / 30.0, use_geometry=True)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        seg_ms.append((t1 - t0) * 1e3)
+        cover.append(float(dyn.mean()))
+    slam.shutdown()
+    launches = dict(nms_fixed=dk.nms_fixed.launches, roi_align=dk.roi_align.launches,
+                    paste_masks=dk.paste_masks.launches, match_top2=mk.match_top2.launches)
+    if min(launches.values()) < 1:
+        fail(f"seg: a kernel of the path was not launched: {launches}")
+    traj = slam.tracker.camera_trajectory()
+    T0inv = np.linalg.inv(frames[0].T_wc.cpu().numpy())
+    est = np.stack([T[:3, 3] for _, T in traj])
+    gt = np.stack([(T0inv @ frames[round(ts * 30.0)].T_wc.cpu().numpy())[:3, 3]
+                   for ts, _ in traj])
+    ate = metrics.ate_rmse(est, gt)
+    if not (len(traj) >= SEG_FRAMES - 3 and ate < SEG_ATE_GUARD_M):
+        fail(f"seg: {len(traj)} frames tracked, ATE {ate} m (gate {SEG_ATE_GUARD_M} m)")
+
+    rgb_dev = torch.from_numpy(rgbs[-1]).to(dev)
+    im = maskrcnn.mold(rgb_dev, seg.infer_hw).contiguous()
+    whole = profile_window(torch, lambda: seg.segment(rgb_dev), 1)
+    with torch.no_grad():
+        backbone = profile_window(torch, lambda: seg.model.features(im), 1)
+    res = dict(phase="seg", frames=SEG_FRAMES, width=cam.width, height=cam.height,
+               infer_hw=list(seg.infer_hw), blocks=list(seg.model.blocks),
+               pre_nms=seg.model.pre_nms, post_nms=seg.model.post_nms,
+               max_det=seg.model.max_det, weights=weights_info, build_s=build_s,
+               ate_m=ate, tracked=len(traj), keyframes=slam.keyframe_count,
+               mask_cover_mean=float(np.mean(cover)), mask_cover_max=float(np.max(cover)),
+               segmenter_ms_median=statistics.median(seg_ms[2:]),
+               frame_ms_median=statistics.median(frame_ms[2:]),
+               segment_ms_device_input=wall_ms(torch, lambda: seg.segment(rgb_dev), reps=10),
+               segment_device_busy_ms=whole["device_busy_ms"],
+               segment_device_ops=whole["device_ops"],
+               segment_device_idle_share=whole["device_idle_share"],
+               segment_top_device_ms=whole["top_device_ms"],
+               backbone_device_busy_ms=backbone["device_busy_ms"],
+               backbone_share_of_device=backbone["device_busy_ms"] / whole["device_busy_ms"],
+               launches=launches,
+               launches_per_frame={k: v / SEG_FRAMES for k, v in launches.items()})
+    res["kernels"] = check_detect_kernels(torch, dk, seg, rgb_dev)
+    res["card"] = nvidia_smi_line()
+    emit(res)
+    return res, rgbs[:5]
+
+
+def seg_determinism(torch, weights: Path, dev, rgbs, cam) -> dict:
+    """Two segmenters built from the same file on the same frames: masks and
+    every detection output bitwise equal."""
+    from gdslam_tpu_torch.models import maskrcnn
+    runs = [seg_run(torch, maskrcnn.build_segmenter(f"flax:{weights}", (cam.height, cam.width),
+                                                    dev), rgbs) for _ in range(2)]
+    return {k: all(np.array_equal(a[k], b[k]) for a, b in zip(*runs)) for k in runs[0][0]}
+
+
 def same_arrays(a: dict, b: dict) -> dict:
     """{key: bitwise equal} over two dicts of arrays and numbers."""
     return {k: bool(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))) for k in a}
@@ -2418,7 +2756,14 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
     geostres = phase_geom_staged(torch, mk, cfg, dyn, System, TrackState, synthetic, metrics,
                                  dev)
     gdires = phase_gd_inpaint(torch, mk, cfg, dyn, System, TrackState, synthetic, metrics, dev)
-    clires = phase_cli(torch, mk, cfg, dyn, metrics, dev)
+
+    # the live segmenter: the port's seeded ResNet50 weights, written once,
+    # run by rgbd_tum --segmenter (cli) and on the argc==6 route (seg)
+    seg_weights = ROOT / "build" / "seg" / "maskrcnn_r50_seed0.npz"
+    seg_winfo = write_seg_weights(seg_weights)
+    clires = phase_cli(torch, mk, cfg, dyn, metrics, dev, seg_weights)
+    segres, seg_rgbs = phase_seg(torch, mk, cfg, dyn, System, synthetic, metrics, dev,
+                                 seg_weights, seg_winfo)
 
     # loop closing and BoW place recognition: the revisit run at full width,
     # a forced loss relocalized on its map, then twice at the JAX test's
@@ -2457,7 +2802,8 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
                slice_pipelined=same_arrays(run_summary(slam_pipe), run_summary(slam_pipe2)),
                loop_small=same_arrays(small[0][2], small[1][2]),
                inpaint=dict(rgb=bool(torch.equal(inp[0][0], inp[1][0])),
-                            depth=bool(torch.equal(inp[0][1], inp[1][1]))))
+                            depth=bool(torch.equal(inp[0][1], inp[1][1]))),
+               segmenter=seg_determinism(torch, seg_weights, dev, seg_rgbs, cam))
     all_same = all(v for d in det.values() for v in d.values())
     emit(dict(phase="determinism", bitwise_identical=all_same, compared=det,
               deterministic_mode_warnings=nondet_ops, loop_render_s=loop_render_s))
@@ -2502,9 +2848,32 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
                    cli=clires["match_top2_launches"],
                    loop=lres["match_top2_launches"],
                    loop_small=small[0][1]["match_top2_launches"],
-                   loop_reloc=lres_reloc["match_top2_launches"])
+                   loop_reloc=lres_reloc["match_top2_launches"],
+                   seg=segres["launches"]["match_top2"])
     if min(by_path.values()) < 1:
         fail(f"a path launched no kernel: {by_path}")
+    seg_sites = segres["kernels"]["score_th_0.7"]
+    detect_lines = []
+    for name in SEG_DET_KERNELS:
+        sites = [c for c in seg_sites if c["name"] == name]
+        zero = [c for c in segres["kernels"]["score_th_0"] if c["name"] == name]
+        detect_lines.append({
+            "name": name, "route": "cuda", "source": f"gdslam_tpu_torch/csrc/{name}.cu",
+            "replaces": SEG_REPLACES[name],
+            "launches": segres["launches"][name],
+            "launches_per_frame": segres["launches_per_frame"][name],
+            "launches_by_path": dict(seg=segres["launches"][name],
+                                     cli=clires["detect_launches"][name]),
+            "max_abs_err": max(c["max_abs_err"] for c in sites + zero),
+            "ms": sites[0]["ms"], "plain_ms": sites[0]["plain_ms"],
+            "bound_ms": sites[0]["bound_ms"], "bound_by": sites[0]["bound_by"],
+            "library_ms": None, "library_note": SEG_NO_LIBRARY,
+            "device_ms": sites[0]["device_ms"], "role": sites[0]["role"],
+            "shape": sites[0]["shape"],
+            "call_sites": [{k: c.get(k) for k in ("role", "shape", "ms", "device_ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "max_abs_err",
+                                                  "bound_note")}
+                           for c in sites]})
     emit(dict(phase="phase_seconds", seconds=dict(PHASE_SECONDS),
               total_s=time.perf_counter() - T_START))
     print(nvidia_smi_line(), flush=True)
@@ -2529,7 +2898,7 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "shape": [local_map["M"], local_map["N"]], "role": local_map["role"],
         "call_sites": [{k: c[k] for k in ("role", "M", "N", "path", "ms", "device_ms",
                                           "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
-                       for c in path_calls + loop_calls]}]})
+                       for c in path_calls + loop_calls]}, *detect_lines]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

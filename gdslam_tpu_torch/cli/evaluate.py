@@ -5,7 +5,7 @@ truth and print ATE / RPE and one JSON line.
     python -m gdslam_tpu_torch.cli.evaluate SEQ_DIR ASSOC GROUNDTRUTH \\
         [--mode plain|geometry|gd] [--settings TUM.yaml] [--masks DIR] \\
         [--ref-masks DIR] [--vocab default|none|PATH] [--max-frames N] \\
-        [--rpe-delta N] [--device cuda|cpu]
+        [--rpe-delta N] [--segmenter flax[:WEIGHTS]] [--device cuda|cpu]
 
 The estimated trajectory is associated to ground truth by timestamp
 (nearest neighbour within 20 ms, the TUM tools' rule). With --ref-masks it
@@ -20,7 +20,10 @@ Modes (BASELINE.md configs):
              fed uint8 gray + uint16 depth as a camera gives them; --masks
              adds the semantic prior
 --vocab default (or a vocabulary .npz) turns on loop closing and BoW
-relocalization; --segmenter raises (ROADMAP.md section 1, item 12).
+relocalization. --segmenter runs the live Mask R-CNN (models/maskrcnn.py) on
+every mask-cache miss (MaskNet.cc:86-93): WEIGHTS is a save_variables .npz of
+either package, 'flax' alone seeded random weights; a Keras .h5 is not
+ported (ROADMAP.md section 1, item 12).
 """
 
 from __future__ import annotations
@@ -71,16 +74,14 @@ def main(argv=None) -> int:
                     help="reference dynamic-mask dir ({ts}.png) for mask IoU")
     ap.add_argument("--vocab", default="none",
                     help="'default', a vocabulary .npz, or 'none' (no loop closing)")
-    ap.add_argument("--segmenter", default=None)
+    ap.add_argument("--segmenter", default=None,
+                    help="live segmenter spec: flax[:weights.npz] "
+                         "(runs on every mask-cache miss, MaskNet.cc:86-93)")
     ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument("--rpe-delta", type=int, default=30,
                     help="RPE frame spacing (default 30 = 1 s at 30 fps)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.segmenter:
-        raise NotImplementedError(
-            "--segmenter: the live Mask R-CNN segmenter is not ported to gdslam_tpu_torch "
-            "yet; see ROADMAP.md section 1, item 12 (--masks works)")
 
     from gdslam_tpu_torch.config import SlamConfig
     from gdslam_tpu_torch.io import png
@@ -91,7 +92,14 @@ def main(argv=None) -> int:
     from gdslam_tpu_torch.utils import metrics
 
     cfg = SlamConfig.from_opencv_yaml(args.settings) if args.settings else SlamConfig()
-    segmenter = SegmentDynObject(None, cache_dir=args.masks) if args.masks else None
+    segmenter = None
+    if args.masks or args.segmenter:
+        net = None
+        if args.segmenter:
+            from gdslam_tpu_torch.models.maskrcnn import build_segmenter
+            net = build_segmenter(args.segmenter, image_hw=(cfg.camera.height, cfg.camera.width),
+                                  device=args.device)
+        segmenter = SegmentDynObject(net, cache_dir=args.masks)
     vocab = None if args.vocab in ("none", "-") else args.vocab
     slam = System(cfg, Sensor.RGBD, vocabulary=vocab, pipeline=True, device=args.device)
     seq = TumSequence(args.seq_dir, args.assoc, cfg.camera.depth_map_factor)

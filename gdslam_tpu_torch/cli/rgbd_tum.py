@@ -4,7 +4,7 @@
 Usage (positional, mirroring rgbd_tum.cc:30-33):
 
     python -m gdslam_tpu_torch.cli.rgbd_tum VOCAB SETTINGS SEQUENCE_DIR ASSOC \\
-        [MASKS_DIR|no_save [OUTPUT_DIR]] [--device cuda|cpu]
+        [MASKS_DIR|no_save [OUTPUT_DIR]] [--segmenter flax[:WEIGHTS]] [--device cuda|cpu]
 
 - VOCAB: 'default' (the shipped 10k-leaf vocabulary), the path of a
   vocabulary .npz, or 'none' (or '-'): no loop closing, relocalization from
@@ -16,9 +16,15 @@ Usage (positional, mirroring rgbd_tum.cc:30-33):
 - OUTPUT_DIR: GD masking with background inpainting (the argc==7 mode,
   rgbd_tum.cc:165-171); writes the inpainted rgb/ and depth/ and the refined
   mask/ as PNGs named by timestamp
-- --device: where the system runs, the card unless 'cpu' is given
-- --segmenter: the live Mask R-CNN is not ported yet (ROADMAP.md section 1,
-  item 12); a mask cache works without it
+- --segmenter: the live Mask R-CNN (models/maskrcnn.py), run on every
+  mask-cache miss (the reference's per-frame MaskNet inference,
+  MaskNet.cc:86-93); WEIGHTS is a save_variables .npz of either package
+  ('flax' alone: seeded random weights). Fresh masks are written back to
+  MASKS_DIR (unless 'no_save'); with the segmenter and no OUTPUT_DIR the
+  geometry path tracks. A Keras .h5 is not ported (ROADMAP.md section 1,
+  item 12)
+- --device: where the system and the segmenter run, the card unless 'cpu'
+  is given
 
 Frames are read by the native prefetching loader when it builds
 (build/native/), else by io.tum.TumSequence; it prints which.
@@ -52,10 +58,7 @@ def _take_option(argv: list, name: str):
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = _take_option(argv, "--device") or "cuda"
-    if _take_option(argv, "--segmenter") is not None:
-        raise NotImplementedError(
-            "--segmenter: the live Mask R-CNN segmenter is not ported to gdslam_tpu_torch "
-            "yet; see ROADMAP.md section 1, item 12 (a mask cache directory works)")
+    seg_spec = _take_option(argv, "--segmenter")
     if len(argv) < 4:
         print(__doc__)
         return 1
@@ -83,7 +86,13 @@ def main(argv=None) -> int:
         frames_iter = (seq[i] for i in range(len(seq)))
         print(f"Loaded {len(seq)} frames from {seq_dir} (TumSequence)")
 
-    segmenter = SegmentDynObject(None, cache_dir=masks_dir) if masks_dir else None
+    net = None
+    if seg_spec:
+        from gdslam_tpu_torch.models.maskrcnn import build_segmenter
+        net = build_segmenter(seg_spec, image_hw=(cfg.camera.height, cfg.camera.width),
+                              device=device)
+    segmenter = SegmentDynObject(net, cache_dir=masks_dir) \
+        if (masks_dir or net is not None) else None
     slam = System(cfg, Sensor.RGBD, vocabulary=vocab, pipeline=True, device=device)
     use_gd = output_dir is not None
     if use_gd:

@@ -7,8 +7,9 @@ segmenter, with a disk cache so precomputed masks bypass inference (if
 `<dir>/<name>.png` exists it is read instead of running the net; new masks
 are written back unless the directory is the `no_save` sentinel,
 rgbd_tum.cc:99-109). The segmenter is any callable `fn(rgb) -> [H, W]`
-with 1 = dynamic; the port's own Mask R-CNN comes with ROADMAP.md item 12.
-Masks are read and written with the port's PNG module.
+with 1 = dynamic; the port's own is the live Mask R-CNN of
+models/maskrcnn.py (`build_segmenter`, `TorchSegmenter`). Masks are read and
+written with the port's PNG module.
 """
 
 from __future__ import annotations

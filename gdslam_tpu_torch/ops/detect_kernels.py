@@ -1,0 +1,320 @@
+"""The detection stages of Mask R-CNN as hand-written CUDA kernels
+(`csrc/nms_fixed.cu`, `csrc/roi_align.cu`, `csrc/paste_masks.cu`) and their
+plain PyTorch twins.
+
+Ports of three stages that XLA fuses in the JAX package
+(`gdslam_tpu/models/maskrcnn.py`): `nms_fixed` (:202), fixed-budget greedy
+NMS; `roi_align` (:222), the bilinear crop from the FPN level chosen per box;
+`paste_masks` (:744), the union of the dynamic-class instance masks pasted
+at full resolution. Each wrapper takes its plain version only for tensors on
+the CPU; for a CUDA tensor it launches its kernel or raises, and counts its
+launches in `<wrapper>.launches`. The kernels are built at first use by
+`ops/cuda_build.py`.
+
+The arithmetic that decides a comparison is kept in the JAX order, without
+fused multiply-adds, on both routes: IoU term by term, the ROIAlign blend
+left to right, the paste's row pass before its column pass.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from gdslam_tpu_torch.ops import cuda_build
+
+NMS_MAX_N = 1024                 # one CTA of up to 1024 threads
+MASK = 28                        # the mask head's output side
+PASTE_MAX_D = 64                 # masks staged in shared memory: 64 x 3,156 bytes
+ROI_STRIDES = (4, 8, 16, 32)     # P2..P5
+DYNAMIC_CLASS_IDS = tuple(range(1, 10)) + tuple(range(15, 25))
+
+
+def _declare(lib) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sigs = {"nms_fixed_launch": [p, p, i, f, i, p],
+            "roi_align_launch": [p, i, p, p, p, p, p, i, i, p],
+            "paste_masks_launch": [p, p, p, i, i, i, f, p]}
+    for name, args in sigs.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = args + [i, p]
+            fn.restype = i
+
+
+def _library(name: str):
+    return cuda_build.load(name, _declare)
+
+
+def _device(name: str, t: torch.Tensor):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device
+
+
+# ----------------------------------------------------------------------------
+# Boxes
+# ----------------------------------------------------------------------------
+
+def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[Na, Nb] IoU matrix of (y1, x1, y2, x2) boxes."""
+    y1 = torch.maximum(a[:, None, 0], b[None, :, 0])
+    x1 = torch.maximum(a[:, None, 1], b[None, :, 1])
+    y2 = torch.minimum(a[:, None, 2], b[None, :, 2])
+    x2 = torch.minimum(a[:, None, 3], b[None, :, 3])
+    inter = torch.clamp(y2 - y1, min=0) * torch.clamp(x2 - x1, min=0)
+    area_a = torch.clamp(a[:, 2] - a[:, 0], min=0) * torch.clamp(a[:, 3] - a[:, 1], min=0)
+    area_b = torch.clamp(b[:, 2] - b[:, 0], min=0) * torch.clamp(b[:, 3] - b[:, 1], min=0)
+    return inter / torch.clamp(area_a[:, None] + area_b[None] - inter, min=1e-9)
+
+
+# ----------------------------------------------------------------------------
+# nms_fixed
+# ----------------------------------------------------------------------------
+
+def nms_fixed_plain(boxes, scores, iou_th: float, n_out: int) -> torch.Tensor:
+    """Greedy NMS with a fixed budget: n_out steps, each picking the alive
+    box of highest score (the lowest index among ties) or -1 when none is
+    alive, then clearing every box whose IoU with it exceeds iou_th.
+    Returns [n_out] int32 indices."""
+    iou = box_iou(boxes, boxes)
+    alive = scores > -torch.inf
+    picked = []
+    neg = torch.full_like(scores, -torch.inf)
+    for _ in range(n_out):
+        best = torch.argmax(torch.where(alive, scores, neg)).reshape(1)
+        ok = alive.gather(0, best)
+        picked.append(torch.where(ok, best, -1))
+        alive = alive & (iou.index_select(0, best)[0] <= iou_th)
+        alive = alive.index_fill(0, best, False)
+    if not picked:
+        return torch.empty(0, dtype=torch.int32, device=boxes.device)
+    return torch.cat(picked).to(torch.int32)
+
+
+def nms_fixed(boxes, scores, iou_th: float, n_out: int) -> torch.Tensor:
+    """Fixed-budget NMS: boxes [N, 4] f32 (y1, x1, y2, x2), scores [N] f32
+    (-inf: never picked), N <= 1024. Returns [n_out] int32 indices, -1
+    padded. One launch on the card."""
+    name = "nms_fixed"
+    device = _device(name, boxes)
+    if device.type == "cpu":
+        return nms_fixed_plain(boxes, scores, iou_th, n_out)
+    N = boxes.shape[0]
+    if not 1 <= N <= NMS_MAX_N:
+        raise ValueError(f"{name}: {N} boxes, the kernel takes 1 to {NMS_MAX_N}")
+    if n_out < 0:
+        raise ValueError(f"{name}: n_out {n_out} < 0")
+    cuda_build.check(name, "boxes", boxes, torch.float32, (N, 4), device)
+    cuda_build.check(name, "scores", scores, torch.float32, (N,), device)
+    lib = _library(name)
+    if boxes.data_ptr() % 16:
+        raise ValueError(f"{name}: boxes must be 16-byte aligned")
+    out = torch.empty(n_out, dtype=torch.int32, device=device)
+    if n_out:
+        cuda_build.launch(name, device, lib.nms_fixed_launch, boxes.data_ptr(),
+                          scores.data_ptr(), N, float(np.float32(iou_th)), n_out,
+                          out.data_ptr())
+        nms_fixed.launches += 1
+    return out
+
+
+nms_fixed.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# roi_align
+# ----------------------------------------------------------------------------
+
+def flatten_levels(feats) -> tuple[torch.Tensor, tuple]:
+    """P2..P5 ([1, C, h, w] each) as one [sum(h * w), C] channels-last
+    buffer, and their (h, w)."""
+    C = feats[0].shape[1]
+    flat = torch.cat([f[0].permute(1, 2, 0).reshape(-1, C) for f in feats[:4]])
+    return flat, tuple((f.shape[2], f.shape[3]) for f in feats[:4])
+
+
+def _linspace01(n: int) -> np.ndarray:
+    """jnp.linspace(0, 1, n) in float32 as XLA computes it: i times the
+    float32 reciprocal of n - 1, the last point exactly 1."""
+    if n == 1:
+        return np.zeros(1, np.float32)
+    out = np.arange(n, dtype=np.float32) * (np.float32(1) / np.float32(n - 1))
+    out[-1] = 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _roi_tables(shapes, out_size: int, device):
+    """Per level (row offset, h, w) [4, 3] int32 and stride [4] f32, and the
+    sample positions [out] f32, on `device` (uploaded once)."""
+    offsets = np.cumsum([0] + [a * b for a, b in shapes])[:4]
+    table = torch.tensor([[o, a, b] for o, (a, b) in zip(offsets, shapes)], dtype=torch.int32)
+    stride = torch.tensor(ROI_STRIDES, dtype=torch.float32)
+    t = torch.from_numpy(_linspace01(out_size))
+    return table.to(device), stride.to(device), t.to(device)
+
+
+def roi_prologue(shapes, boxes: torch.Tensor, out_size: int):
+    """The per-box part of ROIAlign, shared by both routes: the level of
+    each box (the sqrt(hw) / 224 rule), its sample rows and columns.
+    Returns (info [R, 3] int32: level offset, h, w; y0, x0 [R, out] int32;
+    fy, fx [R, out] f32)."""
+    table, strides, t = _roi_tables(tuple(shapes), out_size, boxes.device)
+    h = torch.clamp(boxes[:, 2] - boxes[:, 0], min=1.0)
+    w = torch.clamp(boxes[:, 3] - boxes[:, 1], min=1.0)
+    level = torch.clamp(torch.floor(2 + torch.log2(torch.sqrt(h * w) / 224.0 + 1e-9)),
+                        0, 3).long()
+    info = table.index_select(0, level)                                  # [R, 3]
+    stride = strides.index_select(0, level)[:, None]
+    y = (boxes[:, 0:1] + t[None] * (boxes[:, 2:3] - boxes[:, 0:1])) / stride - 0.5
+    x = (boxes[:, 1:2] + t[None] * (boxes[:, 3:4] - boxes[:, 1:2])) / stride - 0.5
+    y0, x0 = torch.floor(y), torch.floor(x)
+    return info, y0.to(torch.int32), x0.to(torch.int32), y - y0, x - x0
+
+
+def roi_align_plain(flat, shapes, boxes, out_size: int) -> torch.Tensor:
+    """The crop in plain PyTorch: [R, out, out, C], channels last."""
+    info, y0, x0, fy, fx = roi_prologue(shapes, boxes, out_size)
+    off = info[:, 0, None, None].long()
+    fh, fw = info[:, 1, None].long(), info[:, 2, None].long()
+    fy, fx = fy[:, :, None, None], fx[:, None, :, None]
+
+    def tap(yi, xi):
+        yi = torch.minimum(torch.clamp(yi.long(), min=0), fh - 1)[:, :, None]
+        xi = torch.minimum(torch.clamp(xi.long(), min=0), fw - 1)[:, None, :]
+        return flat[off + yi * fw[:, :, None] + xi]
+
+    return (tap(y0, x0) * (1 - fy) * (1 - fx)
+            + tap(y0, x0 + 1) * (1 - fy) * fx
+            + tap(y0 + 1, x0) * fy * (1 - fx)
+            + tap(y0 + 1, x0 + 1) * fy * fx)
+
+
+def roi_align(flat, shapes, boxes, out_size: int) -> torch.Tensor:
+    """ROIAlign over P2..P5: flat [S, C] f32 (`flatten_levels`), boxes
+    [R, 4] f32 in image pixels. Returns [R, out, out, C] f32, channels last.
+    One launch on the card (the prologue is a few small PyTorch ops)."""
+    name = "roi_align"
+    device = _device(name, flat)
+    if device.type == "cpu":
+        return roi_align_plain(flat, shapes, boxes, out_size)
+    S, C = flat.shape
+    R = boxes.shape[0]
+    if C % 4 or S != sum(a * b for a, b in shapes):
+        raise ValueError(f"{name}: flat [{S}, {C}] does not hold the levels {shapes} "
+                         "with C a multiple of 4")
+    cuda_build.check(name, "flat", flat, torch.float32, (S, C), device)
+    cuda_build.check(name, "boxes", boxes, torch.float32, (R, 4), device)
+    lib = _library(name)
+    if flat.data_ptr() % 16:
+        raise ValueError(f"{name}: flat must be 16-byte aligned")
+    info, y0, x0, fy, fx = roi_prologue(shapes, boxes, out_size)
+    out = torch.empty((R, out_size, out_size, C), dtype=torch.float32, device=device)
+    if R:
+        cuda_build.launch(name, device, lib.roi_align_launch, flat.data_ptr(), C,
+                          info.data_ptr(), y0.data_ptr(), x0.data_ptr(), fy.data_ptr(),
+                          fx.data_ptr(), R, out_size, out.data_ptr())
+        roi_align.launches += 1
+    return out
+
+
+roi_align.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# paste_masks
+# ----------------------------------------------------------------------------
+
+def paste_ok(det: dict, dynamic_only: bool = True) -> torch.Tensor:
+    """[D] bool: the detections that paste (valid, and of a dynamic class)."""
+    ok = det["valid"]
+    if dynamic_only:
+        ok = ok & torch.isin(det["classes"].to(torch.int32), _dynamic_ids(ok.device))
+    return ok
+
+
+@functools.lru_cache(maxsize=None)
+def _dynamic_ids(device) -> torch.Tensor:
+    return torch.tensor(DYNAMIC_CLASS_IDS, dtype=torch.int32).to(device)
+
+
+def _interp(coord: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
+    """Per axis of every box: the mask cell k0 [D, P] and weight w [D, P] of
+    interp_matrix (the two non-zero columns of a row are k0 and k0 + 1)."""
+    f = (coord[None] - lo[:, None]) / torch.clamp(hi - lo, min=1.0)[:, None] * MASK - 0.5
+    k0 = torch.clamp(torch.floor(f), 0, MASK - 2)
+    return k0.long(), torch.clamp(f - k0, 0, 1)
+
+
+def paste_values(det: dict, image_hw) -> torch.Tensor:
+    """[D, H, W] f32: each mask resampled over the whole image, the row pass
+    ((Ky @ m): rows k0, k0 + 1 of the mask) before the column pass."""
+    H, W = image_hw
+    boxes, m = det["boxes"], det["masks"]
+    dev = boxes.device
+    ky, wy = _interp(torch.arange(H, dtype=torch.float32, device=dev), boxes[:, 0], boxes[:, 2])
+    kx, wx = _interp(torch.arange(W, dtype=torch.float32, device=dev), boxes[:, 1], boxes[:, 3])
+    rows = lambda k: torch.gather(m, 1, k[:, :, None].expand(-1, -1, MASK))     # [D, H, 28]
+    r = (1 - wy)[:, :, None] * rows(ky) + wy[:, :, None] * rows(ky + 1)
+    cols = lambda k: torch.gather(r, 2, k[:, None, :].expand(-1, H, -1))         # [D, H, W]
+    return (1 - wx)[:, None, :] * cols(kx) + wx[:, None, :] * cols(kx + 1)
+
+
+def paste_masks_plain(det: dict, image_hw, dynamic_only: bool = True,
+                      mask_th: float = 0.5) -> torch.Tensor:
+    """The union of the pasted masks in plain PyTorch: [H, W] uint8."""
+    H, W = image_hw
+    boxes = det["boxes"]
+    dev = boxes.device
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None]
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :]
+    b = boxes[:, :, None, None]
+    inside = (ys >= b[:, 0]) & (ys < b[:, 2]) & (xs >= b[:, 1]) & (xs < b[:, 3])
+    hit = paste_ok(det, dynamic_only)[:, None, None] & inside & \
+        (paste_values(det, image_hw) > mask_th)
+    return hit.any(0).to(torch.uint8)
+
+
+def paste_masks(det: dict, image_hw, dynamic_only: bool = True,
+                mask_th: float = 0.5) -> torch.Tensor:
+    """GetDynSeg: det holds boxes [D, 4] f32 in output pixels, classes [D],
+    masks [D, 28, 28] f32, valid [D] bool. Returns [H, W] uint8, 1 where a
+    valid dynamic-class detection whose box holds the pixel has a bilinear
+    mask value above mask_th. One launch on the card."""
+    name = "paste_masks"
+    boxes, masks = det["boxes"], det["masks"]
+    device = _device(name, boxes)
+    if device.type == "cpu":
+        return paste_masks_plain(det, image_hw, dynamic_only, mask_th)
+    D = boxes.shape[0]
+    H, W = image_hw
+    if D > PASTE_MAX_D:
+        raise ValueError(f"{name}: {D} detections, the kernel takes at most {PASTE_MAX_D}")
+    cuda_build.check(name, "boxes", boxes, torch.float32, (D, 4), device)
+    cuda_build.check(name, "masks", masks, torch.float32, (D, MASK, MASK), device)
+    for what in ("classes", "valid"):
+        if det[what].shape != (D,) or det[what].device != device:
+            raise ValueError(f"{name}: {what} must be [{D}] on {device}")
+    lib = _library(name)
+    if boxes.data_ptr() % 16:
+        raise ValueError(f"{name}: boxes must be 16-byte aligned")
+    ok = paste_ok(det, dynamic_only).to(torch.uint8)
+    out = torch.empty((H, W), dtype=torch.uint8, device=device)
+    cuda_build.launch(name, device, lib.paste_masks_launch, boxes.data_ptr(), ok.data_ptr(),
+                      masks.data_ptr(), D, H, W, float(np.float32(mask_th)), out.data_ptr())
+    paste_masks.launches += 1
+    return out
+
+
+paste_masks.launches = 0
+
+WRAPPERS = (nms_fixed, roi_align, paste_masks)
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0

@@ -25,61 +25,30 @@ tensor they launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import weakref
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
-from gdslam_tpu_torch.ops import hamming
+from gdslam_tpu_torch.ops import cuda_build, hamming
+from gdslam_tpu_torch.ops.cuda_build import BUILD_DIR, NVCC_FLAGS  # noqa: F401 (chip_smoke.py)
 
 BIG = 1 << 20
 MAX_ROWS = 1 << 20            # a row index shares a 32-bit key with its cost
 GRID_CELLS = (32, 24)         # cells across the keypoints' bounding box (u, v)
 PATHS = ("cells", "tiled")
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "match_top2.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _lib = None
 
 
 def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME   # PATH, CUDA_HOME, then the default
-    nvcc = shutil.which("nvcc") or (CUDA_HOME and os.path.join(CUDA_HOME, "bin", "nvcc"))
-    if not nvcc or not os.path.exists(nvcc):
-        raise RuntimeError("match_top2: nvcc not found; the CUDA kernel cannot be built")
-    return nvcc
+    return cuda_build.nvcc("match_top2")
 
 
-def build_library() -> Path:
+def build_library():
     """Compile csrc/match_top2.cu (cached by source and flags) and return
     the shared library's path."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"libmatch_top2_{tag}.so"
-    if so.exists():
-        return so
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(_SRC)], check=True,
-                       capture_output=True, text=True)
-        os.replace(tmp, so)    # atomic: concurrent builders never see a partial file
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"match_top2: nvcc failed:\n{e.stderr}") from e
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return so
+    return cuda_build.build_library("match_top2", BUILD_DIR)
 
 
 def _load_library():
@@ -122,33 +91,13 @@ def _work_words(M: int, N: int) -> int:
 
 
 def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"match_top2: {name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"match_top2: {name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"match_top2: {name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"match_top2: {name} must be contiguous")
-
-
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def _stream(device, index: int) -> int:
-    """The current stream's handle (the short way where torch has it)."""
-    if _raw_stream is not None:
-        return _raw_stream(index)
-    return torch.cuda.current_stream(device).cuda_stream
+    cuda_build.check("match_top2", name, t, dtype, shape, device)
 
 
 def _launch(device, fn, *args) -> None:
     """Call a C launch function for `device` on its current stream; raise on
     a CUDA error. Nothing here synchronises."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    err = fn(*args, index, _stream(device, index))
-    if err != 0:
-        raise RuntimeError(f"match_top2: kernel launch failed with CUDA error {err}")
+    cuda_build.launch("match_top2", device, fn, *args)
 
 
 # ----------------------------------------------------------------------------

@@ -416,6 +416,23 @@ class System:
     def save_keyframe_trajectory_tum(self, path: str):
         traj.save_tum(path, self.tracker.keyframe_trajectory())
 
+    def save_trajectory_kitti(self, path: str):
+        traj.save_kitti(path, self.tracker.camera_trajectory())
+
+    def save_map(self, path: str):
+        """Serialize the full map state (the reference's SaveMap TODO,
+        System.h:113-115), after the in-flight frames are committed."""
+        from gdslam_tpu_torch.utils.checkpoint import save_map
+        self.tracker.flush()
+        save_map(self.tracker.arena, path, kf_timestamps=self.tracker.kf_timestamps)
+
+    def load_map(self, path: str):
+        """Replace the tracker's map and keyframe timestamps by a saved map
+        (either package's file), on this system's device."""
+        from gdslam_tpu_torch.utils.checkpoint import load_map_with_timestamps
+        self.tracker.arena, self.tracker.kf_timestamps = \
+            load_map_with_timestamps(path, self.device)
+
 
 def load_vocabulary(vocabulary, device) -> voc_mod.Vocabulary:
     """A Vocabulary from System's `vocabulary` argument: "default", the
@@ -434,6 +451,5 @@ def _not_ported_method(name: str):
     return method
 
 
-for _name in ("track_stereo", "track_monocular",
-              "save_map", "load_map", "save_trajectory_kitti"):
+for _name in ("track_stereo", "track_monocular"):
     setattr(System, _name, _not_ported_method(_name))

@@ -1,7 +1,7 @@
 """Trajectory files in the reference's TUM format (`timestamp tx ty tz qx qy
 qz qw`; System::SaveTrajectoryTUM, System.cc:418-513): the writer,
-byte-compatible, and the reader. Port of gdslam_tpu.system.trajectory's
-save_tum and load_tum."""
+byte-compatible, and the reader; and the KITTI writer (the 3 x 4 [R | t]
+of each T_wc as one row). Port of gdslam_tpu.system.trajectory."""
 
 from __future__ import annotations
 
@@ -23,6 +23,15 @@ def save_tum(path: str, trajectory) -> None:
     with open(path, "w") as f:
         for ts, T in trajectory:
             f.write(_tum_line(ts, np.asarray(T)))
+
+
+def save_kitti(path: str, trajectory) -> None:
+    """trajectory: iterable of (timestamp, T_wc 4x4); the timestamps are
+    not written."""
+    with open(path, "w") as f:
+        for _, T in trajectory:
+            row = np.asarray(T)[:3, :4].reshape(-1)
+            f.write(" ".join(f"{v:.9g}" for v in row) + "\n")
 
 
 def load_tum(path: str):

@@ -18,7 +18,8 @@ from gdslam_tpu_torch.frontend import matcher
 from gdslam_tpu_torch.frontend import extractor
 from gdslam_tpu_torch.io import synthetic
 from gdslam_tpu_torch.masking import geomask, geometry
-from gdslam_tpu_torch.ops import match_kernel
+from gdslam_tpu_torch.models import maskrcnn
+from gdslam_tpu_torch.ops import detect_kernels, match_kernel
 from gdslam_tpu_torch.system import slam as slam_mod
 from gdslam_tpu_torch.system import tracking
 from gdslam_tpu_torch.system.slam import System
@@ -660,3 +661,129 @@ def test_pose_graph_and_gba_wait_for_nothing(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(out.kf_pose).all()) and bool(torch.isfinite(out.pt_pos).all())
+
+
+# ----------------------------------------------------------------------------
+# The segmenter's detection kernels (ops/detect_kernels.py)
+# ----------------------------------------------------------------------------
+
+def _boxes(r, n, H, W, min_side=2.0):
+    y1, x1 = r.uniform(0, H - min_side, n), r.uniform(0, W - min_side, n)
+    h = min_side + r.uniform(0, 1, n) ** 2 * (H - y1 - min_side)
+    w = min_side + r.uniform(0, 1, n) ** 2 * (W - x1 - min_side)
+    return np.stack([y1, x1, y1 + h, x1 + w], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "all_inf"])
+@pytest.mark.parametrize("n, n_out, th", [(1024, 128, 0.7), (128, 32, 0.3), (1, 4, 0.5)],
+                         ids=["proposals", "detections", "one_box"])
+def test_nms_kernel_equals_plain(card, kind, n, n_out, th):
+    """Indices exact at both call shapes: clustered boxes, tied scores, none
+    alive; one launch per call."""
+    r = np.random.default_rng(n)
+    centres = _boxes(r, max(24, n // 8), 240, 320, 20.0)
+    boxes = np.clip(centres[r.integers(0, len(centres), n)] + r.normal(0, 4, (n, 4)), 0,
+                    [240, 320, 240, 320]).astype(np.float32)
+    scores = r.normal(0, 3, n).astype(np.float32)
+    if kind == "ties":
+        scores = np.round(scores).astype(np.float32)
+        scores[r.uniform(size=n) < 0.3] = -np.inf
+    elif kind == "all_inf":
+        scores[:] = -np.inf
+    b, s = torch.from_numpy(boxes).to(card), torch.from_numpy(scores).to(card)
+    before = detect_kernels.nms_fixed.launches
+    got = detect_kernels.nms_fixed(b, s, th, n_out)
+    assert detect_kernels.nms_fixed.launches == before + 1
+    assert torch.equal(got, detect_kernels.nms_fixed_plain(b, s, th, n_out))
+
+
+@pytest.mark.parametrize("R, out_size", [(128, 7), (32, 14), (1, 7)])
+def test_roi_align_kernel_equals_plain(card, R, out_size):
+    """The crops at the box head's and the mask head's shapes, boxes on all
+    four levels and beyond the image: bit for bit."""
+    r = np.random.default_rng(R)
+    shapes = ((60, 80), (30, 40), (15, 20), (8, 10))
+    flat = torch.from_numpy(r.normal(0, 50, (sum(a * b for a, b in shapes), 256))
+                            .astype(np.float32)).to(card)
+    sides = np.exp(r.uniform(np.log(10), np.log(1000), R))
+    ys, xs = r.uniform(-20, 240, R), r.uniform(-20, 320, R)
+    boxes = torch.from_numpy(np.stack([ys, xs, ys + sides, xs + sides * r.uniform(0.5, 2, R)],
+                                      -1).astype(np.float32)).to(card)
+    got = detect_kernels.roi_align(flat, shapes, boxes, out_size)
+    assert got.shape == (R, out_size, out_size, 256)
+    assert torch.equal(got, detect_kernels.roi_align_plain(flat, shapes, boxes, out_size))
+
+
+@pytest.mark.parametrize("D, hw", [(32, (480, 640)), (8, (120, 160)), (0, (48, 64))])
+def test_paste_kernel_equals_plain(card, D, hw):
+    """The union of the pasted masks: equal on every pixel but those within
+    1e-6 of the threshold (none are expected: both round alike)."""
+    r = np.random.default_rng(D)
+    det = {"boxes": torch.from_numpy(_boxes(r, D, *hw, 4.0)).to(card),
+           "classes": torch.from_numpy(r.integers(0, 81, D).astype(np.int32)).to(card),
+           "masks": torch.from_numpy(r.uniform(0, 1, (D, 28, 28)).astype(np.float32)).to(card),
+           "valid": torch.from_numpy(r.uniform(size=D) < 0.8).to(card)}
+    got = detect_kernels.paste_masks(det, hw)
+    want = detect_kernels.paste_masks_plain(det, hw)
+    assert got.dtype == torch.uint8 and got.shape == hw
+    near = ((detect_kernels.paste_values(det, hw) - 0.5).abs() < 1e-6)[
+        detect_kernels.paste_ok(det)].any(0)
+    assert not ((got != want) & ~near).any()
+
+
+@pytest.mark.parametrize("name", ["nms_fixed", "roi_align", "paste_masks"])
+def test_detect_wrappers_raise_without_the_library(card, monkeypatch, name):
+    """On real CUDA tensors: with the library loader failing each wrapper
+    raises, counts no launch and never takes its plain version."""
+    def missing(lib_name):
+        raise RuntimeError(f"{lib_name}: library missing")
+
+    monkeypatch.setattr(detect_kernels, "_library", missing)
+    monkeypatch.setattr(detect_kernels, f"{name}_plain",
+                        lambda *a, **k: pytest.fail("fell back to the plain version"))
+    f = dict(dtype=torch.float32, device=card)
+    det = dict(boxes=torch.zeros(8, 4, **f), classes=torch.ones(8, dtype=torch.int32,
+                                                                 device=card),
+               masks=torch.zeros(8, 28, 28, **f), valid=torch.ones(8, dtype=torch.bool,
+                                                                   device=card))
+    call = {"nms_fixed": lambda: detect_kernels.nms_fixed(torch.zeros(16, 4, **f),
+                                                          torch.zeros(16, **f), 0.5, 4),
+            "roi_align": lambda: detect_kernels.roi_align(torch.zeros(24, 8, **f),
+                                                          ((4, 4), (2, 2), (1, 2), (1, 2)),
+                                                          torch.zeros(3, 4, **f), 7),
+            "paste_masks": lambda: detect_kernels.paste_masks(det, (32, 32))}[name]
+    wrapper = getattr(detect_kernels, name)
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="library missing"):
+        call()
+    assert wrapper.launches == before
+
+
+def _seg_weights():
+    """Seeded blocks (1, 1, 1, 1) weights whose class head scores most
+    proposals as a person (as tests/test_torch_segmenter.py edits them)."""
+    flat = maskrcnn.init_variables((1, 1, 1, 1), seed=0)
+    flat["params/box_head/Dense_2/kernel"] = flat["params/box_head/Dense_2/kernel"] * 0.01
+    flat["params/box_head/Dense_2/bias"][1] += 6.0
+    return flat
+
+
+def test_segmenter_on_card_equals_cpu_and_repeats(card):
+    """The live segmenter at 120 x 160 on the card: every detection stage
+    launches its kernel, two runs are bitwise equal, and the masks are the
+    CPU's (IoU >= 0.95: cuDNN and the CPU sum the convolutions in other
+    orders)."""
+    flat = _seg_weights()
+    gpu = maskrcnn.TorchSegmenter(flat, image_hw=(120, 160), blocks=(1, 1, 1, 1), device=card)
+    cpu = maskrcnn.TorchSegmenter(flat, image_hw=(120, 160), blocks=(1, 1, 1, 1), device="cpu")
+    cam = CameraConfig(fx=160.0, fy=160.0, cx=80.0, cy=60.0, width=160, height=120, bf=12.8)
+    detect_kernels.reset_launch_counts()
+    for i in (0, 5, 9):
+        rgb = synthetic.render_frame(i, cam, with_dynamic=True, device="cpu").rgb.numpy()
+        rgb = rgb.astype(np.uint8)
+        a, b, c = gpu(rgb), gpu(rgb), cpu(rgb)
+        assert np.array_equal(a, b)
+        union = ((a > 0) | (c > 0)).sum()
+        assert union == 0 or ((a > 0) & (c > 0)).sum() / union >= 0.95
+    assert (detect_kernels.nms_fixed.launches, detect_kernels.roi_align.launches,
+            detect_kernels.paste_masks.launches) == (12, 12, 6)

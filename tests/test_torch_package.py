@@ -8,6 +8,7 @@ import ast
 import dataclasses
 import inspect
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -27,7 +28,7 @@ from gdslam_tpu_torch import config as tconfig
 from gdslam_tpu_torch import convert
 from gdslam_tpu_torch.backend import loop_closing, map_arena
 from gdslam_tpu_torch.io import synthetic as tsyn
-from gdslam_tpu_torch.ops import match_kernel
+from gdslam_tpu_torch.ops import cuda_build, detect_kernels, match_kernel
 from gdslam_tpu_torch.ops import orb as torb
 from gdslam_tpu_torch.system import slam as tslam
 from gdslam_tpu_torch.system import tracking as ttracking
@@ -165,13 +166,13 @@ def test_entry_points_default_to_the_card():
 
 def test_not_ported_entry_points_raise():
     """What is still to port raises NotImplementedError naming ROADMAP.md
-    (the geometry path, track_rgbd_geom, GD inpainting and loop closing with
-    a vocabulary are ported: see test_ported_entry_points_no_longer_raise)."""
+    (the geometry path, track_rgbd_geom, GD inpainting, loop closing with
+    a vocabulary, the map checkpoints and the KITTI writer are ported: see
+    test_ported_entry_points_no_longer_raise)."""
     cfg = tconfig.SlamConfig(camera=tconfig.CameraConfig(width=160, height=120),
                              orb=tconfig.OrbConfig(n_features=64, n_levels=2))
     s = tslam.System(cfg, kmax=4, pmax=64, device="cpu")
-    for name in ("track_stereo", "track_monocular",
-                 "save_map", "load_map", "save_trajectory_kitti"):
+    for name in ("track_stereo", "track_monocular"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(s, name)()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -204,6 +205,13 @@ def test_ported_entry_points_no_longer_raise(tmp_path):
     s.save_trajectory_tum(str(tmp_path / "c.txt"))
     s.save_keyframe_trajectory_tum(str(tmp_path / "k.txt"))
     assert (tmp_path / "k.txt").read_text() == ""
+    # the map checkpoints and the KITTI writer (tests/test_torch_checkpoint.py
+    # holds them against the JAX package's files)
+    s.save_trajectory_kitti(str(tmp_path / "kitti.txt"))
+    assert (tmp_path / "kitti.txt").read_text() == ""
+    s.save_map(str(tmp_path / "map.npz"))
+    s.load_map(str(tmp_path / "map.npz"))
+    assert s.keyframe_count == 0 and s.tracker.kf_timestamps == []
     for name in ("local_keyframes", "compact_keyframes"):
         assert callable(getattr(map_arena, name))
     # the DynaSLAM geometry path, track_rgbd_geom and GD inpainting run on a
@@ -237,13 +245,15 @@ def test_ported_entry_points_no_longer_raise(tmp_path):
 NEW_MODULES = ("masking/geometry.py", "masking/masknet.py", "io/png.py", "io/tum.py",
                "io/native_loader.py", "cli/rgbd_tum.py", "cli/evaluate.py",
                "backend/vocabulary.py", "backend/keyframe_db.py", "backend/loop_closing.py",
-               "backend/pose_graph.py", "backend/gba.py")
+               "backend/pose_graph.py", "backend/gba.py", "models/maskrcnn.py",
+               "ops/detect_kernels.py", "ops/cuda_build.py", "utils/checkpoint.py")
 
 
 def test_no_import_check_covers_the_geometry_and_cli_modules():
     """The static scan and the fresh-interpreter import above reach the
-    modules of the geometry path, the CLIs and loop closing (the scan takes
-    every file of the package)."""
+    modules of the geometry path, the CLIs, loop closing, the segmenter and
+    its kernels. build module, and the checkpoints (the scan takes every file of
+    the package)."""
     for rel in NEW_MODULES:
         assert ROOT / "gdslam_tpu_torch" / rel in PORT_FILES, rel
         assert not [m for m in _imported_roots(ROOT / "gdslam_tpu_torch" / rel)
@@ -283,12 +293,86 @@ def test_wrapper_raises_on_cuda_tensors_without_the_library(monkeypatch):
     assert match_kernel.match_top2.launches == before
 
 
+def _detect_calls():
+    """Each detection wrapper with CUDA inputs of its main-path shapes, and
+    one whose dtype it refuses."""
+    f = dict(dtype=torch.float32, device="cuda")
+    det = dict(boxes=torch.empty(32, 4, **f), classes=torch.empty(32, dtype=torch.int32,
+                                                                   device="cuda"),
+               masks=torch.empty(32, 28, 28, **f), valid=torch.empty(32, dtype=torch.bool,
+                                                                      device="cuda"))
+    shapes = ((60, 80), (30, 40), (15, 20), (8, 10))
+    flat = torch.empty(sum(a * b for a, b in shapes), 256, **f)
+    return {
+        "nms_fixed": (lambda: detect_kernels.nms_fixed(torch.empty(1024, 4, **f),
+                                                       torch.empty(1024, **f), 0.7, 128),
+                      lambda: detect_kernels.nms_fixed(torch.empty(1024, 4, **f),
+                                                       torch.empty(1024, dtype=torch.float64,
+                                                                   device="cuda"), 0.7, 128),
+                      "scores"),
+        "roi_align": (lambda: detect_kernels.roi_align(flat, shapes, torch.empty(128, 4, **f), 7),
+                      lambda: detect_kernels.roi_align(flat.half(), shapes,
+                                                       torch.empty(128, 4, **f), 7),
+                      "flat"),
+        "paste_masks": (lambda: detect_kernels.paste_masks(det, (480, 640)),
+                        lambda: detect_kernels.paste_masks(
+                            {**det, "masks": torch.empty(32, 14, 28, **f)}, (480, 640)),
+                        "masks"),
+    }
+
+
+@pytest.mark.parametrize("name", ["nms_fixed", "roi_align", "paste_masks"])
+def test_detect_wrappers_raise_on_cuda_tensors_without_the_library(monkeypatch, name):
+    """The detection wrappers, like match_top2's: for CUDA tensors they
+    launch or raise, with no library they raise and count no launch, and
+    they never take the plain version. Fake CUDA tensors stand in for a
+    card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def missing(lib_name):
+        raise RuntimeError(f"{lib_name}: library missing")
+
+    monkeypatch.setattr(detect_kernels, "_library", missing)
+    monkeypatch.setattr(detect_kernels, f"{name}_plain",
+                        lambda *a, **k: pytest.fail("fell back to the plain version"))
+    wrapper = getattr(detect_kernels, name)
+    before = wrapper.launches
+    with FakeTensorMode():
+        call, bad_call, bad_arg = _detect_calls()[name]
+        with pytest.raises(RuntimeError, match=f"{name}: library missing"):
+            call()
+        with pytest.raises(ValueError, match=bad_arg):
+            bad_call()
+    assert wrapper.launches == before
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     """No compiler: the build raises before it creates anything."""
     import torch.utils.cpp_extension as cpp
-    monkeypatch.setattr(match_kernel.shutil, "which", lambda name: None)
+    monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     monkeypatch.setattr(match_kernel, "BUILD_DIR", tmp_path / "kernels")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         match_kernel.build_library()
+    assert not (tmp_path / "kernels").exists()
+
+
+@pytest.mark.parametrize("name", cuda_build.SOURCES)
+def test_every_kernel_builds_through_cuda_build(monkeypatch, tmp_path, name):
+    """Every csrc/*.cu is a source of ops/cuda_build.py, named for its error
+    messages, cached by a hash of the source and the flags (sm_90a, no FMA
+    contraction); with no compiler each raises before it creates anything,
+    alone and all together."""
+    import torch.utils.cpp_extension as cpp
+    assert sorted(cuda_build.SOURCES) == sorted(p.stem for p in cuda_build.CSRC.glob("*.cu"))
+    assert {"arch=compute_90a,code=sm_90a", "-fmad=false"} <= set(cuda_build.NVCC_FLAGS)
+    path = cuda_build.library_path(name, tmp_path)
+    assert path.parent == tmp_path and path.name.startswith(f"lib{name}_")
+    assert path == cuda_build.library_path(name, tmp_path)
+    monkeypatch.setattr(shutil, "which", lambda exe: None)
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match=f"{name}: nvcc not found"):
+        cuda_build.build_library(name, tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.build_all(build_dir=tmp_path / "kernels")
     assert not (tmp_path / "kernels").exists()
