@@ -1,5 +1,5 @@
-"""Mask R-CNN inference for semantic dynamic-object masking (port of
-gdslam_tpu.models.maskrcnn).
+"""Mask R-CNN for semantic dynamic-object masking: inference and training
+(port of gdslam_tpu.models.maskrcnn).
 
 ResNet50-FPN backbone, RPN with fixed-budget proposal selection, ROIAlign,
 class/box/mask heads and the `GetDynSeg` postprocessing (the union of the
@@ -13,12 +13,22 @@ rows for ROIAlign.
 Module and parameter names follow the JAX package's flax auto-names
 (`Bottleneck_3.Conv_1`, `Dense_0`, `ConvTranspose_0`), so a weight file of
 `save_variables` (either package's) maps onto the modules leaf by leaf
-(`maskrcnn_from_numpy`). Training and the Keras `.h5` route are not ported
-(ROADMAP.md section 1, item 12).
+(`maskrcnn_from_numpy`).
+
+Training follows the JAX module: `train_losses` (teacher-forced heads) and
+`train_losses_sampled` (heads on sampled RPN proposals), the frozen-BN
+calibration `calibrate_batch_stats`, and the fits `train_toy` (clipped Adam)
+and `train_sampled` (clipped SGD with momentum), with optax's update rules
+written out. The model trains in eval mode: the BatchNorm statistics stay
+frozen, their scale and bias train, as flax trains them. ROIAlign's gradient
+is a CUDA kernel (`detect_kernels.roi_align_backward`); the rest of the
+backward is PyTorch's. The Keras `.h5` route is not ported (ROADMAP.md
+section 1, item 12b).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import warnings
 from typing import Sequence
@@ -28,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gdslam_tpu_torch.backend.map_arena import last_writer, scatter_rows
 from gdslam_tpu_torch.frontend.extractor import top_k_stable
 from gdslam_tpu_torch.ops import detect_kernels as dk
 
@@ -48,6 +59,21 @@ def _bn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=BN_EPS)
 
 
+def _norm(bn: nn.BatchNorm2d, x: torch.Tensor, stats: dict | None) -> torch.Tensor:
+    """bn(x) with its running statistics, or, with a `stats` dict, flax's
+    batch-statistics mode (use_running_average=False): the batch's mean and
+    variance E[x^2] - E[x]^2 (biased, clipped at 0) normalise x as
+    (x - mean) * (rsqrt(var + eps) * scale) + bias and are recorded in
+    stats[bn]."""
+    if stats is None:
+        return bn(x)
+    mean = x.mean((0, 2, 3))
+    var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0)
+    stats[bn] = (mean, var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+
+
 class Bottleneck(nn.Module):
     def __init__(self, cin: int, filters: int, strides: int = 1, projection: bool = False):
         super().__init__()
@@ -62,11 +88,11 @@ class Bottleneck(nn.Module):
             self.Conv_3 = nn.Conv2d(cin, filters * 4, 1, stride=strides, bias=False)
             self.BatchNorm_3 = _bn(filters * 4)
 
-    def forward(self, x):
-        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
-        y = F.relu(self.BatchNorm_1(self.Conv_1(y)))
-        y = self.BatchNorm_2(self.Conv_2(y))
-        residual = self.BatchNorm_3(self.Conv_3(x)) if self.projection else x
+    def forward(self, x, stats: dict | None = None):
+        y = F.relu(_norm(self.BatchNorm_0, self.Conv_0(x), stats))
+        y = F.relu(_norm(self.BatchNorm_1, self.Conv_1(y), stats))
+        y = _norm(self.BatchNorm_2, self.Conv_2(y), stats)
+        residual = _norm(self.BatchNorm_3, self.Conv_3(x), stats) if self.projection else x
         return F.relu(y + residual)
 
 
@@ -92,12 +118,13 @@ class ResNetFPN(nn.Module):
         for j in range(4):                                            # outputs p2..p5
             setattr(self, f"Conv_{j + 5}", nn.Conv2d(fpn_dim, fpn_dim, 3, padding=1))
 
-    def forward(self, x):
-        x = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+    def forward(self, x, stats: dict | None = None):
+        """P2..P6; with a `stats` dict, in batch-statistics mode (`_norm`)."""
+        x = F.relu(_norm(self.BatchNorm_0, self.Conv_0(x), stats))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         cs = []
         for k in range(self.stage_ends[-1] + 1):
-            x = getattr(self, f"Bottleneck_{k}")(x)
+            x = getattr(self, f"Bottleneck_{k}")(x, stats)
             if k in self.stage_ends:
                 cs.append(x)
         c2, c3, c4, c5 = cs
@@ -204,6 +231,96 @@ def _clip_boxes(b: torch.Tensor, H: int, W: int) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------------
+# Training targets and loss pieces
+# ----------------------------------------------------------------------------
+
+def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Numerically stable sigmoid BCE (the JAX module's optax_sigmoid_bce)."""
+    return torch.maximum(logits, torch.zeros_like(logits)) - logits * labels + \
+        torch.log1p(torch.exp(-torch.abs(logits)))
+
+
+def huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    a = torch.abs(x)
+    return torch.where(a < delta, 0.5 * a * a, delta * (a - 0.5 * delta))
+
+
+def box_deltas_inverse(boxes: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """(dy, dx, log dh, log dw) that move `boxes` onto `targets`."""
+    h = torch.clamp(boxes[:, 2] - boxes[:, 0], min=1e-3)
+    w = torch.clamp(boxes[:, 3] - boxes[:, 1], min=1e-3)
+    th = torch.clamp(targets[:, 2] - targets[:, 0], min=1e-3)
+    tw = torch.clamp(targets[:, 3] - targets[:, 1], min=1e-3)
+    cy = boxes[:, 0] + 0.5 * h
+    cx = boxes[:, 1] + 0.5 * w
+    tcy = targets[:, 0] + 0.5 * th
+    tcx = targets[:, 1] + 0.5 * tw
+    return torch.stack([(tcy - cy) / h, (tcx - cx) / w, torch.log(th / h), torch.log(tw / w)], -1)
+
+
+def crop_mask(mask: torch.Tensor, box: torch.Tensor, out: int) -> torch.Tensor:
+    """Bilinear crop of a full-image mask [H, W] to each box ([..., 4]),
+    resampled to [..., out, out] (the minimask of utils.py): sample rows at
+    box y1 + (k + 0.5) / out * height - 0.5, floored, the floor clipped to
+    [0, H - 2] and the fraction to [0, 1]; the same for columns."""
+    H, W = mask.shape
+    k = (torch.arange(out, dtype=torch.float32, device=mask.device) + 0.5) / out
+    ys = box[..., 0, None] + k * (box[..., 2, None] - box[..., 0, None]) - 0.5
+    xs = box[..., 1, None] + k * (box[..., 3, None] - box[..., 1, None]) - 0.5
+    y0 = torch.clamp(torch.floor(ys).long(), 0, H - 2)
+    x0 = torch.clamp(torch.floor(xs).long(), 0, W - 2)
+    fy = torch.clamp(ys - y0, 0, 1)[..., :, None]
+    fx = torch.clamp(xs - x0, 0, 1)[..., None, :]
+    m = mask.to(torch.float32)
+
+    def tap(yi, xi):
+        return m[yi[..., :, None], xi[..., None, :]]
+
+    return (tap(y0, x0) * (1 - fy) * (1 - fx) + tap(y0, x0 + 1) * (1 - fy) * fx
+            + tap(y0 + 1, x0) * fy * (1 - fx) + tap(y0 + 1, x0 + 1) * fy * fx)
+
+
+@functools.lru_cache(maxsize=None)
+def _bbox_std(device) -> torch.Tensor:
+    return torch.from_numpy(BBOX_STD).to(device)
+
+
+def detection_targets(proposals, prop_valid, gt_boxes, gt_classes, gt_valid,
+                      n_rois: int = 64, pos_ratio: float = 0.33):
+    """Static-shape detection_targets_graph (model.py:451-560), selected by
+    top-k instead of at random: positives by match IoU (>= 0.5), then the
+    negatives half hard (the highest IoU below 0.5) and half easy (the
+    lowest). Ties keep the lower index (lax.top_k's order). Returns (rois
+    [n, 4], roi_cls [n] int64, box_tgt [n, 4] BBOX_STD-normalised, is_pos
+    [n] bool, roi_valid [n] bool, matched_gt [n])."""
+    iou = box_iou(proposals, gt_boxes) * gt_valid[None, :]
+    iou = torch.where(prop_valid[:, None], iou, 0.0)
+    best_iou, best_gt = iou.amax(1), iou.argmax(1)
+    pos = (best_iou >= 0.5) & prop_valid
+    neg = (best_iou < 0.5) & prop_valid
+    P = proposals.shape[0]
+    n_pos = min(max(1, int(round(n_rois * pos_ratio))), P)
+    n_neg = min(n_rois - n_pos, P)
+    pv, pi = top_k_stable(torch.where(pos, best_iou, -1.0), n_pos)
+    pos_ok = pv >= 0.5
+    n_hard = n_neg // 2
+    hv, hi = top_k_stable(torch.where(neg, best_iou, -1.0), n_hard)
+    hard_ok = hv >= 0.0
+    taken = torch.zeros(P, dtype=torch.bool, device=proposals.device).index_put((hi,), hard_ok)
+    ev, ei = top_k_stable(torch.where(neg & ~taken, -best_iou, -2.0), n_neg - n_hard)
+    easy_ok = ev >= -1.0
+    idx = torch.cat([pi, hi, ei])
+    roi_valid = torch.cat([pos_ok, hard_ok, easy_ok])
+    is_pos = torch.cat([pos_ok, torch.zeros(n_neg, dtype=torch.bool, device=pos_ok.device)])
+    rois = proposals[idx]
+    matched_gt = best_gt[idx]
+    roi_cls = torch.where(is_pos, gt_classes[matched_gt].long(), 0)
+    box_tgt = box_deltas_inverse(rois, gt_boxes[matched_gt]) / _bbox_std(rois.device)
+    box_tgt = torch.where(is_pos[:, None], box_tgt, 0.0)
+    return rois, roi_cls, box_tgt, is_pos, roi_valid, matched_gt
+
+
+# ----------------------------------------------------------------------------
 # Full model
 # ----------------------------------------------------------------------------
 
@@ -224,15 +341,34 @@ class MaskRCNN(nn.Module):
                              persistent=False)
         self.register_buffer("bbox_std", torch.from_numpy(BBOX_STD), persistent=False)
 
-    def features(self, image: torch.Tensor) -> list:
+    def features(self, image: torch.Tensor, stats: dict | None = None) -> list:
         """P2..P6 of image [H, W, 3] f32 (0..255), channels last."""
         x = (image - self.mean_pixel).permute(2, 0, 1)[None]     # NCHW view, NHWC memory
-        return self.backbone(x.contiguous(memory_format=torch.channels_last))
+        return self.backbone(x.contiguous(memory_format=torch.channels_last), stats)
+
+    def backbone_stats(self, image: torch.Tensor) -> dict:
+        """One backbone pass in batch-statistics mode, every layer normalised
+        by its own batch statistics (as calibrate_batch_stats runs it).
+        Returns {BatchNorm module: (mean, var)}."""
+        stats: dict = {}
+        self.features(image, stats)
+        return stats
 
     def rpn_outputs(self, feats: list) -> tuple[torch.Tensor, torch.Tensor]:
         """Objectness [A] and deltas [A, 4] over every level, anchor order."""
         outs = [self.rpn(f) for f in feats]
         return torch.cat([o[0][0] for o in outs]), torch.cat([o[1][0] for o in outs])
+
+    def proposals(self, logits: torch.Tensor, deltas: torch.Tensor):
+        """ProposalLayer: the top pre_nms anchors by objectness, decoded and
+        clipped, then NMS at 0.7 down to post_nms. Returns (rois [post_nms, 4],
+        valid [post_nms] bool)."""
+        H, W = self.image_hw
+        top_s, top_i = top_k_stable(logits, self.pre_nms)
+        props = _clip_boxes(apply_deltas(self.anchors[top_i], deltas[top_i] * self.bbox_std),
+                            H, W)
+        keep = dk.nms_fixed(props, top_s.contiguous(), 0.7, self.post_nms)
+        return props[keep.clamp(min=0)], keep >= 0
 
     def forward(self, image: torch.Tensor, score_th: float = 0.7) -> dict:
         """image [H, W, 3] f32 (0..255). Returns fixed-size detections:
@@ -240,15 +376,7 @@ class MaskRCNN(nn.Module):
         valid [D] bool."""
         H, W = self.image_hw
         feats = self.features(image)
-        logits, deltas = self.rpn_outputs(feats)
-
-        # proposals: top pre_nms by objectness -> decode -> NMS -> post_nms
-        top_s, top_i = top_k_stable(logits, self.pre_nms)
-        props = _clip_boxes(apply_deltas(self.anchors[top_i], deltas[top_i] * self.bbox_std),
-                            H, W)
-        keep = dk.nms_fixed(props, top_s.contiguous(), 0.7, self.post_nms)
-        rois = props[keep.clamp(min=0)]
-        roi_valid = keep >= 0
+        rois, roi_valid = self.proposals(*self.rpn_outputs(feats))
 
         # box head
         flat, shapes = dk.flatten_levels(feats)
@@ -273,6 +401,103 @@ class MaskRCNN(nn.Module):
                                            det_cls]).contiguous()
         return {"boxes": det_boxes, "classes": det_cls.to(torch.int32),
                 "scores": score[det_rows] * det_valid, "masks": det_masks, "valid": det_valid}
+
+    # ------------------------------------------------------------------
+    # Training losses (model.py's rpn_*_loss and mrcnn_*_loss graphs)
+    # ------------------------------------------------------------------
+
+    def _rpn_losses(self, logits, deltas, gt_boxes, gt_valid):
+        """RPN objectness and box losses towards IoU-matched anchors: positive
+        above 0.5 (and every valid gt's best anchor), negative below 0.3."""
+        A = self.anchors.shape[0]
+        iou = box_iou(self.anchors, gt_boxes) * gt_valid[None, :]
+        best_iou, best_gt = iou.amax(1), iou.argmax(1)       # argmax: the first maximum
+        pos = best_iou > 0.5
+        # every gt's single best anchor is positive even below the threshold;
+        # two gts with one best anchor write it twice, and the last write
+        # stands, as in XLA's scatter
+        top = iou.argmax(0)
+        pos = scatter_rows(pos, top, pos[top] | gt_valid, last_writer(top, gt_valid, A))
+        neg = best_iou < 0.3
+        bce = sigmoid_bce(logits, pos.to(logits.dtype))
+        n_pos = torch.clamp(pos.sum(), min=1)
+        rpn_cls = torch.where(pos, bce, 0).sum() / n_pos + \
+            torch.where(neg, bce, 0).sum() / torch.clamp(neg.sum(), min=1)
+        tgt = box_deltas_inverse(self.anchors, gt_boxes[best_gt]) / self.bbox_std
+        rpn_box = torch.where(pos[:, None], huber(deltas - tgt), 0).sum() / n_pos
+        return rpn_cls, rpn_box
+
+    def train_losses(self, image, gt_boxes, gt_classes, gt_mask, gt_valid) -> torch.Tensor:
+        """The total training loss with the heads teacher-forced on the gt
+        boxes, plus background ROIs for the class head (the full image, two
+        quadrants and the gt boxes shifted down by 1.5 heights, each kept if
+        its IoU with every gt is below 0.3). image [H, W, 3] f32, gt_boxes
+        [G, 4] (y1, x1, y2, x2), gt_classes [G], gt_mask [H, W], gt_valid [G]
+        bool."""
+        H, W = self.image_hw
+        feats = self.features(image)
+        rpn_cls, rpn_box = self._rpn_losses(*self.rpn_outputs(feats), gt_boxes, gt_valid)
+        G = gt_boxes.shape[0]
+        f32 = dict(dtype=torch.float32, device=gt_boxes.device)
+        h = gt_boxes[:, 2] - gt_boxes[:, 0]
+        shift = torch.stack([h, torch.zeros_like(h), h, torch.zeros_like(h)], -1) * 1.5
+        fixed = torch.tensor([[0.0, 0.0, H, W], [0.0, 0.0, H / 2, W / 2], [H / 2, W / 2, H, W]],
+                             **f32)
+        lim = torch.tensor([H, W, H, W], **f32)
+        neg_boxes = torch.cat([fixed, torch.minimum(torch.clamp(gt_boxes + shift, min=0.0), lim)])
+        neg_valid = (box_iou(neg_boxes, gt_boxes) * gt_valid[None, :]).amax(1) < 0.3
+        roi_boxes = torch.cat([gt_boxes, neg_boxes])
+        roi_classes = torch.cat([gt_classes, gt_classes.new_zeros(neg_boxes.shape[0])]).long()
+        roi_valid = torch.cat([gt_valid, neg_valid])
+        flat, shapes = dk.flatten_levels(feats)
+        cls_logits, box_d_all = self.box_head(dk.roi_align(flat, shapes, roi_boxes, 7))
+        R = roi_boxes.shape[0]
+        ce = -torch.log_softmax(cls_logits, -1)[torch.arange(R, device=roi_boxes.device),
+                                                roi_classes]
+        head_cls = torch.where(roi_valid, ce, 0).sum() / torch.clamp(roi_valid.sum(), min=1)
+        cls = gt_classes.long()
+        rows = torch.arange(G, device=gt_boxes.device)
+        # with the gt boxes as ROIs the target deltas are zero
+        d_sel = box_d_all[:G][rows, cls]
+        head_box = torch.where(gt_valid[:, None], huber(d_sel), 0).sum() / \
+            torch.clamp(gt_valid.sum() * 4, min=1)
+        m_sel = self.mask_head(dk.roi_align(flat, shapes, gt_boxes, 14))[rows, cls]
+        mbce = sigmoid_bce(m_sel, crop_mask(gt_mask, gt_boxes, 28))
+        head_mask = torch.where(gt_valid[:, None, None], mbce, 0).sum() / \
+            torch.clamp(gt_valid.sum() * 28 * 28, min=1)
+        return rpn_cls + rpn_box + head_cls + head_box + head_mask
+
+    def train_losses_sampled(self, image, gt_boxes, gt_classes, gt_mask, gt_valid,
+                             n_rois: int = 64, pos_ratio: float = 0.33) -> dict:
+        """The reference's full training graph: the RPN losses of
+        train_losses plus the heads on RPN proposals sampled at a fixed
+        positive ratio (ProposalLayer + detection_targets). The proposals are
+        training data, not a differentiable path: they are computed without
+        gradient (the JAX stop_gradient). Returns the named losses: total,
+        rpn_class, rpn_box, head_class, head_box, head_mask, n_pos_rois."""
+        feats = self.features(image)
+        logits, deltas = self.rpn_outputs(feats)
+        rpn_cls, rpn_box = self._rpn_losses(logits, deltas, gt_boxes, gt_valid)
+        with torch.no_grad():
+            proposals, prop_valid = self.proposals(logits.detach(), deltas.detach())
+        rois, roi_cls, box_tgt, is_pos, roi_valid, _ = detection_targets(
+            proposals, prop_valid, gt_boxes, gt_classes, gt_valid, n_rois=n_rois,
+            pos_ratio=pos_ratio)
+        flat, shapes = dk.flatten_levels(feats)
+        cls_logits, box_d_all = self.box_head(dk.roi_align(flat, shapes, rois, 7))
+        rows = torch.arange(rois.shape[0], device=rois.device)
+        ce = -torch.log_softmax(cls_logits, -1)[rows, roi_cls]
+        head_cls = torch.where(roi_valid, ce, 0).sum() / torch.clamp(roi_valid.sum(), min=1)
+        head_box = torch.where(is_pos[:, None], huber(box_d_all[rows, roi_cls] - box_tgt),
+                               0).sum() / torch.clamp(is_pos.sum() * 4, min=1)
+        m_sel = self.mask_head(dk.roi_align(flat, shapes, rois, 14))[rows, roi_cls]
+        mbce = sigmoid_bce(m_sel, crop_mask(gt_mask, rois, 28))
+        head_mask = torch.where(is_pos[:, None, None], mbce, 0).sum() / \
+            torch.clamp(is_pos.sum() * 28 * 28, min=1)
+        total = rpn_cls + rpn_box + head_cls + head_box + head_mask
+        return {"total": total, "rpn_class": rpn_cls, "rpn_box": rpn_box,
+                "head_class": head_cls, "head_box": head_box, "head_mask": head_mask,
+                "n_pos_rois": is_pos.sum().to(torch.float32)}
 
 
 # ----------------------------------------------------------------------------
@@ -329,11 +554,9 @@ def _leaves(model: nn.Module):
             yield key, modules[scope], leaf
 
 
-def maskrcnn_from_numpy(flat: dict, image_hw=(480, 640), blocks=(3, 4, 6, 3),
-                        device="cuda", **kw) -> MaskRCNN:
-    """A MaskRCNN in eval mode on `device` (channels last) holding the
-    variables `flat` ({flax path: array}, as load_variables returns them)."""
-    model = MaskRCNN(image_hw=image_hw, blocks=blocks, **kw)
+def set_variables(model: MaskRCNN, flat: dict) -> MaskRCNN:
+    """Load the variables `flat` ({flax path: array}, as load_variables
+    returns them) into `model`, in place."""
     shapes = {k: v.shape for k, v in model.state_dict().items()}
     state = {}
     for key, module, leaf in _leaves(model):
@@ -347,15 +570,24 @@ def maskrcnn_from_numpy(flat: dict, image_hw=(480, 640), blocks=(3, 4, 6, 3),
     used = {_flax_key(k) for k, _, _ in _leaves(model)}
     extra = sorted(set(flat) - used - {"__meta__"})
     if extra:
-        raise ValueError(f"variables not in a blocks={tuple(blocks)} model: {extra[:4]}")
+        raise ValueError(f"variables not in a blocks={model.blocks} model: {extra[:4]}")
     model.load_state_dict(state, strict=False)
+    return model
+
+
+def maskrcnn_from_numpy(flat: dict, image_hw=(480, 640), blocks=(3, 4, 6, 3),
+                        device="cuda", **kw) -> MaskRCNN:
+    """A MaskRCNN in eval mode on `device` (channels last) holding the
+    variables `flat` ({flax path: array}, as load_variables returns them)."""
+    model = set_variables(MaskRCNN(image_hw=image_hw, blocks=blocks, **kw), flat)
     return model.eval().to(device=device, memory_format=torch.channels_last)
 
 
 def variables_to_numpy(model: MaskRCNN) -> dict:
-    """{flax path: array} of a model (the inverse of maskrcnn_from_numpy)."""
+    """{flax path: array} of a model (the inverse of maskrcnn_from_numpy),
+    copies that later training of the model leaves as they are."""
     state = model.state_dict()
-    return {_flax_key(k): _from_torch_layout(m, leaf, state[k].detach().cpu().numpy())
+    return {_flax_key(k): np.array(_from_torch_layout(m, leaf, state[k].detach().cpu().numpy()))
             for k, m, leaf in _leaves(model)}
 
 
@@ -409,6 +641,167 @@ def load_meta(path: str) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# Training: frozen-BN calibration and the fits
+# ----------------------------------------------------------------------------
+
+def exact_cudnn():
+    """cuDNN with its deterministic algorithms and no TF32: the transposed
+    conv (a convolution's backward-data) and the weight gradients of the
+    convolutions otherwise sum by atomics, in an order that changes from run
+    to run."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                      allow_tf32=False)
+
+
+@torch.no_grad()
+def calibrate_batch_stats(model: MaskRCNN, images, passes: int = 2) -> MaskRCNN:
+    """Set the frozen-BN running statistics from real activation
+    statistics, as the JAX calibrate_batch_stats does: each pass runs the
+    backbone on every image in batch-statistics mode (each layer's
+    statistics taken under the previous layers' batch normalisation) and
+    assigns the mean over the images to every BatchNorm's running mean and
+    variance (flax's momentum 0). images [B, H, W, 3]. In place; returns
+    the model."""
+    images = torch.as_tensor(images, dtype=torch.float32, device=model.anchors.device)
+    for _ in range(passes):
+        with exact_cudnn():
+            runs = [model.backbone_stats(images[i]) for i in range(images.shape[0])]
+        for bn in runs[0]:
+            bn.running_mean.copy_(torch.stack([r[bn][0] for r in runs]).mean(0))
+            bn.running_var.copy_(torch.stack([r[bn][1] for r in runs]).mean(0))
+    return model
+
+
+def _train_params(model: MaskRCNN) -> list:
+    """The trained parameters in the order of their flax paths (the order
+    optax walks the tree in, for the global norm's sum)."""
+    named = [(_flax_key(k), p) for k, p in model.named_parameters()]
+    return [p for _, p in sorted(named, key=lambda kp: kp[0])]
+
+
+def _clip_by_global_norm(grads: list, max_norm: float = 5.0) -> list:
+    """optax.clip_by_global_norm: every gradient scaled by max_norm / g_norm
+    when the global norm g_norm reaches max_norm, else left as it is."""
+    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    return [torch.where(g_norm < max_norm, g, (g / g_norm) * max_norm) for g in grads]
+
+
+class _Adam:
+    """optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8 outside the root,
+    bias-corrected), in optax's order of operations."""
+
+    def __init__(self, params: list, lr: float, b1=0.9, b2=0.999, eps=1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+        self.count = 0
+
+    def step(self, params: list, grads: list) -> None:
+        self.count += 1
+        bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(self.count))
+        bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(self.count))
+        for p, g, mu, nu in zip(params, grads, self.mu, self.nu):
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            p.add_(update * -self.lr)
+
+
+class _SgdMomentum:
+    """optax.sgd(lr, momentum): trace = g + momentum * trace, step -lr *
+    trace."""
+
+    def __init__(self, params: list, lr: float, momentum: float = 0.9):
+        self.lr, self.momentum = lr, momentum
+        self.trace = [torch.zeros_like(p) for p in params]
+
+    def step(self, params: list, grads: list) -> None:
+        for p, g, t in zip(params, grads, self.trace):
+            t.copy_(g + self.momentum * t)
+            p.add_(t * -self.lr)
+
+
+def _fit_setup(model: MaskRCNN, variables: dict, images, boxes, classes, masks, valids,
+               calibrate: bool):
+    """Load the variables, calibrate, move the data to the model's device."""
+    set_variables(model, variables)
+    model.eval()
+    dev = model.anchors.device
+    data = (torch.as_tensor(images, dtype=torch.float32, device=dev),
+            torch.as_tensor(boxes, dtype=torch.float32, device=dev),
+            torch.as_tensor(classes, dtype=torch.int64, device=dev),
+            torch.as_tensor(masks, dtype=torch.float32, device=dev),
+            torch.as_tensor(valids, dtype=torch.bool, device=dev))
+    if calibrate:
+        calibrate_batch_stats(model, data[0])
+    return data
+
+
+def _apply_step(model: MaskRCNN, params: list, opt, loss: torch.Tensor) -> None:
+    """Backward, global-norm clip at 5.0 (config.py GRADIENT_CLIP_NORM),
+    then the optimizer's step."""
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    grads = _clip_by_global_norm([p.grad for p in params], 5.0)
+    with torch.no_grad():
+        opt.step(params, grads)
+
+
+def train_toy(model: MaskRCNN, variables: dict, images, boxes, classes, masks, valids,
+              steps: int = 100, lr: float = 1e-3, seed: int = 0,
+              calibrate: bool = True) -> dict:
+    """Few-epoch fit on synthetic data (the JAX train_toy): train_losses on
+    image step % B each step, clipped Adam. images [B, H, W, 3]; boxes
+    [B, G, 4]; classes [B, G]; masks [B, H, W]; valids [B, G]. `variables`
+    ({flax path: array}) are loaded into `model` first, and the model
+    trains in place in eval mode (frozen BN statistics, trained BN scale and
+    bias). calibrate=False keeps the incoming BN statistics (fine-tuning
+    converted weights). Returns the trained {flax path: array}."""
+    images, boxes, classes, masks, valids = _fit_setup(model, variables, images, boxes, classes,
+                                                       masks, valids, calibrate)
+    params = _train_params(model)
+    opt = _Adam(params, lr)
+    B = images.shape[0]
+    with exact_cudnn():
+        for step in range(steps):
+            i = step % B
+            loss = model.train_losses(images[i], boxes[i], classes[i], masks[i], valids[i])
+            _apply_step(model, params, opt, loss)
+    return variables_to_numpy(model)
+
+
+def train_sampled(model: MaskRCNN, variables: dict, images, boxes, classes, masks, valids,
+                  steps: int = 100, lr: float = 1e-3, batch: int = 2, seed: int = 0,
+                  with_components: bool = False, calibrate: bool = True):
+    """Batched proposal-sampled training (the JAX train_sampled): each step
+    the mean over a minibatch of train_losses_sampled (the images of
+    np.random.default_rng(seed).permutation(B), taken `batch` at a time
+    round the permutation), clipped SGD with momentum 0.9. Arguments as
+    train_toy's. Returns (variables, per-step total losses), and the
+    per-step named losses with with_components=True."""
+    images, boxes, classes, masks, valids = _fit_setup(model, variables, images, boxes, classes,
+                                                       masks, valids, calibrate)
+    params = _train_params(model)
+    opt = _SgdMomentum(params, lr, 0.9)
+    B = images.shape[0]
+    order = np.random.default_rng(seed).permutation(B)
+    steps_out = []
+    with exact_cudnn():
+        for step in range(steps):
+            sel = order[np.arange(step * batch, (step + 1) * batch) % B]
+            per = [model.train_losses_sampled(images[i], boxes[i], classes[i], masks[i],
+                                              valids[i]) for i in sel]
+            comps = {k: torch.stack([c[k] for c in per]).mean() for k in per[0]}
+            _apply_step(model, params, opt, comps["total"])
+            steps_out.append({k: v.detach() for k, v in comps.items()})
+    components = [{k: float(v) for k, v in c.items()} for c in steps_out]
+    losses = [c["total"] for c in components]
+    if with_components:
+        return variables_to_numpy(model), losses, components
+    return variables_to_numpy(model), losses
+
+
+# ----------------------------------------------------------------------------
 # The segmenter callable
 # ----------------------------------------------------------------------------
 
@@ -455,10 +848,7 @@ class TorchSegmenter:
         """The detections of an [H, W, 3] image tensor on the device, boxes
         in its pixels."""
         im = mold(rgb, self.infer_hw)
-        # cuDNN's deterministic algorithms: the transposed conv runs as a
-        # convolution's backward-data, whose default algorithm sums by atomics
-        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
-                                        allow_tf32=False):
+        with exact_cudnn():
             det = self.model(im.contiguous(), score_th)
         return {**det, "boxes": det["boxes"] * self._scale}
 

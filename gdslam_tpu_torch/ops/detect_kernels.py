@@ -1,14 +1,16 @@
 """The detection stages of Mask R-CNN as hand-written CUDA kernels
-(`csrc/nms_fixed.cu`, `csrc/roi_align.cu`, `csrc/paste_masks.cu`) and their
-plain PyTorch twins.
+(`csrc/nms_fixed.cu`, `csrc/roi_align.cu`, `csrc/roi_align_backward.cu`,
+`csrc/paste_masks.cu`) and their plain PyTorch twins.
 
 Ports of three stages that XLA fuses in the JAX package
 (`gdslam_tpu/models/maskrcnn.py`): `nms_fixed` (:202), fixed-budget greedy
-NMS; `roi_align` (:222), the bilinear crop from the FPN level chosen per box;
-`paste_masks` (:744), the union of the dynamic-class instance masks pasted
-at full resolution. Each wrapper takes its plain version only for tensors on
-the CPU; for a CUDA tensor it launches its kernel or raises, and counts its
-launches in `<wrapper>.launches`. The kernels are built at first use by
+NMS; `roi_align` (:222), the bilinear crop from the FPN level chosen per box,
+differentiable with respect to the levels (its gradient, the transpose
+jax.grad builds, is `roi_align_backward`); `paste_masks` (:744), the union
+of the dynamic-class instance masks pasted at full resolution. Each wrapper
+takes its plain version only for tensors on the CPU; for a CUDA tensor it
+launches its kernel or raises, and counts its launches in
+`<wrapper>.launches`. The kernels are built at first use by
 `ops/cuda_build.py`.
 
 The arithmetic that decides a comparison is kept in the JAX order, without
@@ -37,6 +39,7 @@ def _declare(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {"nms_fixed_launch": [p, p, i, f, i, p],
             "roi_align_launch": [p, i, p, p, p, p, p, i, i, p],
+            "roi_align_backward_launch": [p, i, p, p, p, p, i, i, p],
             "paste_masks_launch": [p, p, p, i, i, i, f, p]}
     for name, args in sigs.items():
         fn = getattr(lib, name, None)
@@ -176,32 +179,49 @@ def roi_prologue(shapes, boxes: torch.Tensor, out_size: int):
     return info, y0.to(torch.int32), x0.to(torch.int32), y - y0, x - x0
 
 
-def roi_align_plain(flat, shapes, boxes, out_size: int) -> torch.Tensor:
-    """The crop in plain PyTorch: [R, out, out, C], channels last."""
-    info, y0, x0, fy, fx = roi_prologue(shapes, boxes, out_size)
-    off = info[:, 0, None, None].long()
-    fh, fw = info[:, 1, None].long(), info[:, 2, None].long()
+def tap_rows(info, y0, x0, dy: int, dx: int) -> torch.Tensor:
+    """[R, out, out] int64: the row of flat that tap (dy, dx) of every bin
+    reads, its sample row and column clamped to the box's level."""
+    off, h, w = (info[:, k, None, None].long() for k in range(3))           # [R, 1, 1]
+    yi = torch.minimum(torch.clamp(y0.long() + dy, min=0)[:, :, None], h - 1)
+    xi = torch.minimum(torch.clamp(x0.long() + dx, min=0)[:, None, :], w - 1)
+    return off + yi * w + xi
+
+
+def roi_align_plain(flat, shapes, boxes, out_size: int, prologue=None) -> torch.Tensor:
+    """The crop in plain PyTorch: [R, out, out, C], channels last.
+    `prologue` is roi_prologue(shapes, boxes, out_size) where the caller
+    holds it."""
+    info, y0, x0, fy, fx = prologue or roi_prologue(shapes, boxes, out_size)
     fy, fx = fy[:, :, None, None], fx[:, None, :, None]
-
-    def tap(yi, xi):
-        yi = torch.minimum(torch.clamp(yi.long(), min=0), fh - 1)[:, :, None]
-        xi = torch.minimum(torch.clamp(xi.long(), min=0), fw - 1)[:, None, :]
-        return flat[off + yi * fw[:, :, None] + xi]
-
-    return (tap(y0, x0) * (1 - fy) * (1 - fx)
-            + tap(y0, x0 + 1) * (1 - fy) * fx
-            + tap(y0 + 1, x0) * fy * (1 - fx)
-            + tap(y0 + 1, x0 + 1) * fy * fx)
+    tap = lambda dy, dx: flat[tap_rows(info, y0, x0, dy, dx)]
+    return (tap(0, 0) * (1 - fy) * (1 - fx)
+            + tap(0, 1) * (1 - fy) * fx
+            + tap(1, 0) * fy * (1 - fx)
+            + tap(1, 1) * fy * fx)
 
 
 def roi_align(flat, shapes, boxes, out_size: int) -> torch.Tensor:
     """ROIAlign over P2..P5: flat [S, C] f32 (`flatten_levels`), boxes
     [R, 4] f32 in image pixels. Returns [R, out, out, C] f32, channels last.
-    One launch on the card (the prologue is a few small PyTorch ops)."""
+    One launch on the card (the prologue is a few small PyTorch ops).
+    Differentiable with respect to flat (`roi_align_backward`); the boxes
+    get no gradient (they are ground truth or detached proposals), and
+    boxes that require one are refused."""
+    name = "roi_align"
+    if torch.is_grad_enabled() and (flat.requires_grad or boxes.requires_grad):
+        if boxes.requires_grad:
+            raise ValueError(f"{name}: the boxes get no gradient; pass them detached")
+        return _RoiAlignGrad.apply(flat, boxes, tuple(shapes), out_size)
+    return _roi_align(flat, shapes, boxes, out_size)
+
+
+def _roi_align(flat, shapes, boxes, out_size: int, prologue=None) -> torch.Tensor:
+    """roi_align's forward, on the prologue it was given if any."""
     name = "roi_align"
     device = _device(name, flat)
     if device.type == "cpu":
-        return roi_align_plain(flat, shapes, boxes, out_size)
+        return roi_align_plain(flat, shapes, boxes, out_size, prologue)
     S, C = flat.shape
     R = boxes.shape[0]
     if C % 4 or S != sum(a * b for a, b in shapes):
@@ -212,7 +232,7 @@ def roi_align(flat, shapes, boxes, out_size: int) -> torch.Tensor:
     lib = _library(name)
     if flat.data_ptr() % 16:
         raise ValueError(f"{name}: flat must be 16-byte aligned")
-    info, y0, x0, fy, fx = roi_prologue(shapes, boxes, out_size)
+    info, y0, x0, fy, fx = prologue or roi_prologue(shapes, boxes, out_size)
     out = torch.empty((R, out_size, out_size, C), dtype=torch.float32, device=device)
     if R:
         cuda_build.launch(name, device, lib.roi_align_launch, flat.data_ptr(), C,
@@ -223,6 +243,116 @@ def roi_align(flat, shapes, boxes, out_size: int) -> torch.Tensor:
 
 
 roi_align.launches = 0
+
+
+class _RoiAlignGrad(torch.autograd.Function):
+    """roi_align with its gradient: the forward kernel, and a backward
+    kernel that scatters the cotangent back onto the levels, both on the
+    one prologue the forward computes."""
+
+    @staticmethod
+    def forward(ctx, flat, boxes, shapes, out_size):
+        prologue = roi_prologue(shapes, boxes, out_size)
+        ctx.shapes = shapes
+        ctx.save_for_backward(boxes, *prologue)
+        return _roi_align(flat, shapes, boxes, out_size, prologue)
+
+    @staticmethod
+    def backward(ctx, grad):
+        boxes, *prologue = ctx.saved_tensors
+        return (roi_align_backward(grad.contiguous(), ctx.shapes, boxes, tuple(prologue)),
+                None, None, None)
+
+
+def roi_backward_prologue(prologue):
+    """The backward's contributions, shared by both routes, from the
+    forward's roi_prologue. Contribution (tap, box r, bin i, bin j) sends
+    (g[r, i, j] * b) * a to row `target` of flat, where the forward's term
+    is (flat[target] * a) * b: a the row factor, b the column factor. Ids
+    are tap-major in the order the JAX transpose adds its four scatter-adds
+    (taps (1, 1), (1, 0), (0, 1), (0, 0)), then r, i, j. Returns (target
+    [N] int32 and order [N] int32, the target rows sorted stably and the id
+    of each sorted entry; fa, fb [N] f32 by id), N = 4 R out^2."""
+    info, y0, x0, fy, fx = prologue
+    R, o = y0.shape
+    targets, fa, fb = [], [], []
+    for dy, dx in ((1, 1), (1, 0), (0, 1), (0, 0)):
+        targets.append(tap_rows(info, y0, x0, dy, dx).reshape(-1))
+        fa.append((fy if dy else 1 - fy)[:, :, None].expand(R, o, o).reshape(-1))
+        fb.append((fx if dx else 1 - fx)[:, None, :].expand(R, o, o).reshape(-1))
+    target, order = torch.sort(torch.cat(targets), stable=True)
+    return target.to(torch.int32), order.to(torch.int32), torch.cat(fa), torch.cat(fb)
+
+
+def roi_align_backward_plain(grad, shapes, boxes, prologue=None) -> torch.Tensor:
+    """The gradient of roi_align with respect to flat in plain PyTorch:
+    [S, C]. Each target row sums its contributions in the sorted order, tap
+    by tap into a partial sum and the partial sums in turn into the total,
+    one position of every run at a time: the kernel's order, so both give
+    the same bits. `prologue` as roi_align_backward's."""
+    R, o = grad.shape[:2]
+    C = grad.shape[-1]
+    bins = R * o * o
+    target, order, fa, fb = roi_backward_prologue(prologue or roi_prologue(shapes, boxes, o))
+    out = torch.zeros((sum(a * b for a, b in shapes), C), dtype=grad.dtype, device=grad.device)
+    n = target.shape[0]
+    if n == 0:
+        return out
+    g = grad.reshape(bins, C)
+    order = order.long()
+    tap = order // bins
+    starts = torch.ones(n, dtype=torch.bool, device=grad.device)
+    starts[1:] = target[1:] != target[:-1]
+    first = torch.nonzero(starts)[:, 0]
+    length = torch.diff(first, append=first.new_tensor([n]))
+    total = torch.zeros((first.shape[0], C), dtype=grad.dtype, device=grad.device)
+    part = torch.zeros_like(total)
+    for k in range(int(length.max())):
+        run = torch.nonzero(length > k)[:, 0]
+        at = first[run] + k
+        if k:
+            new = run[tap[at] != tap[at - 1]]
+            total[new] = total[new] + part[new]
+            part[new] = 0
+        c = order[at]
+        part[run] = part[run] + (g[c - tap[at] * bins] * fb[c, None]) * fa[c, None]
+    out[target[first].long()] = total + part
+    return out
+
+
+def roi_align_backward(grad, shapes, boxes, prologue=None) -> torch.Tensor:
+    """The gradient of roi_align(flat, shapes, boxes, out) with respect to
+    flat: grad [R, out, out, C] f32 (contiguous, C a multiple of 4), boxes
+    [R, 4] f32. Returns [S, C] f32, S = sum(h * w) of the levels.
+    `prologue` is roi_prologue(shapes, boxes, out) where the caller holds it
+    (the forward's, in autograd). One launch on the card after the
+    contributions' prologue (a sort of the 4 R out^2 target rows); the sums
+    are in a fixed order, with no atomics."""
+    name = "roi_align_backward"
+    device = _device(name, grad)
+    if device.type == "cpu":
+        return roi_align_backward_plain(grad, shapes, boxes, prologue)
+    if grad.dim() != 4 or grad.shape[1] != grad.shape[2]:
+        raise ValueError(f"{name}: grad must be [R, out, out, C], got {tuple(grad.shape)}")
+    R, o, _, C = grad.shape
+    if C % 4:
+        raise ValueError(f"{name}: C = {C} is not a multiple of 4")
+    cuda_build.check(name, "grad", grad, torch.float32, (R, o, o, C), device)
+    cuda_build.check(name, "boxes", boxes, torch.float32, (R, 4), device)
+    lib = _library(name)
+    if grad.data_ptr() % 16:
+        raise ValueError(f"{name}: grad must be 16-byte aligned")
+    out = torch.zeros((sum(a * b for a, b in shapes), C), dtype=torch.float32, device=device)
+    if R:
+        target, order, fa, fb = roi_backward_prologue(prologue or roi_prologue(shapes, boxes, o))
+        cuda_build.launch(name, device, lib.roi_align_backward_launch, grad.data_ptr(), C,
+                          target.data_ptr(), order.data_ptr(), fa.data_ptr(), fb.data_ptr(),
+                          target.shape[0], R * o * o, out.data_ptr())
+        roi_align_backward.launches += 1
+    return out
+
+
+roi_align_backward.launches = 0
 
 
 # ----------------------------------------------------------------------------
@@ -312,7 +442,7 @@ def paste_masks(det: dict, image_hw, dynamic_only: bool = True,
 
 paste_masks.launches = 0
 
-WRAPPERS = (nms_fixed, roi_align, paste_masks)
+WRAPPERS = (nms_fixed, roi_align, roi_align_backward, paste_masks)
 
 
 def reset_launch_counts() -> None:

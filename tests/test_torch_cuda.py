@@ -714,6 +714,49 @@ def test_roi_align_kernel_equals_plain(card, R, out_size):
     assert torch.equal(got, detect_kernels.roi_align_plain(flat, shapes, boxes, out_size))
 
 
+@pytest.mark.parametrize("R, out_size", [(64, 7), (64, 14), (1, 7)])
+def test_roi_align_backward_kernel_equals_plain(card, R, out_size):
+    """The ROIAlign gradient at the training shapes (the box head's and the
+    mask head's) on the levels of a 240 x 320 image, boxes on all four
+    levels, beyond the image and repeated (long runs of one row): bit for
+    bit against the plain twin, the same bits on a second call, one launch
+    per call."""
+    r = np.random.default_rng(R + out_size)
+    shapes = ((60, 80), (30, 40), (15, 20), (8, 10))
+    sides = np.exp(r.uniform(np.log(4), np.log(1000), R))
+    ys, xs = r.uniform(-20, 240, R), r.uniform(-20, 320, R)
+    boxes = np.stack([ys, xs, ys + sides, xs + sides * r.uniform(0.5, 2, R)], -1)
+    boxes[R // 2:] = boxes[0] + r.normal(0, 0.2, (R - R // 2, 4))
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(card)
+    grad = torch.from_numpy(r.normal(0, 1, (R, out_size, out_size, 256))
+                            .astype(np.float32)).to(card)
+    before = detect_kernels.roi_align_backward.launches
+    got = detect_kernels.roi_align_backward(grad, shapes, boxes)
+    again = detect_kernels.roi_align_backward(grad, shapes, boxes)
+    assert detect_kernels.roi_align_backward.launches == before + 2
+    assert got.shape == (sum(a * b for a, b in shapes), 256)
+    assert torch.equal(got, again)
+    assert torch.equal(got, detect_kernels.roi_align_backward_plain(grad, shapes, boxes))
+
+
+def test_roi_align_gradient_flows_through_the_kernels(card):
+    """roi_align on levels that require a gradient: the forward and the
+    backward kernel each launch once, and the levels' gradient is the plain
+    twin's on the same cotangent."""
+    r = np.random.default_rng(3)
+    shapes = ((60, 80), (30, 40), (15, 20), (8, 10))
+    flat = torch.from_numpy(r.normal(0, 1, (sum(a * b for a, b in shapes), 256))
+                            .astype(np.float32)).to(card).requires_grad_()
+    boxes = torch.tensor([[10.0, 20.0, 90.0, 150.0], [-5.0, -5.0, 250.0, 330.0]], device=card)
+    before = (detect_kernels.roi_align.launches, detect_kernels.roi_align_backward.launches)
+    crop = detect_kernels.roi_align(flat, shapes, boxes, 14)
+    g = torch.ones_like(crop)
+    crop.backward(g)
+    assert (detect_kernels.roi_align.launches, detect_kernels.roi_align_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(flat.grad, detect_kernels.roi_align_backward_plain(g, shapes, boxes))
+
+
 @pytest.mark.parametrize("D, hw", [(32, (480, 640)), (8, (120, 160)), (0, (48, 64))])
 def test_paste_kernel_equals_plain(card, D, hw):
     """The union of the pasted masks: equal on every pixel but those within
@@ -731,7 +774,7 @@ def test_paste_kernel_equals_plain(card, D, hw):
     assert not ((got != want) & ~near).any()
 
 
-@pytest.mark.parametrize("name", ["nms_fixed", "roi_align", "paste_masks"])
+@pytest.mark.parametrize("name", ["nms_fixed", "roi_align", "roi_align_backward", "paste_masks"])
 def test_detect_wrappers_raise_without_the_library(card, monkeypatch, name):
     """On real CUDA tensors: with the library loader failing each wrapper
     raises, counts no launch and never takes its plain version."""
@@ -751,6 +794,9 @@ def test_detect_wrappers_raise_without_the_library(card, monkeypatch, name):
             "roi_align": lambda: detect_kernels.roi_align(torch.zeros(24, 8, **f),
                                                           ((4, 4), (2, 2), (1, 2), (1, 2)),
                                                           torch.zeros(3, 4, **f), 7),
+            "roi_align_backward": lambda: detect_kernels.roi_align_backward(
+                torch.zeros(3, 7, 7, 8, **f), ((4, 4), (2, 2), (1, 2), (1, 2)),
+                torch.zeros(3, 4, **f)),
             "paste_masks": lambda: detect_kernels.paste_masks(det, (32, 32))}[name]
     wrapper = getattr(detect_kernels, name)
     before = wrapper.launches
@@ -787,3 +833,41 @@ def test_segmenter_on_card_equals_cpu_and_repeats(card):
         assert union == 0 or ((a > 0) & (c > 0)).sum() / union >= 0.95
     assert (detect_kernels.nms_fixed.launches, detect_kernels.roi_align.launches,
             detect_kernels.paste_masks.launches) == (12, 12, 6)
+
+
+def test_train_sampled_step_on_card_equals_cpu(card):
+    """One train_sampled step (calibration, the sampled losses, the backward
+    with the ROIAlign kernel, the clipped SGD step) of a blocks (1, 1, 1, 1)
+    model at 96 x 128 on the card against the same step on the CPU: the
+    loss to 1e-3 relative and the parameter update to 2% of its global
+    norm (cuDNN and the CPU sum the convolutions in other orders); twice on
+    the card with the same bits."""
+    r = np.random.default_rng(0)
+    hw = (96, 128)
+    images = r.uniform(0, 60, (2,) + hw + (3,)).astype(np.float32)
+    masks = np.zeros((2,) + hw, np.float32)
+    masks[0, 22:58, 32:68] = masks[1, 40:70, 65:95] = 1
+    images[masks > 0] = (220.0, 40.0, 40.0)
+    boxes = np.asarray([[[22, 32, 58, 68], [6, 4, 90, 124]], [[40, 65, 70, 95], [5, 5, 30, 40]]],
+                       np.float32)
+    classes = np.asarray([[1, 3], [1, 3]], np.int32)
+    valids = np.asarray([[True, True], [True, False]])
+    start = maskrcnn.init_variables((1, 1, 1, 1), seed=0)
+    kw = dict(pre_nms=64, post_nms=16, max_det=8)
+    runs = {}
+    for dev in ("cpu", card, card):
+        model = maskrcnn.maskrcnn_from_numpy(start, hw, (1, 1, 1, 1), dev, **kw)
+        before = detect_kernels.roi_align_backward.launches
+        out, losses = maskrcnn.train_sampled(model, start, images, boxes, classes, masks, valids,
+                                             steps=1, lr=1e-3)
+        if dev != "cpu":
+            assert detect_kernels.roi_align_backward.launches >= before + 4
+        runs.setdefault(str(dev), []).append((out, losses))
+    (cpu, cpu_l), = runs["cpu"]
+    (gpu, gpu_l), (gpu2, gpu2_l) = runs[str(card)]
+    assert gpu_l == gpu2_l and all(np.array_equal(gpu[k], gpu2[k]) for k in gpu)
+    assert abs(gpu_l[0] - cpu_l[0]) <= 1e-3 * abs(cpu_l[0])
+    keys = [k for k in cpu if k.startswith("params")]
+    du = np.concatenate([(gpu[k] - cpu[k]).ravel() for k in keys])
+    u = np.concatenate([(cpu[k] - start[k]).ravel() for k in keys])
+    assert np.linalg.norm(du) <= 0.02 * np.linalg.norm(u)

@@ -314,6 +314,12 @@ def _detect_calls():
                       lambda: detect_kernels.roi_align(flat.half(), shapes,
                                                        torch.empty(128, 4, **f), 7),
                       "flat"),
+        "roi_align_backward": (
+            lambda: detect_kernels.roi_align_backward(torch.empty(64, 14, 14, 256, **f), shapes,
+                                                      torch.empty(64, 4, **f)),
+            lambda: detect_kernels.roi_align_backward(torch.empty(64, 14, 14, 256, **f).half(),
+                                                      shapes, torch.empty(64, 4, **f)),
+            "grad"),
         "paste_masks": (lambda: detect_kernels.paste_masks(det, (480, 640)),
                         lambda: detect_kernels.paste_masks(
                             {**det, "masks": torch.empty(32, 14, 28, **f)}, (480, 640)),
@@ -321,7 +327,7 @@ def _detect_calls():
     }
 
 
-@pytest.mark.parametrize("name", ["nms_fixed", "roi_align", "paste_masks"])
+@pytest.mark.parametrize("name", ["nms_fixed", "roi_align", "roi_align_backward", "paste_masks"])
 def test_detect_wrappers_raise_on_cuda_tensors_without_the_library(monkeypatch, name):
     """The detection wrappers, like match_top2's: for CUDA tensors they
     launch or raise, with no library they raise and count no launch, and

@@ -13,9 +13,18 @@ bias is lowered by 1, so that the masks cover 0-4% of a frame: as written by
 the flax init they reach 10.8% on frame 9, and there both packages' drivers
 (pipelined, the geometry route) lose the track and reset, while the same
 masks not pipelined track every frame (ROADMAP.md section 3).
-The port on the CPU and the JAX segmenter (under jit) agree on every frame
-to a mask IoU >= 0.95 (the JAX program contracts ROIAlign's arithmetic into
-fused multiply-adds, which moves a few mask pixels near the threshold).
+The port on the CPU and the JAX segmenter (under jit) give the same
+detections (classes and validity equal on every frame); their pasted mask
+values differ by rounding only (at most 0.012
+on these 14 frames: the JAX program contracts ROIAlign's arithmetic into
+fused multiply-adds, the boxes agree to 0.03 px, and some boxes are under a
+pixel high, where that is a large part of a mask cell). So the masks are
+held by a rule rounding cannot break: equal on every pixel whose JAX pasted
+value lies more than PASTE_DELTA from the 0.5 threshold, and IoU >= 0.95 on
+every frame where either mask holds at least 100 pixels. (On frame 4, 19
+pixels, one pixel whose JAX value is 0.50061 and the port's 0.49886 alone
+moves the IoU to 0.947; the JAX segmenter against itself without jit gives
+0.95 there.)
 """
 
 import json
@@ -36,6 +45,7 @@ from gdslam_tpu_torch.io import png
 from gdslam_tpu_torch.io import synthetic as tsyn
 from gdslam_tpu_torch.masking.masknet import SegmentDynObject
 from gdslam_tpu_torch.models import maskrcnn as tm
+from gdslam_tpu_torch.ops import detect_kernels as dk
 from gdslam_tpu_torch.utils import metrics as tmetrics
 
 torch.set_num_threads(1)
@@ -44,6 +54,8 @@ SCAM = CameraConfig(fx=160.0, fy=160.0, cx=80.0, cy=60.0, width=160, height=120,
                     bf=160.0 * 0.08)
 HW = (120, 160)
 N_FRAMES = 14
+PASTE_DELTA = 0.05      # 4x the largest port-to-JAX pasted-value difference here
+IOU_MIN_PX = 100        # frames with a mask this large keep the IoU >= 0.95 gate
 T_EPOCH = 1305031790.0
 SETTINGS_YAML = """%YAML:1.0
 Camera.fx: 160.0
@@ -105,8 +117,26 @@ def seq(tmp_path_factory):
     jm.save_variables({"params": params, "batch_stats": variables["batch_stats"]}, weights,
                       meta={"blocks": [1, 1, 1, 1], "infer_hw": list(HW)})
     jseg = jm.build_segmenter(f"flax:{weights}", image_hw=HW)
-    want = [np.asarray(jseg(rgb)) for rgb in frames]
-    return str(root), frames, gts, weights, want
+    masks = [np.asarray(jseg(rgb)) for rgb in frames]
+    detect = jax.jit(jseg.model.apply)
+    p = jm.load_variables(weights)
+    values = [_pasted_value({k: np.asarray(v) for k, v in
+                             detect(p, jnp.asarray(rgb, jnp.float32)).items()}) for rgb in frames]
+    return str(root), frames, gts, weights, list(zip(masks, values))
+
+
+def _pasted_value(det) -> np.ndarray:
+    """[H, W]: the largest pasted mask value (before the 0.5 threshold) of
+    the detections that paste at each pixel (0 where none does), computed
+    from the JAX segmenter's detections with the port's plain paste
+    arithmetic (held to the JAX paste_masks in tests/test_torch_maskrcnn.py)."""
+    t = {k: torch.from_numpy(np.array(v)) for k, v in det.items()}
+    b = t["boxes"][:, :, None, None]
+    ys = torch.arange(HW[0], dtype=torch.float32)[None, :, None]
+    xs = torch.arange(HW[1], dtype=torch.float32)[None, None, :]
+    inside = (ys >= b[:, 0]) & (ys < b[:, 2]) & (xs >= b[:, 1]) & (xs < b[:, 3])
+    pastes = dk.paste_ok(t)[:, None, None] & inside
+    return torch.where(pastes, dk.paste_values(t, HW), 0.0).amax(0).numpy()
 
 
 def _iou(a, b) -> float:
@@ -116,10 +146,15 @@ def _iou(a, b) -> float:
 
 
 def _hold_to_jax(masks, want):
-    """Mask IoU >= 0.95 wherever either is non-empty; at least half the
-    frames non-empty."""
-    ious = [_iou(m, w) for m, w in zip(masks, want)]
-    assert min(ious) >= 0.95, np.round(ious, 3)
+    """Against the JAX segmenter's (mask, pasted value) of each frame: equal
+    on every pixel whose JAX pasted value lies more than PASTE_DELTA from
+    0.5; IoU >= 0.95 where either mask holds IOU_MIN_PX pixels; at least
+    half the frames non-empty."""
+    for i, (m, (w, value)) in enumerate(zip(masks, want)):
+        off = ((m > 0.5) != (w > 0.5)) & (np.abs(value - 0.5) > PASTE_DELTA)
+        assert not off.any(), (i, np.argwhere(off)[:8].tolist(), value[off][:8])
+        if max((m > 0.5).sum(), (w > 0.5).sum()) >= IOU_MIN_PX:
+            assert _iou(m, w) >= 0.95, (i, _iou(m, w))
     assert sum((m > 0.5).any() for m in masks) >= len(masks) / 2
 
 
@@ -143,7 +178,7 @@ def test_segmenter_matches_jax_segmenter(seq):
 def test_rgbd_tum_runs_the_live_segmenter(seq, tmp_path, monkeypatch):
     """rgbd_tum ... MASKS --segmenter flax:W.npz --device cpu: every frame
     misses the empty cache, runs the net and is written back; the cached
-    masks are the JAX segmenter's (IoU >= 0.95); the geometry path tracks
+    masks are the JAX segmenter's (by _hold_to_jax's rule); the geometry path tracks
     to the JAX driver test's gate, ATE < 0.30 m."""
     from gdslam_tpu_torch.cli import rgbd_tum
     seq_dir, _, gts, weights, want = seq
@@ -234,5 +269,5 @@ def test_segment_dyn_object_warms_the_live_net_up(seq, tmp_path):
         bridge = SegmentDynObject(seg, cache_dir=str(tmp_path / "c"))
     assert calls == [HW + (3,)]
     m = bridge.get_segmentation(frames[3], "f3")
-    assert len(calls) == 2 and _iou(m, want[3]) >= 0.95
+    assert len(calls) == 2 and _iou(m, want[3][0]) >= 0.95
     assert np.array_equal(bridge.get_segmentation(frames[3], "f3"), m) and len(calls) == 2

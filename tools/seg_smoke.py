@@ -4,9 +4,15 @@ build/seg/, the `seg` phase (the segmenter at full width through
 SegmentDynObject and track_rgbd(use_geometry=True), its kernels held
 against their plain versions and timed) and the determinism pair of
 segmenters; with --cli also the whole `cli` phase (rgbd_tum --segmenter
-among its runs). For iterating on the segmenter without the full run.
+among its runs). With --train, the training phases instead: `seg_train`
+(the full-width fit, with the backward kernel held against its plain twin)
+twice, as the determinism pair, and `seg_toy` (the toy fit run live by
+rgbd_tum). With --lr-sweep LR..., the seg_train fit (20 steps, from the
+same seeded and calibrated weights) at each learning rate, printing its
+losses and positive ROIs per step: how chip_smoke.TRAIN_LR was chosen.
+For iterating on the segmenter without the full run.
 
-    python3 tools/seg_smoke.py [--cli]
+    python3 tools/seg_smoke.py [--cli | --train | --lr-sweep 1e-3 3e-3 1e-2 2e-2]
 
 Prints chip_smoke.py's JSON lines for those phases; exits non-zero when a
 phase fails or there is no card.
@@ -19,12 +25,17 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cli", action="store_true", help="also run the cli phase")
+    ap.add_argument("--train", action="store_true", help="run the training phases instead")
+    ap.add_argument("--lr-sweep", nargs="+", type=float, metavar="LR",
+                    help="fit seg_train at each learning rate instead")
     opts = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -39,6 +50,28 @@ def main() -> int:
     from gdslam_tpu_torch.utils import metrics
     cfg, dev = SlamConfig(), "cuda"
     cs.emit(cs.phase_build(mk))
+    if opts.lr_sweep:
+        dyn = {i: synthetic.render_frame(i, cfg.camera, with_dynamic=True, device=dev)
+               for i in cs.TRAIN_FRAMES}
+        data = cs.train_data_full_width(torch, dyn)
+        for lr in opts.lr_sweep:
+            cs.TRAIN_LR = lr
+            _, losses, comps, _, _ = cs.seg_train_run(torch, dev, data)
+            n_pos = [c["n_pos_rois"] for c in comps]
+            cs.emit(dict(phase="lr_sweep", lr=lr, steps=cs.TRAIN_STEPS, losses=losses,
+                         n_pos_rois=n_pos, steps_with_positives=sum(v > 0 for v in n_pos),
+                         head_mask=[c["head_mask"] for c in comps]))
+        return 0
+    if opts.train:
+        dyn = {i: synthetic.render_frame(i, cfg.camera, with_dynamic=True, device=dev)
+               for i in cs.TRAIN_FRAMES}
+        _, trained, data = cs.phase_seg_train(torch, dev, dyn)
+        again = cs.seg_train_run(torch, dev, data)[0]
+        same = all(np.array_equal(trained[k], again[k]) for k in trained)
+        cs.phase_seg_toy(torch, mk, cfg, dev, metrics)
+        cs.emit(dict(phase="determinism", compared=dict(seg_train=dict(parameters=same)),
+                     bitwise_identical=same, total_s=time.perf_counter() - cs.T_START))
+        return 0 if same else 1
     dyn = [synthetic.render_frame(i, cfg.camera, with_dynamic=True, device=dev)
            for i in range(cs.CLI_FRAMES + 1)]
     weights = ROOT / "build" / "seg" / "maskrcnn_r50_seed0.npz"
