@@ -10,7 +10,7 @@ then prints one JSON line per phase:
 
   device   the card (torch and nvidia-smi);
   build    the nvcc builds of every csrc/*.cu (match_top2, nms_fixed,
-           roi_align, roi_align_backward, paste_masks), one nvcc per source
+           roi_align, roi_align_backward, paste_masks, stereo_match), one nvcc per source
            started together, timed, and what ptxas reports for each;
   kernel   match_top2 (CUDA) against match_top2_plain (PyTorch) on the card,
            exactly, with the kernel choosing its path and with each path
@@ -112,6 +112,33 @@ then prints one JSON line per phase:
            --segmenter on its 14-frame sequence: mean recall of the sphere >
            0.3, ATE < 0.30 m (the test's rows gate printed, not held), the
            fit's seconds and final loss;
+  stereo   the stereo tracker at ORB-SLAM2's KITTI00-02.yaml settings (1241 x
+           376, fps 10, bf 386.1448, 2000 features, 8 levels): 60 rendered
+           static pairs (the right view shifted by the baseline) written as a
+           KITTI layout of 8-bit PNGs under build/, then cli/stereo_kitti.py
+           in-process on the card: every frame tracked, ATE < 0.10 m and at
+           most 1.5 x the JAX package's on the same PNGs + 5 mm, frame ms,
+           stereo points per frame, keyframes; stereo_match once a frame,
+           exact against its plain twin at 2000 x 2000 on a PNG pair and on
+           the renderer's float pair, timed through the wrapper and from a
+           CUDA graph against its bound; match_top2 exact at the path's call
+           shapes, both paths forced; a profiled window of 5 frames;
+  mono     the monocular tracker with the SlamConfig() defaults at 480 x 640
+           on every second frame of the static scene (60 frames), written as
+           a TUM monocular layout of RGB PNGs, through cli/mono_tum.py
+           in-process: the bootstrap succeeds (its frame, used_homography),
+           OK at the end, map points made after the bootstrap pair, the
+           scale-aligned keyframe ATE at most 1.5 x the JAX package's + 1 cm;
+           the bootstrap's all-pairs match_top2 call exact (both paths) and
+           its JAX index rule as on the CPU; initialize's ms, repeat and the
+           SVD batches' ms;
+  mono_loop
+           tests/test_loop_e2e.py::test_mono_scale_drift_corrected on the card
+           at its 320x240 rig with the default vocabulary: 170 mono frames
+           with a free-scale loop closer, a 1.2x similarity injected into the
+           recent half of the map, compute_transform and correct held to the
+           JAX test's gates (the Sim3 scale within 5% of 1.2 x the natural
+           pair scale, >= 50% of the cross-zone drift removed);
   stages   per-stage times on the slice's final state (the tracking
            programs, the keyframe program and its parts, the RANSACs), and
            the kernel timed against its bounds and the launch floor on the
@@ -137,8 +164,10 @@ then prints one JSON line per phase:
            pairs of runs bitwise identical: the default slice sync and
            pipelined, inpainting, the small loop runs, two segmenters
            built from the same weight file on the same 5 frames (the masks
-           and every detection output, with cuDNN's algorithm choice), and
-           two seg_train fits (every trained parameter).
+           and every detection output, with cuDNN's algorithm choice), two
+           seg_train fits (every trained parameter), the stereo run twice and
+           the mono run twice (trajectory files and keyframe poses; mono's
+           initialize too).
 
 Then the seconds each phase took (phase_seconds), the card's name and power
 limit as nvidia-smi gives them, the kernels line and, last, the ok line. Without a card, or when any phase fails, it
@@ -156,6 +185,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -3023,6 +3053,587 @@ def phase_seg_toy(torch, mk, cfg, dev, metrics) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------------
+# stereo and monocular tracking
+# ----------------------------------------------------------------------------
+
+# ORB-SLAM2's public settings for KITTI odometry sequences 00-02
+# (Examples/Stereo/KITTI00-02.yaml): the rectified camera, no distortion, the
+# baseline times fx, ThDepth, RGB order and the ORB extractor. The stereo
+# phase writes them into its own YAML under build/.
+KITTI_CAMERA = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, k1=0.0, k2=0.0, p1=0.0,
+                    p2=0.0, k3=0.0, width=1241, height=376, fps=10.0, bf=386.1448,
+                    th_depth=35.0, rgb=1)
+KITTI_ORB = dict(n_features=2000, scale_factor=1.2, n_levels=8, ini_th_fast=20, min_th_fast=7)
+STEREO_FRAMES = 60
+STEREO_ATE_GUARD_M = 0.10          # tests/test_stereo_mono.py's gate
+MONO_FRAMES = 60                   # every second frame of the static scene: 0, 2, ..., 118
+# Relative gates against the JAX package on the same PNGs (its numbers from
+# tools/stereo_mono_quality_cpu.py on the CPU): ATE at most a x JAX's + b m
+STEREO_RELATIVE = (1.5, 0.005)
+MONO_RELATIVE = (1.5, 0.01)
+STEREO_JAX = dict(ate_m=0.008660424214251984, keyframes=8, stereo_points_per_frame=1599.6333)
+MONO_JAX = dict(keyframe_ate_scale_aligned_m=0.29294787229439423, keyframes=11, bootstrap_frame=2)
+# tests/test_loop_e2e.py::test_mono_scale_drift_corrected: its rig (320x240,
+# 512 features, 4 levels), circuit period and run, the injected scale
+MONO_LOOP_PERIOD = 120
+MONO_LOOP_FRAMES = 170
+MONO_LOOP_S_INJ = 1.2
+STEREO_NO_LIBRARY = ("no PyTorch call computes it: a band-masked Hamming argmin with an 11 x 11 "
+                     "SAD refinement has no library counterpart")
+
+
+@contextlib.contextmanager
+def spy(owner, name: str, record):
+    """owner.name replaced while the block runs by a wrapper that calls
+    record(args, kwargs, result) after each call. A kernel wrapper counts its
+    launches on its module's name, so its count is carried over and back:
+    for a wrapper, owner must be the module that defines it."""
+    real = getattr(owner, name)
+
+    def call(*a, **k):
+        out = real(*a, **k)
+        record(a, k, out)
+        return out
+
+    counted = hasattr(real, "launches")
+    if counted:
+        call.launches = real.launches
+    setattr(owner, name, call)
+    try:
+        yield
+    finally:
+        if counted:
+            real.launches = call.launches
+        setattr(owner, name, real)
+
+
+def kitti_config(cfg):
+    """The SlamConfig of KITTI00-02.yaml (cfg's other settings kept)."""
+    return dataclasses.replace(cfg, camera=type(cfg.camera)(**KITTI_CAMERA),
+                               orb=type(cfg.orb)(**KITTI_ORB))
+
+
+def gray_u8(torch, g) -> np.ndarray:
+    return torch.round(g).clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def write_kitti_sequence(torch, cfg, n: int, base: Path, png, synthetic, dev) -> tuple:
+    """A KITTI odometry layout under base: image_0/ and image_1/ NNNNNN.png
+    (8-bit gray, rounded), times.txt (i / fps) and settings.yaml. Pair i is
+    the static scene from synthetic.gt_pose(i, fps), the right view shifted
+    by bf / fx along x (tests/test_stereo_mono.py's pair). Returns the
+    ground-truth T_wc and a sha1 of every PNG written, in order."""
+    import hashlib
+    cam = cfg.camera
+    for sub in ("image_0", "image_1"):
+        (base / sub).mkdir(parents=True)
+    shift = torch.eye(4)
+    shift[0, 3] = cam.bf / cam.fx
+    shift = shift.to(dev)
+    gts, digest = [], hashlib.sha1()
+    for i in range(n):
+        T = synthetic.gt_pose(i, cam.fps, dev)
+        for sub, P in (("image_0", T), ("image_1", T @ shift)):
+            path = base / sub / f"{i:06d}.png"
+            png.write(path, gray_u8(torch, synthetic.render(P, cam, False, cam.fps, i).gray),
+                      level=1)
+            digest.update(path.read_bytes())
+        gts.append(T.cpu().numpy().astype(np.float64))
+    (base / "times.txt").write_text("".join(f"{i / cam.fps:.6f}\n" for i in range(n)))
+    (base / "settings.yaml").write_text(CLI_SETTINGS.format(c=cam, o=cfg.orb))
+    return gts, digest.hexdigest()
+
+
+def write_mono_sequence(torch, cfg, n: int, base: Path, png, synthetic, dev) -> tuple:
+    """A TUM monocular layout under base (rgb.txt, rgb/<timestamp>.png as
+    8-bit RGB, settings.yaml): frames 0, 2, ..., 2 (n - 1) of the static
+    scene, named by TUM epoch timestamps (CLI_EPOCH + frame / 30). Returns
+    {frame: ground-truth T_wc} and a sha1 of every PNG written, in order."""
+    import hashlib
+    (base / "rgb").mkdir(parents=True)
+    rows, gts, digest = [], {}, hashlib.sha1()
+    for k in range(n):
+        i = 2 * k
+        fr = synthetic.render_frame(i, cfg.camera, with_dynamic=False, device=dev)
+        name = f"rgb/{CLI_EPOCH + i / 30.0:.6f}.png"
+        png.write(base / name, gray_u8(torch, fr.rgb), level=1)
+        digest.update((base / name).read_bytes())
+        rows.append(f"{CLI_EPOCH + i / 30.0:.6f} {name}")
+        gts[i] = fr.T_wc.cpu().numpy().astype(np.float64)
+    (base / "rgb.txt").write_text("# timestamp filename\n" + "\n".join(rows) + "\n")
+    (base / "settings.yaml").write_text(CLI_SETTINGS.format(c=cfg.camera, o=cfg.orb))
+    return gts, digest.hexdigest()
+
+
+def kitti_rows_ate(path: Path, gts, metrics) -> tuple[float, int]:
+    """ATE of a KITTI trajectory file (one 3x4 T_wc row per tracked frame,
+    the untracked ones at the start) against the renderer's, relative to
+    frame 0."""
+    rows = [[float(x) for x in r.split()] for r in path.read_text().strip().splitlines()]
+    if not rows or any(len(r) != 12 for r in rows):
+        fail(f"stereo: {path} does not parse as a KITTI trajectory")
+    T0inv = np.linalg.inv(gts[0])
+    est = np.array([[r[3], r[7], r[11]] for r in rows])
+    first = len(gts) - len(rows)
+    gt = np.stack([(T0inv @ g)[:3, 3] for g in gts[first:]])
+    return metrics.ate_rmse(est, gt), len(rows)
+
+
+def keyframe_file_ate(path: Path, gts: dict, metrics) -> tuple[float, int, list]:
+    """Scale-aligned ATE (Umeyama with scale) of a TUM keyframe trajectory
+    against the renderer's poses relative to frame 0; its rows and frames."""
+    rows = [[float(x) for x in r.split()] for r in path.read_text().strip().splitlines()]
+    if not rows or any(len(r) != 8 for r in rows):
+        fail(f"mono: {path} does not parse as a TUM trajectory")
+    frames = [round((r[0] - CLI_EPOCH) * 30.0) for r in rows]
+    T0inv = np.linalg.inv(gts[0])
+    est = np.array([r[1:4] for r in rows])
+    gt = np.stack([(T0inv @ gts[i])[:3, 3] for i in frames])
+    R, t, s = metrics.align_umeyama(est, gt, with_scale=True)
+    err = np.linalg.norm((s * (R @ est.T)).T + t - gt, axis=1)
+    return float(np.sqrt((err ** 2).mean())), len(rows), frames
+
+
+def stereo_bound(torch, stereo, args, H: int, W: int) -> dict:
+    """The least time the card could take for one stereo_match call, from
+    this call's data (H100 SXM peaks). Operations: a pair takes the gate
+    tests (2 sub, abs, 3 compares in f32; sub, abs, compare on the levels in
+    int32) only if it lies in the row band, which an ideal walk over row
+    buckets visits alone; a pair inside every gate the Hamming cost and the
+    argmin update (8 xor + 8 popc + 8 add + 2 compare, int32); a matched
+    keypoint 11 x 121 x 3 f32 operations of SAD and ~20 of parabola.
+    bound_all_pairs_ms charges the gate tests to all N x M pairs. Bytes:
+    every keypoint input once, the 11 x 11 left patch and the 11 x 21 right
+    strip of each matched keypoint once (at most the two images), the two
+    outputs."""
+    luv, llv, _, lval, ruv, rlv, _, rval = args[:8]
+    bf, min_z, scale = args[8], args[9], args[12]
+    N, M = luv.shape[0], ruv.shape[0]
+    band = stereo.band_table(scale, luv.device)[llv.long().clamp(0, stereo.BAND_LEVELS - 1)]
+    in_band = (luv[:, None, 1] - ruv[None, :, 1]).abs() <= band[:, None]
+    disp = luv[:, None, 0] - ruv[None, :, 0]
+    gated = in_band & (disp >= -1.0) & (disp <= bf / min_z) & \
+        ((llv[:, None] - rlv[None, :]).abs() <= 1) & lval[:, None] & rval[None, :]
+    n_band, n_gated = int(in_band.sum()), int(gated.sum())
+    depth = stereo.stereo_match_plain(*args)[1]
+    ur0 = stereo.stereo_match_plain(*args[:10], None, None, scale)[0]
+    matched = int((ur0 >= 0).sum())                     # coarse matches refined by SAD
+    nbytes = (N + M) * (8 + 4 + 32 + 1) + min(matched * (121 + 231), 2 * H * W) * 4 + 8 * N
+
+    def t_ops(tested):
+        return 6 * tested / F32_OPS_PER_S + matched * (11 * 121 * 3 + 20) / F32_OPS_PER_S + \
+            (3 * tested + 26 * n_gated) / INT32_OPS_PER_S
+
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return dict(pairs=N * M, pairs_in_band=n_band, pairs_in_gates=n_gated,
+                coarse_matches=matched, stereo_points=int((depth > 0).sum()), bytes=nbytes,
+                bound_ms=max(t_ops(n_band), t_bytes) * 1e3,
+                bound_by="operations" if t_ops(n_band) >= t_bytes else "bytes",
+                bound_all_pairs_ms=max(t_ops(N * M), t_bytes) * 1e3)
+
+
+def stereo_launch(torch, stereo, args) -> tuple:
+    """(C launch function, its arguments up to the device and stream, the
+    tensors they point to) of one stereo_match call, for a CUDA graph."""
+    lib = stereo._library()
+    luv, llv, ldesc, lval, ruv, rlv, rdesc, rval, bf, min_z, il, ir, scale = args
+    band = stereo.band_table(scale, luv.device)
+    out = torch.empty(2, luv.shape[0], device=luv.device)
+    cargs = (luv.data_ptr(), llv.data_ptr(), ldesc.data_ptr(), lval.data_ptr(), luv.shape[0],
+             ruv.data_ptr(), rlv.data_ptr(), rdesc.data_ptr(), rval.data_ptr(), ruv.shape[0],
+             band.data_ptr(), il.data_ptr(), ir.data_ptr(), il.shape[0], il.shape[1],
+             float(np.float32(bf)), float(np.float32(bf / min_z)), out[0].data_ptr(),
+             out[1].data_ptr())
+    return lib.stereo_match_launch, cargs, (out, band)
+
+
+def check_stereo_kernel(torch, stereo, extractor, cfg, views: dict) -> list:
+    """The kernel against its plain twin at the full shape on each pair of
+    `views` ({label: (left, right) float gray on the card}): features
+    extracted on the card, ur and depth bit for bit; on the first pair its
+    ms through the wrapper, from a CUDA graph, the plain twin's and the
+    bound."""
+    cam, out = cfg.camera, []
+    for label, (gl, gr) in views.items():
+        A, B = (extractor.extract(g, cfg.orb, cam.height, cam.width) for g in (gl, gr))
+        args = (*(t.contiguous() for t in (A.uv, A.level, A.desc, A.valid,
+                                           B.uv, B.level, B.desc, B.valid)),
+                cam.bf, cam.bf / cam.fx, gl.contiguous(), gr.contiguous(),
+                float(cfg.orb.scale_factor))
+        got = stereo.stereo_match(*args)
+        want = stereo.stereo_match_plain(*args)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        rec = dict(images=label, shape=[args[0].shape[0], args[4].shape[0]],
+                   exact=all(bool(torch.equal(g, w)) for g, w in zip(got, want)),
+                   max_abs_err=err, stereo_points=int((got[1] > 0).sum()))
+        if not rec["exact"]:
+            fail(f"stereo: the kernel differs from its plain twin on the {label} pair: {rec}")
+        if not out:
+            fn, cargs, keep = stereo_launch(torch, stereo, args)
+            rec.update(ms=cuda_ms(torch, lambda: stereo.stereo_match(*args), reps=100),
+                       device_ms=graph_ms(torch, fn, cargs),
+                       plain_ms=cuda_ms(torch, lambda: stereo.stereo_match_plain(*args), reps=5,
+                                        windows=3),
+                       library_ms=None, library_note=STEREO_NO_LIBRARY,
+                       **stereo_bound(torch, stereo, args, cam.height, cam.width))
+            del keep
+        out.append(rec)
+    return out
+
+
+def top2_call_sites(torch, mk, calls, role: str) -> list:
+    """match_top2 on one recorded call of each (M, N) shape of a path: exact
+    against the plain version with the kernel choosing its path and with each
+    path forced, timed through the wrapper and from a graph, bounded."""
+    by_shape = {}
+    for a in calls:
+        by_shape[(a[0].shape[0], a[5].shape[0])] = a
+    sites = []
+    for (M, N), a in sorted(by_shape.items()):
+        err, info = compare_top2(torch, mk, a)
+        t = time_top2(torch, mk, a)
+        sites.append(dict(role=role, M=M, N=N, path=info["path"], max_abs_err=err,
+                          calls=sum((c[0].shape[0], c[5].shape[0]) == (M, N) for c in calls),
+                          **{k: t[k] for k in ("ms", "device_ms", "plain_ms")},
+                          **{k: v for k, v in top2_bound(torch, mk, a).items()
+                             if k in ("bound_ms", "bound_by", "bound_all_pairs_ms")}))
+    return sites
+
+
+def phase_stereo(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
+    """The stereo tracker as a user runs it: 60 rendered pairs at KITTI's
+    settings (KITTI00-02.yaml: 1241 x 376, 2000 features, 8 levels) written as
+    a KITTI layout of 8-bit PNGs under build/, then cli/stereo_kitti.py
+    in-process on the card, its stereo_match and match_top2 counts set to 0
+    just before and read just after. Guards: every frame tracked, ATE < 0.10
+    m and at most STEREO_RELATIVE against the JAX package's on the same PNGs;
+    both kernels launched. Then the stereo kernel exact against its plain
+    twin at 2000 x 2000 on a PNG pair and on the renderer's float pair, its
+    times and bound; match_top2 exact at this path's call shapes, both paths
+    forced; one profiled window of 5 frames (host / device split)."""
+    stereo, matcher, slam_mod, kitti, png, synthetic, metrics, extractor, stereo_kitti = mods
+    scfg = kitti_config(cfg)
+    base = Path(tempfile.mkdtemp(prefix="stereo_smoke_", dir=ROOT / "build"))
+    seq = base / "seq"
+    t0 = time.perf_counter()
+    gts, digest = write_kitti_sequence(torch, scfg, STEREO_FRAMES, seq, png, synthetic, dev)
+    write_s = time.perf_counter() - t0
+    argv = ["none", str(seq / "settings.yaml"), str(seq), "--device", dev]
+
+    def run(label):
+        depths, systems, box = [], [], []
+        reset_launch_counts(mk)
+        stereo.stereo_match.launches = 0
+        with spy(stereo, "stereo_match", lambda a, k, o: depths.append(o[1])), \
+                spy(slam_mod.System, "shutdown", lambda a, k, o: systems.append(a[0])):
+            calls = record_top2_calls(matcher, lambda: box.append(
+                run_cli(stereo_kitti.main, argv, base / label)))
+        rc, text, sec = box[0]
+        if rc != 0:
+            fail(f"stereo: stereo_kitti returned {rc}: {text[-2000:]}")
+        return depths, systems[0], calls, text, sec
+
+    depths, slam, calls, text, run_s = run("run")
+    launches = dict(stereo_match=stereo.stereo_match.launches,
+                    match_top2=mk.match_top2.launches)
+    ate, n_rows = kitti_rows_ate(base / "run" / "CameraTrajectory.txt", gts, metrics)
+    points = [int((d > 0).sum()) for d in depths]
+    res = dict(phase="stereo", frames=STEREO_FRAMES, width=scfg.camera.width,
+               height=scfg.camera.height, n_features=scfg.orb.n_features,
+               n_levels=scfg.orb.n_levels, settings="ORB-SLAM2 Examples/Stereo/KITTI00-02.yaml",
+               write_s=write_s, png_sha1=digest, run_s=run_s,
+               frame_ms_median=1e3 * float(text.split("median tracking time:")[1].split()[0]),
+               frame_ms_mean=1e3 * float(text.split("mean tracking time:")[1].split()[0]),
+               poses=n_rows, ate_m=ate, keyframes=slam.keyframe_count,
+               map_points=slam.map_point_count, state=slam.tracking_state.name,
+               stereo_points_per_frame=float(np.mean(points)),
+               stereo_points_min=min(points), launches=launches,
+               launches_per_frame={k: v / STEREO_FRAMES for k, v in launches.items()},
+               jax_cpu=STEREO_JAX)
+    gate = STEREO_ATE_GUARD_M
+    if STEREO_JAX["ate_m"] is not None:
+        gate = min(gate, STEREO_RELATIVE[0] * STEREO_JAX["ate_m"] + STEREO_RELATIVE[1])
+    res["ate_gate_m"] = gate
+    if not (n_rows == STEREO_FRAMES and ate < gate and res["state"] == "OK"):
+        emit(res)
+        fail(f"stereo: poses {n_rows} of {STEREO_FRAMES}, ATE {ate} m (gate {gate} m)")
+    if min(launches.values()) < 1 or launches["stereo_match"] != STEREO_FRAMES:
+        emit(res)
+        fail(f"stereo: the path's kernels were not launched once a frame: {launches}")
+
+    # the kernel at the full shape, on a PNG pair and on the renderer's floats
+    j = STEREO_FRAMES // 2
+    left, right, _ = kitti.KittiStereoSequence(str(seq))[j]
+    T = synthetic.gt_pose(j, scfg.camera.fps, dev)
+    shift = torch.eye(4)
+    shift[0, 3] = scfg.camera.bf / scfg.camera.fx
+    floats = tuple(synthetic.render(P, scfg.camera, False, scfg.camera.fps, j).gray
+                   for P in (T, T @ shift.to(dev)))
+    res["kernel"] = check_stereo_kernel(
+        torch, stereo, extractor, scfg,
+        {"png": tuple(torch.from_numpy(x).to(dev) for x in (left, right)), "float": floats})
+    res["match_top2_call_sites"] = top2_call_sites(torch, mk, calls, "stereo_tracker")
+
+    # one profiled window: 5 frames past 5 of warm-up, on a fresh system
+    seqr = kitti.KittiStereoSequence(str(seq))
+    prof_slam = slam_mod.System(scfg, slam_mod.Sensor.STEREO, device=dev)
+    for i in range(5):
+        prof_slam.track_stereo(*seqr[i])
+
+    def five():
+        for i in range(5, 10):
+            prof_slam.track_stereo(*seqr[i])
+
+    res["profile_per_frame"] = profile_window(torch, five, 5)
+    res["card"] = nvidia_smi_line()
+    emit(res)
+    again = run("again")
+    same = dict(trajectory=(base / "run" / "CameraTrajectory.txt").read_bytes() ==
+                (base / "again" / "CameraTrajectory.txt").read_bytes(),
+                keyframes=bool(np.array_equal(
+                    slam.tracker.arena.kf_pose.cpu().numpy(),
+                    again[1].tracker.arena.kf_pose.cpu().numpy())))
+    shutil.rmtree(base)
+    return res, same
+
+
+def phase_mono(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
+    """The monocular tracker as a user runs it: the SlamConfig() defaults
+    at 480 x 640 (TUM3 intrinsics, 1500 features, 8 levels), every second
+    frame of the static scene (60 frames) written as a TUM monocular layout
+    of 8-bit RGB PNGs under build/, then cli/mono_tum.py in-process on the
+    card, the match_top2 count set to 0 just before and read just after.
+    Guards: the bootstrap succeeds, the state is OK at the end, the map grows
+    past the bootstrap pair (points made by keyframes after it; the JAX gate
+    of tests/test_mapping.py), the scale-aligned keyframe ATE at most
+    MONO_RELATIVE against the JAX package's on the same PNGs. Then the
+    bootstrap's match_top2 call exact against the plain version (each path
+    forced) and its index rule against the plain route on the CPU;
+    initialize's ms on the card, twice bitwise, and torch.linalg.svd on its
+    batch shapes."""
+    tracking, initializer, slam_mod, png, synthetic, metrics, mono_tum = mods
+    base = Path(tempfile.mkdtemp(prefix="mono_smoke_", dir=ROOT / "build"))
+    seq = base / "seq"
+    t0 = time.perf_counter()
+    gts, digest = write_mono_sequence(torch, cfg, MONO_FRAMES, seq, png, synthetic, dev)
+    write_s = time.perf_counter() - t0
+    argv = ["none", str(seq / "settings.yaml"), str(seq), "--device", dev]
+
+    def run(label):
+        inits, boots, systems, out = [], [], [], []
+        reset_launch_counts(mk)
+        with spy(initializer, "initialize", lambda a, k, o: inits.append((a, k, o))), \
+                spy(tracking, "bootstrap_matches", lambda a, k, o: boots.append((a, o))), \
+                spy(slam_mod.System, "shutdown", lambda a, k, o: systems.append(a[0])):
+            out.append(run_cli(mono_tum.main, argv, base / label))
+        rc, text, sec = out.pop()
+        if rc != 0:
+            fail(f"mono: mono_tum returned {rc}: {text[-2000:]}")
+        return inits, boots, systems[0], text, sec
+
+    inits, boots, slam, text, run_s = run("run")
+    launches = dict(match_top2=mk.match_top2.launches)
+    tr = slam.tracker
+    ok_calls = [i for i, (_, _, o) in enumerate(inits) if bool(o.ok)]
+    boot = ok_calls[0] if ok_calls else None
+    ate, n_kf_rows, kf_frames = keyframe_file_ate(base / "run" / "KeyFrameTrajectory.txt", gts,
+                                                  metrics)
+    n = tr.n_kf_host
+    pt_valid, pt_ref = tr.arena.pt_valid.cpu().numpy(), tr.arena.pt_ref_kf.cpu().numpy()
+    res = dict(phase="mono", frames=MONO_FRAMES, frame_step=2, width=cfg.camera.width,
+               height=cfg.camera.height, n_features=cfg.orb.n_features,
+               n_levels=cfg.orb.n_levels, write_s=write_s, png_sha1=digest, run_s=run_s,
+               frame_ms_median=1e3 * float(text.split("median tracking time:")[1].split()[0]),
+               initialize_calls=len(inits),
+               bootstrap_frame=2 * (boot + 1) if boot is not None else None,
+               used_homography=bool(inits[boot][2].used_homography) if boot is not None else None,
+               state=tr.state.name, keyframes=n, keyframe_rows=n_kf_rows,
+               keyframe_frames=kf_frames, map_points=int(pt_valid.sum()),
+               map_points_after_bootstrap_pair=int((pt_valid & (pt_ref >= 2)).sum()),
+               keyframe_ate_scale_aligned_m=ate, launches=launches,
+               launches_per_frame={k: v / MONO_FRAMES for k, v in launches.items()},
+               jax_cpu=MONO_JAX)
+    gate = None
+    if MONO_JAX["keyframe_ate_scale_aligned_m"] is not None:
+        gate = MONO_RELATIVE[0] * MONO_JAX["keyframe_ate_scale_aligned_m"] + MONO_RELATIVE[1]
+    res["ate_gate_m"] = gate
+    if boot is None or res["state"] != "OK" or n <= 2 or \
+            res["map_points_after_bootstrap_pair"] < 1 or (gate is not None and ate > gate):
+        emit(res)
+        fail(f"mono: bootstrap {res['bootstrap_frame']}, state {res['state']}, {n} keyframes, "
+             f"{res['map_points_after_bootstrap_pair']} points after the pair, ATE {ate} m "
+             f"(gate {gate} m)")
+    if launches["match_top2"] < 1:
+        emit(res)
+        fail(f"mono: the path launched no kernel: {launches}")
+
+    # the bootstrap's match: the kernel's call exact against the plain
+    # version, each path forced; the index rule against the CPU's plain route
+    (first, frame, n_levels), (good, idx) = boots[boot]
+    calls = record_top2_calls(tracking, lambda: tracking.bootstrap_matches(first, frame,
+                                                                           n_levels))
+    site = top2_call_sites(torch, mk, calls, "mono_bootstrap_all_pairs")
+    cpu = lambda f: f._replace(**{k: v.cpu() for k, v in f._asdict().items()})  # noqa: E731
+    good_c, idx_c = tracking.bootstrap_matches(cpu(first), cpu(frame), n_levels)
+    res["bootstrap_match"] = dict(
+        call_sites=site, good=int(good.sum()), idx_rule_exact=bool(
+            torch.equal(good.cpu(), good_c) and torch.equal(idx.cpu(), idx_c)),
+        invalid_first_rows=int((~first.valid).sum()), invalid_frame_rows=int((~frame.valid).sum()))
+    if not res["bootstrap_match"]["idx_rule_exact"]:
+        emit(res)
+        fail("mono: the bootstrap's good / idx on the card differ from the plain route")
+
+    # initialize on the card: its time, twice bitwise, and cuSOLVER's SVDs
+    a, k, o = inits[boot]
+
+    def init():          # the tracker's call, the JAX package's draws replayed
+        return initializer.initialize(*a, **k)
+
+    again = [init() for _ in range(2)]
+    torch.cuda.synchronize()
+    res["initialize"] = dict(
+        ms=wall_ms(torch, init, reps=5, warmup=1),
+        repeat_bitwise=all(bool(torch.equal(getattr(again[0], f), getattr(x, f)))
+                           for x in (again[1], o) for f in o._fields),
+        svd_ms={f"{b}x{r}x{c}": wall_ms(torch, lambda s=(b, r, c): torch.linalg.svd(
+            torch.randn(*s, device=dev)), reps=5, warmup=1)
+            for b, r, c in ((200, 8, 9), (200, 3, 3), (4 * a[0].shape[0], 4, 4))})
+    res["card"] = nvidia_smi_line()
+    emit(res)
+    second = run("again")
+    same = dict(keyframe_trajectory=(base / "run" / "KeyFrameTrajectory.txt").read_bytes() ==
+                (base / "again" / "KeyFrameTrajectory.txt").read_bytes(),
+                keyframes=bool(np.array_equal(tr.arena.kf_pose[:n].cpu().numpy(),
+                                              second[2].tracker.arena.kf_pose[:n].cpu().numpy())),
+                initialize=res["initialize"]["repeat_bitwise"])
+    shutil.rmtree(base)
+    return res, same
+
+
+def phase_mono_loop(torch, mk, cfg, dev, mods) -> dict:
+    """tests/test_loop_e2e.py::test_mono_scale_drift_corrected on the card,
+    at its own rig (320x240, 512 features, 4 levels) with the default
+    vocabulary: 170 frames of the mono circuit tracked with a loop closer of
+    free scale; the recent half of the map replaced by a uniform 1.2x
+    similarity of itself with the cross-scale observations, covisibility
+    and parents cut; then compute_transform on the revisit pair must measure
+    the scale and correct must distribute it. The JAX test's gates, all
+    relative to the natural (pre-injection) state: the injected drift
+    present (zone ratio up > 15%), the pair verified with >= 40 matches, the
+    Sim3 scale within 5% of 1.2 x the natural pair scale, >= 50% of the
+    cross-zone drift removed and the residual under 10%."""
+    Tracking, LoopCloser, voc, synthetic = mods
+    mcfg = dataclasses.replace(cfg, camera=dataclasses.replace(
+        cfg.camera, fx=320.0, fy=320.0, cx=160.0, cy=120.0, width=320, height=240,
+        bf=320.0 * 0.08), orb=dataclasses.replace(cfg.orb, n_features=512, n_levels=4))
+    P = MONO_LOOP_PERIOD
+    tr = Tracking(mcfg, kmax=64, pmax=32768, device=dev)
+    lc = LoopCloser(mcfg, voc.default_vocabulary(dev), 64, dev)
+    lc.fix_scale = False
+    tr.loop_closer = lc
+    reset_launch_counts(mk)
+    t0 = time.perf_counter()
+    for i in range(MONO_LOOP_FRAMES):
+        fr = synthetic.render(synthetic.gt_pose_loop_mono(i, P, dev), mcfg.camera, False,
+                              30.0, i)
+        tr.process_mono(fr.gray, i / 30.0)
+    tr.flush()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = mk.match_top2.launches
+    res = dict(phase="mono_loop", frames=MONO_LOOP_FRAMES, width=320, height=240,
+               n_features=512, run_s=run_s, state=tr.state.name, keyframes=tr.n_kf_host,
+               loops_fired=len(lc.loops), match_top2_launches=launches)
+    if tr.state.name != "OK" or launches < 1:
+        emit(res)
+        fail(f"mono_loop: state {tr.state.name} after the run, {launches} launches")
+    T0 = synthetic.gt_pose_loop_mono(0, P).numpy()
+
+    def seg_ratios(arena):
+        cs, gs = [], []
+        kf_pose = arena.kf_pose.cpu().numpy()
+        for k, ts in enumerate(tr.kf_timestamps):
+            i = int(round(ts * 30.0))
+            cs.append(np.linalg.inv(kf_pose[k])[:3, 3])
+            gs.append((np.linalg.inv(T0) @ synthetic.gt_pose_loop_mono(i, P).numpy())[:3, 3])
+        cs, gs = np.asarray(cs), np.asarray(gs)
+        de = np.linalg.norm(np.diff(cs, axis=0), axis=1)
+        dg = np.linalg.norm(np.diff(gs, axis=0), axis=1)
+        keep = dg > 1e-3
+        return de[keep] / dg[keep], keep
+
+    arena, n = tr.arena, tr.n_kf_host
+    k0 = n // 2
+    r_nat, keep = seg_ratios(arena)
+    is_new = np.arange(1, n)[keep] > k0
+    zone_nat = np.mean(r_nat[is_new]) / np.mean(r_nat[~is_new])
+    frames = [int(round(ts * 30)) % P for ts in tr.kf_timestamps[:n]]
+    cur = n - 1
+    cand = min(range(k0), key=lambda k: min(abs(frames[k] - frames[cur]),
+                                            P - abs(frames[k] - frames[cur])))
+    ok_nat, _, _ = lc.compute_transform(arena, cur, cand)
+    s_nat = float(lc.last_sim3[2]) if ok_nat else 1.0
+
+    # a uniform similarity of the recent segment about keyframe k0's centre,
+    # with the cross-scale observations, covisibility and parents cut
+    np_a = {f: getattr(arena, f).cpu().numpy().copy() for f in arena._fields}
+    c0 = np.linalg.inv(np_a["kf_pose"][k0])[:3, 3]
+    for k in range(k0, n):
+        Twc = np.linalg.inv(np_a["kf_pose"][k])
+        Twc[:3, 3] = c0 + MONO_LOOP_S_INJ * (Twc[:3, 3] - c0)
+        np_a["kf_pose"][k] = np.linalg.inv(Twc)
+    sel = (np_a["pt_ref_kf"] >= k0) & np_a["pt_valid"]
+    np_a["pt_pos"][sel] = c0 + MONO_LOOP_S_INJ * (np_a["pt_pos"][sel] - c0)
+    obs, n_obs, pt_ref = np_a["kf_obs"], np_a["pt_n_obs"], np_a["pt_ref_kf"]
+    seen = {k: int((obs[k] >= 0).sum()) for k in (cur, cand)}
+    for k in range(n):
+        other = (pt_ref < k0) if k >= k0 else (pt_ref >= k0)
+        cut = (obs[k] >= 0) & other[np.maximum(obs[k], 0)]
+        n_obs[obs[k][cut]] -= 1
+        obs[k][cut] = -1
+    np_a["pt_n_obs"] = np.maximum(n_obs, 0)
+    np_a["covis"][:k0, k0:n] = 0
+    np_a["covis"][k0:n, :k0] = 0
+    for k in range(k0, n):
+        if np_a["kf_parent"][k] < k0:
+            np_a["kf_parent"][k] = k - 1
+    tr.arena = arena._replace(**{f: torch.from_numpy(np_a[f]).to(dev) for f in
+                                 ("kf_parent", "kf_pose", "pt_pos", "kf_obs", "pt_n_obs",
+                                  "covis")})
+    r_pre, keep = seg_ratios(tr.arena)
+    is_new = np.arange(1, n)[keep] > k0
+    zone_pre = np.mean(r_pre[is_new]) / np.mean(r_pre[~is_new])
+    t0 = time.perf_counter()
+    ok, T, n_m = lc.compute_transform(tr.arena, cur, cand)
+    s = float(lc.last_sim3[2]) if ok else None
+    arena2 = lc.correct(tr.arena, cur, cand, T) if ok else tr.arena
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    r_post, keep = seg_ratios(arena2)
+    is_new = np.arange(1, n)[keep] > k0
+    zone_post = np.mean(r_post[is_new]) / np.mean(r_post[~is_new])
+    s_expect = MONO_LOOP_S_INJ * s_nat
+    res.update(k0=k0, revisit_pair=[cur, cand], natural_pair_verified=bool(ok_nat),
+               pair_observations_before_cut=[seen[cur], seen[cand]],
+               pair_observations_after_cut=[int((obs[k] >= 0).sum()) for k in (cur, cand)],
+               keyframe_frames=frames,
+               natural_pair_scale=s_nat, zone_ratio_natural=float(zone_nat),
+               zone_ratio_injected=float(zone_pre), verified=bool(ok), matches=int(n_m),
+               sim3_scale=s, sim3_scale_expected=s_expect,
+               sim3_scale_error=abs(s - s_expect) / s_expect if ok else None,
+               zone_ratio_corrected=float(zone_post), drift_removed_share=float(
+                   1.0 - abs(zone_post - 1.0) / abs(zone_pre - 1.0)),
+               compute_and_correct_s=loop_s, card=nvidia_smi_line())
+    emit(res)
+    if not (zone_pre / zone_nat > 1.15 and ok and n_m >= 40 and
+            abs(s - s_expect) / s_expect < 0.05 and
+            abs(zone_post - 1.0) < 0.5 * abs(zone_pre - 1.0) and abs(zone_post - 1.0) < 0.10):
+        fail("mono_loop: the JAX test's gates are not met")
+    return res
+
+
 def same_arrays(a: dict, b: dict) -> dict:
     """{key: bitwise equal} over two dicts of arrays and numbers."""
     return {k: bool(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))) for k in a}
@@ -3193,6 +3804,21 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
                     ("small_first_correction", *first[:3], small[0][0].tracker.loop_closer)],
         cfg, loop_mods)
 
+    # stereo and monocular tracking through their drivers (KITTI00-02 stereo,
+    # mono TUM), and the free-scale loop closing that only the monocular
+    # sensor reaches
+    from gdslam_tpu_torch.backend import vocabulary as voc
+    from gdslam_tpu_torch.cli import mono_tum, stereo_kitti
+    from gdslam_tpu_torch.frontend import initializer
+    from gdslam_tpu_torch.io import kitti, png
+    from gdslam_tpu_torch.ops import stereo
+    stres, stereo_same = phase_stereo(torch, mk, cfg, dev, (
+        stereo, matcher, slam_mod, kitti, png, synthetic, metrics, extractor, stereo_kitti))
+    mores, mono_same = phase_mono(torch, mk, cfg, dev, (
+        tracking, initializer, slam_mod, png, synthetic, metrics, mono_tum))
+    mlres = phase_mono_loop(torch, mk, cfg, dev, (tracking.Tracking, loop_closing.LoopCloser, voc,
+                                                  synthetic))
+
     # determinism: every pair of runs bitwise identical
     geo_db, im, depth_i, mask_i, T_i = geostres.pop("inpaint_inputs")
     inp = [geo_db.inpaint_frames(im, depth_i, mask_i, T_i) for _ in range(2)]
@@ -3204,7 +3830,8 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
                             depth=bool(torch.equal(inp[0][1], inp[1][1]))),
                segmenter=seg_determinism(torch, seg_weights, dev, seg_rgbs, cam),
                seg_train=dict(parameters=all(np.array_equal(trained[k], trained_again[k])
-                                             for k in trained)))
+                                             for k in trained)),
+               stereo=stereo_same, mono=mono_same)
     all_same = all(v for d in det.values() for v in d.values())
     emit(dict(phase="determinism", bitwise_identical=all_same, compared=det,
               deterministic_mode_warnings=nondet_ops, loop_render_s=loop_render_s))
@@ -3250,7 +3877,10 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
                    loop=lres["match_top2_launches"],
                    loop_small=small[0][1]["match_top2_launches"],
                    loop_reloc=lres_reloc["match_top2_launches"],
-                   seg=segres["launches"]["match_top2"])
+                   seg=segres["launches"]["match_top2"],
+                   stereo=stres["launches"]["match_top2"],
+                   mono=mores["launches"]["match_top2"],
+                   mono_loop=mlres["match_top2_launches"])
     if min(by_path.values()) < 1:
         fail(f"a path launched no kernel: {by_path}")
     seg_sites = segres["kernels"]["score_th_0.7"]
@@ -3295,6 +3925,21 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "call_sites": [{k: c[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
                                           "bound_by", "max_abs_err", "longest_run")}
                        for c in bwd]})
+    sk = stres["kernel"][0]
+    detect_lines.append({
+        "name": "stereo_match", "route": "cuda", "source": "gdslam_tpu_torch/csrc/stereo_match.cu",
+        "replaces": "gdslam_tpu/ops/stereo.py:28",
+        "replaces_note": "XLA-fused in the JAX package, no Pallas",
+        "launches": stres["launches"]["stereo_match"],
+        "launches_per_frame": stres["launches_per_frame"]["stereo_match"],
+        "launches_by_path": dict(stereo=stres["launches"]["stereo_match"]),
+        "max_abs_err": max(k["max_abs_err"] for k in stres["kernel"]),
+        "ms": sk["ms"], "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
+        "bound_by": sk["bound_by"], "library_ms": None, "library_note": STEREO_NO_LIBRARY,
+        "device_ms": sk["device_ms"], "bound_all_pairs_ms": sk["bound_all_pairs_ms"],
+        "shape": sk["shape"], "exact_on": [k["images"] for k in stres["kernel"]]})
+    top2_sites = path_calls + loop_calls + stres["match_top2_call_sites"] + \
+        mores["bootstrap_match"]["call_sites"]
     emit(dict(phase="phase_seconds", seconds=dict(PHASE_SECONDS),
               total_s=time.perf_counter() - T_START))
     print(nvidia_smi_line(), flush=True)
@@ -3307,7 +3952,7 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "launches_by_site_geom_slice": geores["match_top2_by_site"],
         "launches_by_site_loop": lres["match_top2_by_site"],
         "launches_by_site_loop_small": small[0][1]["match_top2_by_site"],
-        "max_abs_err": max([err] + [c["max_abs_err"] for c in path_calls + loop_calls]),
+        "max_abs_err": max([err] + [c["max_abs_err"] for c in top2_sites]),
         "ms": local_map["ms"], "plain_ms": local_map["plain_ms"],
         "bound_ms": local_map["bound_ms"], "bound_by": local_map["bound_by"],
         "library_ms": None,
@@ -3319,7 +3964,7 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "shape": [local_map["M"], local_map["N"]], "role": local_map["role"],
         "call_sites": [{k: c[k] for k in ("role", "M", "N", "path", "ms", "device_ms",
                                           "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
-                       for c in path_calls + loop_calls]}, *detect_lines]})
+                       for c in top2_sites]}, *detect_lines]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

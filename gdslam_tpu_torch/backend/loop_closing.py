@@ -28,7 +28,7 @@ from gdslam_tpu_torch.backend import map_arena as ma
 from gdslam_tpu_torch.backend import vocabulary as voc
 from gdslam_tpu_torch.config import SlamConfig
 from gdslam_tpu_torch.core import camera as cam_ops
-from gdslam_tpu_torch.core import lie
+from gdslam_tpu_torch.core import lie, prng
 from gdslam_tpu_torch.frontend import matcher
 from gdslam_tpu_torch.frontend.extractor import top_k_stable
 from gdslam_tpu_torch.ops.match_kernel import BIG, match_top2
@@ -292,7 +292,7 @@ class LoopCloser:
             P_all[rows], Q_cur, ok, n_iters=300, min_inliers=MIN_BOW_MATCHES,
             err_threshold=0.10, with_scale=with_scale, uv_p=arena.kf_uv[cand][rows],
             uv_q=arena.kf_uv[kf_id], K=(cam.fx, cam.fy, cam.cx, cam.cy), px_threshold=px,
-            generator=solvers.frame_generator(kf_id, self.device))
+            key=prng.prng_key(kf_id))        # the JAX package's draw, PRNGKey(kf_id)
         okflag, n_inl = torch.stack([okflag.int(), n_inl.int()]).tolist()
         if not okflag:
             return False, None, n_inl

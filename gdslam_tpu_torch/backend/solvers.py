@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from gdslam_tpu_torch.core import lie
+from gdslam_tpu_torch.core import lie, prng
 
 
 def _rotation_from_cross_covariance(H: torch.Tensor, squarings: int = 16) -> torch.Tensor:
@@ -104,12 +104,16 @@ def frame_generator(frame_id: int, device) -> torch.Generator:
 
 
 def _draw(valid: torch.Tensor, n_iters: int, size: int,
-          generator: Optional[torch.Generator], sample_idx: Optional[torch.Tensor]):
+          generator: Optional[torch.Generator], sample_idx: Optional[torch.Tensor],
+          key: Optional[tuple] = None):
     """[n_iters, size] sample rows: `sample_idx` if given, else drawn with
     replacement, uniformly over the valid rows (over all rows when none is
-    valid, as the reference's log(p + 1e-12) does)."""
+    valid, as the reference's log(p + 1e-12) does): the JAX package's own
+    draw under `key` (core.prng) when given, else from `generator`."""
     if sample_idx is not None:
         return sample_idx.reshape(n_iters, size).long()
+    if key is not None:
+        return prng.uniform_over(key, valid, n_iters * size).reshape(n_iters, size)
     probs = valid.float() + 1e-12
     return torch.multinomial(probs, n_iters * size, replacement=True,
                              generator=generator).reshape(n_iters, size)
@@ -243,20 +247,21 @@ def ransac_sim3(P: torch.Tensor, Q: torch.Tensor, valid: torch.Tensor, n_iters: 
                 min_inliers: int = 20, err_threshold: float = 0.05, with_scale: bool = False,
                 uv_p: Optional[torch.Tensor] = None, uv_q: Optional[torch.Tensor] = None,
                 K: Optional[tuple] = None, px_threshold=3.04, *,
-                generator: Optional[torch.Generator] = None,
-                sample_idx: Optional[torch.Tensor] = None):
+                key: Optional[tuple] = None, sample_idx: Optional[torch.Tensor] = None):
     """RANSAC Sim3/SE3 on 3D-3D correspondences with Sim3Solver::iterate
     semantics (RANSAC(0.99, 20, 300), LoopClosing.cc:279); the scale is 1
     unless with_scale. Consensus is metric (|S P - Q| < err_threshold), or,
     when uv_p / uv_q / K are given, bidirectional reprojection in pixels
     (Sim3Solver::CheckInliers, Sim3Solver.cc:180-209): S P projected into
     the current image against uv_q and S^-1 Q into the candidate's against
-    uv_p, px_threshold a scalar or per point [N]. The draws come from
-    `generator` (the loop closer seeds it from the keyframe id, as the JAX
-    package seeds its key) or from `sample_idx` [n_iters * 3].
+    uv_p, px_threshold a scalar or per point [N]. The draws are the JAX
+    package's under `key` (core.prng; the loop closer gives PRNGKey(kf_id),
+    the JAX package's key), or `sample_idx` [n_iters * 3].
 
     Returns (R, t, s, inliers [N], n_inliers, ok), all on the device."""
-    idx = _draw(valid, n_iters, 3, generator, sample_idx)
+    if key is None and sample_idx is None:
+        raise ValueError("ransac_sim3: give the draw's key or sample_idx")
+    idx = _draw(valid, n_iters, 3, None, sample_idx, key)
     Rs, ts, ss = horn_alignment(P[idx], Q[idx], torch.ones(idx.shape, device=P.device),
                                 with_scale=with_scale)
 

@@ -1,5 +1,6 @@
 """Per-frame feature post-processing: mask culling, undistortion, RGB-D
-stereo association (port of gdslam_tpu.frontend.frame).
+stereo association (port of gdslam_tpu.frontend.frame), and the frame of a
+rectified stereo pair.
 
 Mirrors Frame's RGB-D constructor (reference Frame.cc:236-317): erode the
 static mask (31x31 at 640 px wide, separable min-pool) and keep keypoints
@@ -60,15 +61,30 @@ def dilate_mask(mask: torch.Tensor, ksize: int) -> torch.Tensor:
     return _same_max_pool(mask.float(), ksize) > 0.5
 
 
+def _mask_pass(feats: Features, static_mask: torch.Tensor, cam: CameraConfig):
+    """The keypoints' pixels (u, v) and which are valid and on the eroded
+    static mask."""
+    u = torch.round(feats.uv[:, 0]).to(torch.int64).clamp(0, cam.width - 1)
+    v = torch.round(feats.uv[:, 1]).to(torch.int64).clamp(0, cam.height - 1)
+    return u, v, feats.valid & erode_mask(static_mask, _erode_ksize(cam.width))[v, u]
+
+
+def build_frame_stereo(feats: Features, ur: torch.Tensor, kp_depth: torch.Tensor,
+                       static_mask: torch.Tensor, cam: CameraConfig) -> Frame:
+    """Assemble a Frame from per-keypoint stereo matches (ur, depth): the
+    stereo constructor (Frame.cc:53-154), where depth comes from
+    ComputeStereoMatches instead of a depth map."""
+    _, _, keep = _mask_pass(feats, static_mask, cam)
+    return Frame(uv=camera.undistort_points(feats.uv, cam), uv_raw=feats.uv, ur=ur,
+                 depth=kp_depth, level=feats.level, angle=feats.angle,
+                 response=feats.response, desc=feats.desc, valid=keep)
+
+
 def build_frame(feats: Features, depth_map: torch.Tensor, static_mask: torch.Tensor,
                 cam: CameraConfig) -> Frame:
     """Assemble a Frame from extractor output + depth + static mask
     ([H, W], 1 = static/keep, 0 = dynamic/cull)."""
-    H, W = cam.height, cam.width
-    u = torch.round(feats.uv[:, 0]).to(torch.int64).clamp(0, W - 1)
-    v = torch.round(feats.uv[:, 1]).to(torch.int64).clamp(0, H - 1)
-    eroded = erode_mask(static_mask, _erode_ksize(W))
-    keep = feats.valid & eroded[v, u]
+    u, v, keep = _mask_pass(feats, static_mask, cam)
     z = depth_map[v, u]
     z = torch.where(z > 0, z, 0.0)
     uv_und = camera.undistort_points(feats.uv, cam)

@@ -6,11 +6,12 @@ gdslam_tpu.system.slam).
 `use_geometry=True` behind the DynaSLAM geometric masker; `track_rgbd_geom`
 adds background inpainting; `track_rgbd_gd` runs the tracker behind the GD
 masker (dense scene flow + Mahalanobis masking, the main path), with
-`inpaint=True` also inpainting; with a vocabulary every entry point also
-closes loops and relocalizes through the BoW database. `reset`, the
-localization-mode toggles, `shutdown` and the TUM trajectory writers are
-ported. Every other entry point of the JAX package's System raises
-NotImplementedError until its slice is ported (see ROADMAP.md).
+`inpaint=True` also inpainting; `track_stereo` and `track_monocular` run
+the stereo and monocular trackers (System(sensor=Sensor.STEREO |
+MONOCULAR)); with a vocabulary every entry point also closes loops and
+relocalizes through the BoW database (with a free Sim3 scale for the
+monocular sensor). `reset`, the localization-mode toggles, `shutdown`, the
+TUM and KITTI trajectory writers and the map checkpoints are ported.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from gdslam_tpu_torch.frontend.frame import build_frame
 from gdslam_tpu_torch.masking import geomask, geometry
 from gdslam_tpu_torch.ops import image as image_ops
 from gdslam_tpu_torch.system import trajectory as traj
-from gdslam_tpu_torch.system.tracking import Tracking, TrackState, _not_ported
+from gdslam_tpu_torch.system.tracking import Tracking, TrackState
 
 
 class Sensor(enum.Enum):
@@ -109,8 +110,6 @@ class System:
                  device="cuda"):
         if isinstance(settings, str):
             settings = SlamConfig.from_opencv_yaml(settings)
-        if sensor != Sensor.RGBD:
-            raise _not_ported(f"the {sensor.name} sensor")
         self.cfg = settings
         self.sensor = sensor
         self.device = torch.device(device)
@@ -122,6 +121,7 @@ class System:
             self.tracker.loop_closer = LoopCloser(settings, self._vocab, kmax, self.device)
             # bFixScale (Sim3Solver.h:20): the scale is fixed with metric depth
             self.tracker.loop_closer.fix_scale = sensor != Sensor.MONOCULAR
+        self.tracker.sensor_mono = sensor == Sensor.MONOCULAR
         self._geo: Optional[geomask.GeoMaskMaker] = None    # built at the first GD frame
         self._ones_mask: Optional[torch.Tensor] = None
         self._packed: Optional[PackedUpload] = None
@@ -370,6 +370,18 @@ class System:
         self._update_geometry_db(gray, depth_m, refined, im)
         return T, refined, rgb_out, depth_out
 
+    def track_stereo(self, left, right, timestamp: float, mask=None):
+        """TrackStereo (System.cc:104): a rectified pair (gray, or colour in
+        the settings' channel order), mask 1 = static (None = all static).
+        Returns T_cw 4x4 as track_rgbd returns it."""
+        return self.tracker.process_stereo(self._to_gray(left), self._to_gray(right),
+                                           mask, timestamp)
+
+    def track_monocular(self, image, timestamp: float):
+        """TrackMonocular (System.cc:314). Returns T_cw 4x4 (the identity
+        until the two-view bootstrap succeeds)."""
+        return self.tracker.process_mono(self._to_gray(image), timestamp)
+
     def activate_localization_mode(self):
         """System::ActivateLocalizationMode (System.cc:366): stop map growth;
         tracking continues against the frozen map."""
@@ -387,6 +399,7 @@ class System:
         self.tracker = Tracking(self.cfg, kmax=old.arena.kmax, pmax=old.arena.pmax,
                                 pipeline=old.pipeline, device=self.device)
         self.tracker.commit_every = old.commit_every
+        self.tracker.sensor_mono = old.sensor_mono
         if old.loop_closer is not None:
             old.loop_closer.reset()
             self.tracker.loop_closer = old.loop_closer
@@ -443,13 +456,3 @@ def load_vocabulary(vocabulary, device) -> voc_mod.Vocabulary:
         return voc_mod.default_vocabulary(device)
     return voc_mod.load(vocabulary, device)
 
-
-def _not_ported_method(name: str):
-    def method(self, *args, **kwargs):
-        raise _not_ported(f"System.{name}")
-    method.__name__ = name
-    return method
-
-
-for _name in ("track_stereo", "track_monocular"):
-    setattr(System, _name, _not_ported_method(_name))

@@ -871,3 +871,166 @@ def test_train_sampled_step_on_card_equals_cpu(card):
     du = np.concatenate([(gpu[k] - cpu[k]).ravel() for k in keys])
     u = np.concatenate([(cpu[k] - start[k]).ravel() for k in keys])
     assert np.linalg.norm(du) <= 0.02 * np.linalg.norm(u)
+
+
+# ----------------------------------------------------------------------------
+# The stereo matcher kernel (ops/stereo.py) and the mono bootstrap's match
+# ----------------------------------------------------------------------------
+
+def stereo_inputs(seed: int, N: int, M: int, H: int = 376, W: int = 1241,
+                  integer: bool = True) -> dict:
+    """A seeded pair at KITTI's size: 70% of the left keypoints have a right
+    twin at a disparity of 1-200 px, 0-2 px off their row, a level apart at
+    most and a descriptor a few bits off; the rest and the images random."""
+    r = np.random.default_rng(seed)
+    d = dict(left_uv=np.stack([r.uniform(0, W, N), r.uniform(0, H, N)], 1).astype(np.float32),
+             left_level=r.integers(0, 8, N).astype(np.int32),
+             left_desc=r.integers(0, 256, (N, 32)).astype(np.uint8),
+             left_valid=r.uniform(size=N) > 0.05,
+             right_uv=np.stack([r.uniform(0, W, M), r.uniform(0, H, M)], 1).astype(np.float32),
+             right_level=r.integers(0, 8, M).astype(np.int32),
+             right_desc=r.integers(0, 256, (M, 32)).astype(np.uint8),
+             right_valid=r.uniform(size=M) > 0.05)
+    k = min(int(0.7 * N), M)
+    src, dst = r.permutation(N)[:k], r.permutation(M)[:k]
+    d["right_uv"][dst] = d["left_uv"][src] - np.stack([r.uniform(1, 200, k),
+                                                       r.normal(0, 1, k)], 1)
+    d["right_level"][dst] = np.clip(d["left_level"][src] + r.integers(-1, 2, k), 0, 7)
+    flips = (1 << r.integers(0, 8, (k, 32))) * (r.uniform(size=(k, 32)) < 0.06)
+    d["right_desc"][dst] = d["left_desc"][src] ^ flips.astype(np.uint8)
+    img = r.uniform(0, 255, (2, H, W))
+    d["img_left"], d["img_right"] = (np.round(img) if integer else img).astype(np.float32)
+    return d
+
+
+STEREO_ARGS = ("left_uv", "left_level", "left_desc", "left_valid",
+               "right_uv", "right_level", "right_desc", "right_valid")
+
+
+def _stereo_call(fn, d, dev, images=True):
+    t = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in d.items()}
+    imgs = (t["img_left"], t["img_right"]) if images else (None, None)
+    return fn(*(t[k] for k in STEREO_ARGS), 386.1448, 386.1448 / 718.856, *imgs, 1.2)
+
+
+@pytest.mark.parametrize("case", ["integer", "float", "no_images", "all_invalid_right",
+                                  "empty_right"])
+def test_stereo_kernel_equals_plain(card, case):
+    """At KITTI's 2000 x 2000 (1241 x 376 images): ur and depth bit for bit
+    against the plain twin on the CPU and on the card, one launch a call."""
+    from gdslam_tpu_torch.ops import stereo
+    d = stereo_inputs(7, 2000, 0 if case == "empty_right" else 2000,
+                      integer=case != "float")
+    if case == "all_invalid_right":
+        d["right_valid"][:] = False
+    images = case != "no_images"
+    before = stereo.stereo_match.launches
+    got = _stereo_call(stereo.stereo_match, d, card, images)
+    torch.cuda.synchronize()
+    assert stereo.stereo_match.launches == before + 1
+    for dev in ("cpu", card):
+        want = _stereo_call(stereo.stereo_match_plain, d, dev, images)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu()), dev
+    n_ok = int((got[1] > 0).sum())
+    assert n_ok == 0 if case in ("all_invalid_right", "empty_right") else n_ok > 500
+
+
+def test_stereo_kernel_on_a_rendered_pair(card):
+    """Extraction on the card and the kernel at the full settings (2000
+    features, 8 levels) on a rendered 1241 x 376 pair, integer and float:
+    bit for bit against the plain twin on the same features."""
+    from gdslam_tpu_torch.ops import stereo
+    cam = CameraConfig(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, width=1241,
+                       height=376, bf=386.1448, fps=10.0, th_depth=35.0)
+    orb = OrbConfig(n_features=2000)
+    T = synthetic.gt_pose(4, 10.0, card)
+    S = torch.eye(4, device=card)
+    S[0, 3] = cam.bf / cam.fx
+    views = [synthetic.render(P, cam, False, 10.0, 4).gray for P in (T, T @ S)]
+    for images in (views, [torch.round(v) for v in views]):
+        A, B = (extractor.extract(v, orb, cam.height, cam.width) for v in images)
+        args = [t.contiguous() for t in (A.uv, A.level, A.desc, A.valid,
+                                         B.uv, B.level, B.desc, B.valid)]
+        got = stereo.stereo_match(*args, cam.bf, cam.bf / cam.fx, *images, 1.2)
+        want = stereo.stereo_match_plain(*args, cam.bf, cam.bf / cam.fx, *images, 1.2)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert int((got[1] > 0).sum()) > 300
+
+
+def test_stereo_wrapper_raises_without_the_library(card, monkeypatch):
+    """On real CUDA tensors: with the library loader failing the wrapper
+    raises, counts no launch and never takes its plain version."""
+    from gdslam_tpu_torch.ops import stereo
+
+    def missing():
+        raise RuntimeError("stereo_match: library missing")
+
+    monkeypatch.setattr(stereo, "_library", missing)
+    monkeypatch.setattr(stereo, "stereo_match_plain",
+                        lambda *a, **k: pytest.fail("fell back to the plain version"))
+    before = stereo.stereo_match.launches
+    with pytest.raises(RuntimeError, match="library missing"):
+        _stereo_call(stereo.stereo_match, stereo_inputs(1, 64, 64, 40, 60), card)
+    assert stereo.stereo_match.launches == before
+
+
+@pytest.mark.parametrize("path", [None, "cells", "tiled"])
+def test_bootstrap_match_call_site_equals_plain(card, path, monkeypatch):
+    """The mono bootstrap's all-pairs match_top2 call (the frame's keypoints
+    as candidate rows, an infinite radius) at 1500 x 1500 with invalid rows
+    on both sides and distances of exactly 128: good and the JAX index rule
+    on every row as on the CPU (the plain twin), each kernel path forced."""
+    r = np.random.default_rng(11)
+    n = 1500
+
+    def frame(desc, valid, uv, level):
+        z = torch.zeros(n)
+        f = tracking.Frame(uv=torch.from_numpy(uv), uv_raw=torch.from_numpy(uv), ur=-z - 1,
+                           depth=z, level=torch.from_numpy(level), angle=z, response=z,
+                           desc=torch.from_numpy(desc), valid=torch.from_numpy(valid))
+        return f
+
+    d1 = r.integers(0, 256, (n, 32)).astype(np.uint8)
+    d2 = (r.integers(0, 256, (n, 32)) | r.integers(0, 256, (n, 32))).astype(np.uint8)
+    d2[:300] = d1[:300] ^ ((1 << r.integers(0, 8, (300, 32)))
+                           * (r.uniform(size=(300, 32)) < 0.05)).astype(np.uint8)
+    d1[400:410] = 0
+    d2[500] = 0
+    d2[500, :16] = 255                       # exactly 128 from rows 400-409
+    v1, v2 = r.uniform(size=n) > 0.1, r.uniform(size=n) > 0.1
+    uv1 = r.uniform(0, 640, (n, 2)).astype(np.float32)
+    uv2 = r.uniform(0, 640, (n, 2)).astype(np.float32)
+    lv1, lv2 = r.integers(0, 8, n).astype(np.int32), r.integers(0, 8, n).astype(np.int32)
+    first, fr = frame(d1, v1, uv1, lv1), frame(d2, v2, uv2, lv2)
+    want = tracking.bootstrap_matches(first, fr, 8)
+    if path is not None:
+        orig = tracking.match_top2
+        monkeypatch.setattr(tracking, "match_top2", lambda *a: orig(*a, path=path))
+    before = match_kernel.match_top2.launches
+    got = tracking.bootstrap_matches(first._replace(**{k: v.to(card) for k, v in
+                                                       first._asdict().items()}),
+                                     fr._replace(**{k: v.to(card) for k, v in
+                                                    fr._asdict().items()}), 8)
+    assert match_kernel.match_top2.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert int(want[0].sum()) > 200
+
+
+def test_bootstrap_helpers_on_card_equal_cpu(card):
+    """The mono bootstrap's scale and draws on the card: nanmedian (NaNs
+    sort last, an even count's two middles) and the replayed JAX draws
+    (core.prng) bit for bit as on the CPU."""
+    from gdslam_tpu_torch.core import prng
+    r = np.random.default_rng(12)
+    x = r.normal(size=300).astype(np.float32)
+    x[r.uniform(size=300) < 0.3] = np.nan
+    for v in (x, x[:-1], np.full(4, np.nan, np.float32)):
+        t = torch.from_numpy(v)
+        torch.testing.assert_close(tracking.nanmedian(t.to(card)).cpu(), tracking.nanmedian(t),
+                                   rtol=0, atol=0, equal_nan=True)
+    valid = torch.from_numpy(r.uniform(size=1500) < 0.4)
+    for seed in (0, 31):
+        key = prng.prng_key(seed)
+        assert torch.equal(prng.uniform_over(key, valid.to(card), 1600).cpu(),
+                           prng.uniform_over(key, valid, 1600))

@@ -165,18 +165,13 @@ def test_entry_points_default_to_the_card():
 
 
 def test_not_ported_entry_points_raise():
-    """What is still to port raises NotImplementedError naming ROADMAP.md
-    (the geometry path, track_rgbd_geom, GD inpainting, loop closing with
-    a vocabulary, the map checkpoints and the KITTI writer are ported: see
-    test_ported_entry_points_no_longer_raise)."""
-    cfg = tconfig.SlamConfig(camera=tconfig.CameraConfig(width=160, height=120),
-                             orb=tconfig.OrbConfig(n_features=64, n_levels=2))
-    s = tslam.System(cfg, kmax=4, pmax=64, device="cpu")
-    for name in ("track_stereo", "track_monocular"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(s, name)()
+    """What is still to port raises NotImplementedError naming ROADMAP.md:
+    the reference's Keras .h5 weights for the live segmenter (item 12b).
+    Every System entry point is ported (the stereo and monocular sensors
+    too: see test_ported_entry_points_no_longer_raise)."""
+    from gdslam_tpu_torch.models import maskrcnn
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tslam.System(cfg, sensor=tslam.Sensor.STEREO, kmax=4, pmax=64, device="cpu")
+        maskrcnn.build_segmenter("flax:W.h5", image_hw=(120, 160), device="cpu")
 
 
 def test_ported_entry_points_no_longer_raise(tmp_path):
@@ -240,20 +235,36 @@ def test_ported_entry_points_no_longer_raise(tmp_path):
         s.tracker.loop_closer = object()
     s.tracker.loop_closer = None
     assert tslam.System(cfg, kmax=4, pmax=64, device="cpu").tracker.loop_closer is None
+    # the stereo and monocular sensors construct and take frames; the
+    # monocular one keyframes by the mono rule and closes loops with a
+    # free Sim3 scale, and reset keeps its sensor
+    s = tslam.System(cfg, sensor=tslam.Sensor.STEREO, kmax=4, pmax=64, device="cpu")
+    assert not s.tracker.sensor_mono
+    s.track_stereo(np.zeros((120, 160)), np.zeros((120, 160)), 0.0)   # too few keypoints
+    assert s.tracking_state.name == "NOT_INITIALIZED" and s.tracker.frame_id == 1
+    s = tslam.System(cfg, sensor=tslam.Sensor.MONOCULAR, kmax=4, pmax=64,
+                     vocabulary="default", device="cpu")
+    assert s.tracker.sensor_mono and not s.tracker.loop_closer.fix_scale
+    T = s.track_monocular(np.zeros((120, 160)), 0.0)     # the first frame waits for its pair
+    assert np.array_equal(T, np.eye(4)) and s.tracking_state.name == "NOT_INITIALIZED"
+    s.reset()
+    assert s.tracker.sensor_mono and s.tracker._mono_first is None
 
 
 NEW_MODULES = ("masking/geometry.py", "masking/masknet.py", "io/png.py", "io/tum.py",
                "io/native_loader.py", "cli/rgbd_tum.py", "cli/evaluate.py",
                "backend/vocabulary.py", "backend/keyframe_db.py", "backend/loop_closing.py",
                "backend/pose_graph.py", "backend/gba.py", "models/maskrcnn.py",
-               "ops/detect_kernels.py", "ops/cuda_build.py", "utils/checkpoint.py")
+               "ops/detect_kernels.py", "ops/cuda_build.py", "utils/checkpoint.py",
+               "ops/stereo.py", "frontend/initializer.py", "io/kitti.py", "cli/stereo_kitti.py",
+               "cli/mono_tum.py", "cli/mono_kitti.py")
 
 
 def test_no_import_check_covers_the_geometry_and_cli_modules():
     """The static scan and the fresh-interpreter import above reach the
     modules of the geometry path, the CLIs, loop closing, the segmenter and
-    its kernels. build module, and the checkpoints (the scan takes every file of
-    the package)."""
+    its kernels. build module, the checkpoints, and the stereo and monocular
+    slice with its drivers (the scan takes every file of the package)."""
     for rel in NEW_MODULES:
         assert ROOT / "gdslam_tpu_torch" / rel in PORT_FILES, rel
         assert not [m for m in _imported_roots(ROOT / "gdslam_tpu_torch" / rel)
@@ -350,6 +361,41 @@ def test_detect_wrappers_raise_on_cuda_tensors_without_the_library(monkeypatch, 
         with pytest.raises(ValueError, match=bad_arg):
             bad_call()
     assert wrapper.launches == before
+
+
+def test_stereo_wrapper_raises_on_cuda_tensors_without_the_library(monkeypatch):
+    """stereo_match, like the other wrappers: for CUDA tensors it launches
+    or raises, with no library it raises and counts no launch, a wrong
+    dtype is refused, and it never takes the plain version. Fake CUDA
+    tensors stand in for a card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from gdslam_tpu_torch.ops import stereo
+
+    def missing():
+        raise RuntimeError("stereo_match: library missing")
+
+    monkeypatch.setattr(stereo, "_library", missing)
+    monkeypatch.setattr(stereo, "stereo_match_plain",
+                        lambda *a, **k: pytest.fail("fell back to the plain version"))
+    before = stereo.stereo_match.launches
+    with FakeTensorMode():
+        f, u8, i32, b = torch.float32, torch.uint8, torch.int32, torch.bool
+
+        def side(n):
+            return (torch.empty(n, 2, dtype=f, device="cuda"),
+                    torch.empty(n, dtype=i32, device="cuda"),
+                    torch.empty(n, 32, dtype=u8, device="cuda"),
+                    torch.empty(n, dtype=b, device="cuda"))
+        img = torch.empty(376, 1241, dtype=f, device="cuda")
+        args = (*side(2000), *side(1900), 386.1448, 0.537)
+        with pytest.raises(RuntimeError, match="library missing"):
+            stereo.stereo_match(*args, img, img)
+        with pytest.raises(ValueError, match="left_level"):
+            stereo.stereo_match(args[0], args[1].long(), *args[2:], img, img)
+        with pytest.raises(ValueError, match="both images"):
+            stereo.stereo_match(*args, img, None)
+    assert stereo.stereo_match.launches == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
