@@ -156,7 +156,7 @@ then prints one JSON line per phase:
            inpaint (the 20-frame DB), LightTrack (both searches) and the whole
            pipelined frame's device work, which must not wait for the card:
            ms through the host, device busy and device operations per call;
-           a profiler window over 10 whole geometry frames;
+           a profiler window over 5 whole geometry frames;
   profile  torch.profiler windows over whole frames (pipelined and not, and
            GD frames), over one pose solve and over one local BA: device
            busy share, device operations, host operators;
@@ -245,6 +245,9 @@ GEOM_WARMUP_KEYFRAMES = 8
 GEOM_WINDOW = 30
 GEOM_TAIL = 10
 GEOM_PROFILE_FRAMES = 10
+PROFILED_FRAMES = 5            # whole GD and geometry frames under one profiler window (of the
+                               # 10 rendered for each): its event processing is most of the
+                               # profile phases' time
 GEOM_STAGED_FRAMES = 20
 GD_INPAINT_FRAMES = 20
 GEOM_JAX_QUALITY = dict(ate_m=0.0423, mask_recall=1.0, mask_iou=0.715)
@@ -2480,11 +2483,14 @@ def detect_launch(torch, dk, name, a, k) -> tuple:
     tensors they point to) for one recorded call, built here with live
     tensors so that a CUDA graph can replay the launch."""
     lib = dk._library(name)
-    if name == "nms_fixed":
+    if name == "nms_fixed":               # one C call issues both launches (mask, walk)
         boxes, scores, th, n_out = a
         out = torch.empty(n_out, dtype=torch.int32, device=boxes.device)
+        scratch = torch.empty(dk.nms_scratch_words(boxes.shape[0]), dtype=torch.int32,
+                              device=boxes.device)
         return lib.nms_fixed_launch, (boxes.data_ptr(), scores.data_ptr(), boxes.shape[0],
-                                      float(np.float32(th)), n_out, out.data_ptr()), (out,)
+                                      float(np.float32(th)), n_out, out.data_ptr(),
+                                      scratch.data_ptr()), (out, scratch)
     if name == "roi_align":
         flat, shapes, boxes, size = a
         pro = dk.roi_prologue(shapes, boxes, size)
@@ -2512,8 +2518,9 @@ def detect_bound(torch, dk, name, a, k) -> dict:
         nbytes = n * 20 + n_out * 4
         ops = min(steps, n_out) * n * 16           # IoU ~12 flops, argmax ~4 per box and step
         extra = dict(dependent_steps=min(steps, n_out),
-                     bound_note="latency: a chain of dependent block-wide argmax + sweep "
-                                "steps, each a few barriers; neither bytes nor operations")
+                     bound_note="latency: after the bitmask (N^2 IoUs in parallel), one "
+                                "warp's walk of up to N / 32 dependent chunk decisions; "
+                                "neither bytes nor operations")
     elif name == "roi_align":
         flat, shapes, boxes, size = a
         info, y0, x0, fy, fx = dk.roi_prologue(shapes, boxes, size)
@@ -2557,11 +2564,12 @@ def time_detect(torch, dk, name, a, k) -> dict:
     return out
 
 
-def check_detect_kernels(torch, dk, seg, rgb_dev) -> dict:
+def check_detect_kernels(torch, dk, seg, rgb_dev, old=None) -> dict:
     """Each detection kernel against its plain version, and timed, on the
     segmenter's real intermediates of one frame: at the main path's score
     threshold (0.7) and at 0, where the detection NMS, the 14 x 14 ROIAlign
-    and the paste see 32 valid detections."""
+    and the paste see 32 valid detections. With `old` (OldDetectKernels),
+    the parent's NMS timed beside the new one (ab_times)."""
     out = {}
     for label, th in (("score_th_0.7", 0.7), ("score_th_0", 0.0)):
         calls, _ = detect_calls(dk, lambda: seg.segment(rgb_dev, th))
@@ -2575,6 +2583,11 @@ def check_detect_kernels(torch, dk, seg, rgb_dev) -> dict:
             if rec["max_abs_err"] != 0:
                 fail(f"seg: {name} ({role}, {label}) differs from its plain version: {rec}")
             rec.update(time_detect(torch, dk, name, a, k))
+            if old is not None and name == "nms_fixed":
+                rec["ab"] = ab_times(torch, lambda: old.nms_launch(*a),
+                                     lambda: detect_launch(torch, dk, name, a, k),
+                                     lambda: old.nms(*a), lambda: dk.nms_fixed(*a),
+                                     dk.nms_fixed_plain(*a))
             sites.append(rec)
         out[label] = sites
     if out["score_th_0"][4]["pasting"] < 32:
@@ -2593,7 +2606,7 @@ def seg_run(torch, seg, frames_rgb) -> list:
 
 
 def phase_seg(torch, mk, cfg, frames, System, synthetic, metrics, dev, weights: Path,
-              weights_info: dict) -> tuple[dict, list]:
+              weights_info: dict, old=None) -> tuple[dict, list]:
     """The live segmenter on the card at full width, as rgbd_tum's argc==6
     mode runs it: build_segmenter("flax:<file>") on the port's seeded
     ResNet50 weights (480 x 640 frames molded to 240 x 320; pre_nms 1024,
@@ -2603,7 +2616,8 @@ def phase_seg(torch, mk, cfg, frames, System, synthetic, metrics, dev, weights: 
     Guards: every detection kernel launched on this run, the ATE gate of
     the JAX driver test, the tracked frames. Then the segmenter's time
     through the host and on the device (profiler), the backbone's share,
-    and each detection kernel against its plain version and timed."""
+    and each detection kernel against its plain version and timed (with
+    `old`, OldDetectKernels, the parent's NMS beside it)."""
     from gdslam_tpu_torch.masking.masknet import SegmentDynObject
     from gdslam_tpu_torch.models import maskrcnn
     from gdslam_tpu_torch.ops import detect_kernels as dk
@@ -2664,7 +2678,7 @@ def phase_seg(torch, mk, cfg, frames, System, synthetic, metrics, dev, weights: 
                backbone_share_of_device=backbone["device_busy_ms"] / whole["device_busy_ms"],
                launches=launches,
                launches_per_frame={k: v / SEG_FRAMES for k, v in launches.items()})
-    res["kernels"] = check_detect_kernels(torch, dk, seg, rgb_dev)
+    res["kernels"] = check_detect_kernels(torch, dk, seg, rgb_dev, old)
     res["card"] = nvidia_smi_line()
     emit(res)
     return res, rgbs[:5]
@@ -2837,18 +2851,129 @@ class TrainProbe:
 
 def backward_launch(torch, dk, grad, shapes, boxes) -> tuple:
     """(C launch function, its arguments up to the device and stream, the
-    tensors they point to) of one backward call, for a CUDA graph."""
+    tensors they point to) of one backward call on the forward's prologue,
+    for a CUDA graph."""
     lib = dk._library("roi_align_backward")
     R, o, _, C = grad.shape
-    target, order, fa, fb = dk.roi_backward_prologue(dk.roi_prologue(shapes, boxes, o))
-    out = torch.zeros((sum(a * b for a, b in shapes), C), device=grad.device)
-    return lib.roi_align_backward_launch, (grad.data_ptr(), C, target.data_ptr(),
-                                          order.data_ptr(), fa.data_ptr(), fb.data_ptr(),
-                                          target.shape[0], R * o * o, out.data_ptr()), \
-        (out, target, order, fa, fb)
+    pro = dk.roi_prologue(shapes, boxes, o)
+    out = torch.empty((sum(a * b for a, b in shapes), C), device=grad.device)
+    return lib.roi_align_backward_launch, (grad.data_ptr(), C, R, o,
+                                          *(t.data_ptr() for t in pro),
+                                          *(v for hw in shapes for v in hw),
+                                          out.data_ptr()), (out, *pro)
 
 
-def check_backward_kernel(torch, dk, calls) -> list:
+class OldDetectKernels:
+    """The earlier nms_fixed and roi_align_backward (one CTA of greedy
+    steps; one warp per run of sorted targets), their sources in `src_dir`
+    (as of commit 4f0bef9), built there with the same flags, behind their
+    earlier wrappers (the NMS one without its checks; the backward one with
+    its sorted lists, roi_backward_prologue, and a zero-filled output), to
+    be timed beside the current kernels in one process. `ptxas` holds what
+    ptxas reports for each."""
+
+    def __init__(self, torch, dk, src_dir: Path):
+        from gdslam_tpu_torch.ops import cuda_build
+        self.torch, self.dk = torch, dk
+        flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+        procs = {}
+        for n in ("nms_fixed", "roi_align_backward"):
+            src, nvcc = str(src_dir / f"{n}.cu"), cuda_build.nvcc(n)
+            procs[n] = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                         text=True)
+                        for cmd in ([nvcc, *cuda_build.NVCC_FLAGS, "-o",
+                                     str(src_dir / f"lib{n}_old.so"), src],
+                                    [nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o",
+                                     str(src_dir / f"{n}_old.cubin"), src])]
+        self.ptxas = {}
+        for n, (so, report) in procs.items():
+            errs = [proc.communicate(timeout=600)[1] for proc in (so, report)]
+            if so.returncode or report.returncode:
+                fail(f"ab: the parent's {n} did not build:\n{errs[0]}{errs[1]}")
+            self.ptxas[n] = [ln.strip() for ln in errs[1].splitlines()
+                             if "Used" in ln or "spill" in ln]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.nms_fn = ctypes.CDLL(str(src_dir / "libnms_fixed_old.so")).nms_fixed_launch
+        self.nms_fn.argtypes, self.nms_fn.restype = [p, p, i, f, i, p, i, p], i
+        self.bwd_fn = ctypes.CDLL(str(src_dir / "libroi_align_backward_old.so")) \
+            .roi_align_backward_launch
+        self.bwd_fn.argtypes, self.bwd_fn.restype = [p, i, p, p, p, p, i, i, p, i, p], i
+
+    def _run(self, fn, a) -> None:
+        torch = self.torch
+        err = fn(*a, torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"ab: a parent kernel's launch failed with CUDA error {err}")
+
+    def nms_launch(self, boxes, scores, th, n_out) -> tuple:
+        out = self.torch.empty(n_out, dtype=self.torch.int32, device=boxes.device)
+        return self.nms_fn, (boxes.data_ptr(), scores.data_ptr(), boxes.shape[0],
+                             float(np.float32(th)), n_out, out.data_ptr()), (out,)
+
+    def nms(self, boxes, scores, th, n_out):
+        fn, a, keep = self.nms_launch(boxes, scores, th, n_out)
+        self._run(fn, a)
+        return keep[0]
+
+    def backward_launch(self, grad, shapes, boxes, prologue=None) -> tuple:
+        R, o, _, C = grad.shape
+        target, order, fa, fb = self.dk.roi_backward_prologue(
+            prologue or self.dk.roi_prologue(shapes, boxes, o))
+        out = self.torch.zeros((sum(a * b for a, b in shapes), C), device=grad.device)
+        return self.bwd_fn, (grad.data_ptr(), C, target.data_ptr(), order.data_ptr(),
+                             fa.data_ptr(), fb.data_ptr(), target.shape[0], R * o * o,
+                             out.data_ptr()), (out, target, order, fa, fb)
+
+    def backward(self, grad, shapes, boxes, prologue=None):
+        fn, a, keep = self.backward_launch(grad, shapes, boxes, prologue)
+        self._run(fn, a)
+        return keep[0]
+
+
+def graph_call_ms(torch, fn, calls: int = 10) -> float:
+    """Device time per call of everything a Python call launches (its
+    PyTorch work included), `calls` of them captured into one CUDA graph and
+    replayed; None where the call cannot be captured."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                                  # warm-up off the capturing stream
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    try:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+    except RuntimeError:
+        return None
+    return cuda_ms(torch, g.replay, reps=20) / calls
+
+
+def ab_times(torch, old_launch, new_launch, old_call, new_call, want) -> dict:
+    """The parent's kernel beside the new one on one call: device ms of the
+    C launch from CUDA graphs in the order parent, new, new, parent; device
+    ms of everything each wrapper launches (its PyTorch work too: the
+    parent's sort and zero-fill), from graphs, parent then new; ms through
+    each wrapper; both outputs bitwise against the plain twin's `want`."""
+    (fo, ao, ko), (fn, an, kn) = old_launch(), new_launch()
+    dev = [graph_ms(torch, fo, ao), graph_ms(torch, fn, an), graph_ms(torch, fn, an),
+           graph_ms(torch, fo, ao)]
+    got_old, got_new = old_call(), new_call()
+    torch.cuda.synchronize()
+    same = lambda x: bool(torch.equal(x.view(torch.int32), want.view(torch.int32)))
+    out = dict(old_device_ms=[dev[0], dev[3]], new_device_ms=[dev[1], dev[2]],
+               old_wrapper_device_ms=graph_call_ms(torch, old_call),
+               new_wrapper_device_ms=graph_call_ms(torch, new_call),
+               old_ms=cuda_ms(torch, old_call, reps=50), new_ms=cuda_ms(torch, new_call, reps=50),
+               old_exact=same(got_old), new_exact=same(got_new))
+    del ko, kn
+    if not (out["old_exact"] and out["new_exact"]):
+        fail(f"ab: a kernel differs from its plain twin: {out}")
+    return out
+
+
+def check_backward_kernel(torch, dk, calls, old=None) -> list:
     """The ROIAlign backward kernel at the training call shapes (the box
     head's [64, 7, 7, 256] and the mask head's [64, 14, 14, 256]), on
     cotangents the training graph gave it (none all zero) and on a seeded
@@ -2856,9 +2981,10 @@ def check_backward_kernel(torch, dk, calls) -> list:
     bitwise equal to its plain twin, twice in a row equal, timed through
     the wrapper (given the forward's prologue, as autograd calls it, and
     from the boxes), on the device alone (the C launch replayed from a
-    CUDA graph) and as the plain twin, against its bound: the cotangent read
-    once, the gradient's touched rows written once and 16 bytes of lists
-    per contribution, over the card's memory rate."""
+    CUDA graph) and as the plain twin, against its bound: the cotangent and
+    the forward's prologue read once, the whole gradient written once, over
+    the card's memory rate. With `old` (OldDetectKernels), the parent's
+    kernel timed beside it (ab_times)."""
     sites = []
     gen = torch.Generator(device="cuda").manual_seed(SEG_SEED)
     for grad, shapes, boxes in calls:
@@ -2873,7 +2999,8 @@ def check_backward_kernel(torch, dk, calls) -> list:
         target = dk.roi_backward_prologue(dk.roi_prologue(shapes, boxes, o))[0]
         rows = int(torch.unique(target).numel())
         n = target.numel()
-        nbytes = grad.numel() * 4 + rows * C * 4 + n * 16 + R * 16
+        S = sum(a * b for a, b in shapes)
+        nbytes = grad.numel() * 4 + S * C * 4 + R * (12 + o * 16)
         ops = n * C * 3                                  # two products and a sum
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
         pro = dk.roi_prologue(shapes, boxes, o)         # what the forward hands the backward
@@ -2900,6 +3027,12 @@ def check_backward_kernel(torch, dk, calls) -> list:
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=nbytes, operations=ops, library_ms=None)
         del keep
+        if old is not None:
+            rec["ab"] = ab_times(
+                torch, lambda: old.backward_launch(grad, shapes, boxes, pro),
+                lambda: backward_launch(torch, dk, grad, shapes, boxes),
+                lambda: old.backward(grad, shapes, boxes, pro),
+                lambda: dk.roi_align_backward(grad, shapes, boxes, pro), want)
         if not (rec["cotangent_rows_nonzero"] and rec["gradient_rows_nonzero"]):
             fail(f"seg_train: roi_align_backward at {rec['shape']} was checked on a zero "
                  f"cotangent or gave a zero gradient: {rec}")
@@ -2910,7 +3043,7 @@ def check_backward_kernel(torch, dk, calls) -> list:
     return sites
 
 
-def phase_seg_train(torch, dev, dyn_frames) -> tuple[dict, dict, dict]:
+def phase_seg_train(torch, dev, dyn_frames, old=None) -> tuple[dict, dict, dict]:
     """Mask R-CNN training at full width: MaskRCNN() (ResNet50-FPN, 81
     classes, pre/post NMS 1024/128, 32 detections) at 240 x 320 on the
     renderer's dynamic object as a person, seeded weights, calibrated
@@ -2923,7 +3056,8 @@ def phase_seg_train(torch, dev, dyn_frames) -> tuple[dict, dict, dict]:
     past the fit. Prints the fit's ms per step, the median of
     PROBE_TIMED more steps timed one by one, the fit's peak device memory
     above what earlier phases hold, the losses and positive ROIs per step,
-    and a profile of one more step."""
+    and a profile of one more step. With `old` (OldDetectKernels), the
+    parent's backward kernel timed beside the new one."""
     from gdslam_tpu_torch.ops import detect_kernels as dk
     data = train_data_full_width(torch, dyn_frames)
     if data["images"].shape[0] < TRAIN_BATCH:
@@ -2948,7 +3082,7 @@ def phase_seg_train(torch, dev, dyn_frames) -> tuple[dict, dict, dict]:
     if sorted(found) != [7, 14]:
         fail(f"seg_train: no step of {PROBE_RECORD} past the fit gave a non-zero cotangent at "
              f"both call sizes (found {sorted(found)}, positive ROIs {probe_pos})")
-    sites = check_backward_kernel(torch, dk, [found[7], found[14]])
+    sites = check_backward_kernel(torch, dk, [found[7], found[14]], old)
     prof = profile_window(torch, probe.step, 1)
     n_pos = [c["n_pos_rois"] for c in comps]
     res = dict(phase="seg_train", image_hw=list(TRAIN_HW), blocks=list(SEG_BLOCKS),
@@ -3855,14 +3989,14 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
     emit(gstages)
     path_calls.append(gd_call)
     geo_st = phase_geom_stages(torch, geom_slam, dyn[n_geom],
-                               dyn[n_geom + 1:n_geom + 1 + GEOM_PROFILE_FRAMES], n_geom + 1, cfg,
+                               dyn[n_geom + 1:n_geom + 1 + PROFILED_FRAMES], n_geom + 1, cfg,
                                (geometry, extractor, build_frame))
     geo_st["ms"]["whole_geom_frame_pipelined"] = geores["frame_ms"]
     geo_st["ms"]["whole_geom_frame_staged_with_inpaint"] = geostres["frame_ms_median"]
     geo_st["ms"]["whole_gd_inpaint_frame"] = gdires["frame_ms_median"]
     emit(geo_st)
     emit(phase_profile(torch, slam, slam_pipe, frames[n_frames + 1:], n_frames + 1, gn_call,
-                       ba_call, gd_slam, raw[n_gd:n_gd + GD_PROFILE_FRAMES], n_gd))
+                       ba_call, gd_slam, raw[n_gd:n_gd + PROFILED_FRAMES], n_gd))
 
     local_map = path_calls[1]
     by_path = dict(gd_slice=gres["match_top2_launches"],

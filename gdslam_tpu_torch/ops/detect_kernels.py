@@ -28,7 +28,9 @@ import torch
 
 from gdslam_tpu_torch.ops import cuda_build
 
-NMS_MAX_N = 1024                 # one CTA of up to 1024 threads
+NMS_MAX_N = 1024                 # one CTA of up to 1024 threads per mask row
+ROI_BACKWARD_MAX_OUT = 32        # a box's bins along a side fit one 32-bit mask
+ROI_BACKWARD_MAX_R = 1024        # the listed candidates fit shared memory
 MASK = 28                        # the mask head's output side
 PASTE_MAX_D = 64                 # masks staged in shared memory: 64 x 3,156 bytes
 ROI_STRIDES = (4, 8, 16, 32)     # P2..P5
@@ -37,9 +39,9 @@ DYNAMIC_CLASS_IDS = tuple(range(1, 10)) + tuple(range(15, 25))
 
 def _declare(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    sigs = {"nms_fixed_launch": [p, p, i, f, i, p],
+    sigs = {"nms_fixed_launch": [p, p, i, f, i, p, p],
             "roi_align_launch": [p, i, p, p, p, p, p, i, i, p],
-            "roi_align_backward_launch": [p, i, p, p, p, p, i, i, p],
+            "roi_align_backward_launch": [p, i, i, i, p, p, p, p, p] + [i] * 8 + [p],
             "paste_masks_launch": [p, p, p, i, i, i, f, p]}
     for name, args in sigs.items():
         fn = getattr(lib, name, None)
@@ -98,10 +100,17 @@ def nms_fixed_plain(boxes, scores, iou_th: float, n_out: int) -> torch.Tensor:
     return torch.cat(picked).to(torch.int32)
 
 
+def nms_scratch_words(n: int) -> int:
+    """The kernel's scratch in int32 words: the suppression bitmask
+    (n x ceil(n / 32)), then the boxes in score order (n)."""
+    return n * ((n + 31) // 32) + n
+
+
 def nms_fixed(boxes, scores, iou_th: float, n_out: int) -> torch.Tensor:
     """Fixed-budget NMS: boxes [N, 4] f32 (y1, x1, y2, x2), scores [N] f32
     (-inf: never picked), N <= 1024. Returns [n_out] int32 indices, -1
-    padded. One launch on the card."""
+    padded. On the card one call is two CUDA launches (the bitmask, then the
+    walk), counted as one."""
     name = "nms_fixed"
     device = _device(name, boxes)
     if device.type == "cpu":
@@ -118,9 +127,10 @@ def nms_fixed(boxes, scores, iou_th: float, n_out: int) -> torch.Tensor:
         raise ValueError(f"{name}: boxes must be 16-byte aligned")
     out = torch.empty(n_out, dtype=torch.int32, device=device)
     if n_out:
+        scratch = torch.empty(nms_scratch_words(N), dtype=torch.int32, device=device)
         cuda_build.launch(name, device, lib.nms_fixed_launch, boxes.data_ptr(),
                           scores.data_ptr(), N, float(np.float32(iou_th)), n_out,
-                          out.data_ptr())
+                          out.data_ptr(), scratch.data_ptr())
         nms_fixed.launches += 1
     return out
 
@@ -265,12 +275,13 @@ class _RoiAlignGrad(torch.autograd.Function):
 
 
 def roi_backward_prologue(prologue):
-    """The backward's contributions, shared by both routes, from the
-    forward's roi_prologue. Contribution (tap, box r, bin i, bin j) sends
-    (g[r, i, j] * b) * a to row `target` of flat, where the forward's term
-    is (flat[target] * a) * b: a the row factor, b the column factor. Ids
-    are tap-major in the order the JAX transpose adds its four scatter-adds
-    (taps (1, 1), (1, 0), (0, 1), (0, 0)), then r, i, j. Returns (target
+    """The plain twin's contributions, from the forward's roi_prologue (the
+    kernel walks the same order without listing them). Contribution (tap,
+    box r, bin i, bin j) sends (g[r, i, j] * b) * a to row `target` of flat,
+    where the forward's term is (flat[target] * a) * b: a the row factor, b
+    the column factor. Ids are tap-major in the order the JAX transpose adds
+    its four scatter-adds (taps (1, 1), (1, 0), (0, 1), (0, 0)), then r, i,
+    j. Returns (target
     [N] int32 and order [N] int32, the target rows sorted stably and the id
     of each sorted entry; fa, fb [N] f32 by id), N = 4 R out^2."""
     info, y0, x0, fy, fx = prologue
@@ -325,9 +336,9 @@ def roi_align_backward(grad, shapes, boxes, prologue=None) -> torch.Tensor:
     flat: grad [R, out, out, C] f32 (contiguous, C a multiple of 4), boxes
     [R, 4] f32. Returns [S, C] f32, S = sum(h * w) of the levels.
     `prologue` is roi_prologue(shapes, boxes, out) where the caller holds it
-    (the forward's, in autograd). One launch on the card after the
-    contributions' prologue (a sort of the 4 R out^2 target rows); the sums
-    are in a fixed order, with no atomics."""
+    (the forward's, in autograd); without it the wrapper computes it. On the
+    card one launch, which takes the prologue as it is and writes every row
+    (out <= 32, R <= 1024); the sums are in a fixed order, with no atomics."""
     name = "roi_align_backward"
     device = _device(name, grad)
     if device.type == "cpu":
@@ -337,18 +348,26 @@ def roi_align_backward(grad, shapes, boxes, prologue=None) -> torch.Tensor:
     R, o, _, C = grad.shape
     if C % 4:
         raise ValueError(f"{name}: C = {C} is not a multiple of 4")
+    if not 1 <= o <= ROI_BACKWARD_MAX_OUT or R > ROI_BACKWARD_MAX_R:
+        raise ValueError(f"{name}: [R, out] = [{R}, {o}], the kernel takes out 1 to "
+                         f"{ROI_BACKWARD_MAX_OUT} and R up to {ROI_BACKWARD_MAX_R}")
+    if len(shapes) != len(ROI_STRIDES):
+        raise ValueError(f"{name}: {len(shapes)} levels, the kernel takes {len(ROI_STRIDES)}")
     cuda_build.check(name, "grad", grad, torch.float32, (R, o, o, C), device)
     cuda_build.check(name, "boxes", boxes, torch.float32, (R, 4), device)
     lib = _library(name)
     if grad.data_ptr() % 16:
         raise ValueError(f"{name}: grad must be 16-byte aligned")
-    out = torch.zeros((sum(a * b for a, b in shapes), C), dtype=torch.float32, device=device)
-    if R:
-        target, order, fa, fb = roi_backward_prologue(prologue or roi_prologue(shapes, boxes, o))
-        cuda_build.launch(name, device, lib.roi_align_backward_launch, grad.data_ptr(), C,
-                          target.data_ptr(), order.data_ptr(), fa.data_ptr(), fb.data_ptr(),
-                          target.shape[0], R * o * o, out.data_ptr())
-        roi_align_backward.launches += 1
+    info, y0, x0, fy, fx = prologue or roi_prologue(shapes, boxes, o)
+    cuda_build.check(name, "info", info, torch.int32, (R, 3), device)
+    for what, t, dtype in (("y0", y0, torch.int32), ("x0", x0, torch.int32),
+                           ("fy", fy, torch.float32), ("fx", fx, torch.float32)):
+        cuda_build.check(name, what, t, dtype, (R, o), device)
+    out = torch.empty((sum(a * b for a, b in shapes), C), dtype=torch.float32, device=device)
+    cuda_build.launch(name, device, lib.roi_align_backward_launch, grad.data_ptr(), C, R, o,
+                      info.data_ptr(), y0.data_ptr(), x0.data_ptr(), fy.data_ptr(),
+                      fx.data_ptr(), *(v for hw in shapes for v in hw), out.data_ptr())
+    roi_align_backward.launches += 1
     return out
 
 

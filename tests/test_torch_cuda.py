@@ -697,6 +697,36 @@ def test_nms_kernel_equals_plain(card, kind, n, n_out, th):
     assert torch.equal(got, detect_kernels.nms_fixed_plain(b, s, th, n_out))
 
 
+@pytest.mark.parametrize("case", ["all_tied", "n_1000", "n_77", "n_out_0", "chain"])
+def test_nms_kernel_edge_cases_equal_plain(card, case):
+    """The bitmask and the one-warp walk where they could go wrong: every
+    score tied (the order is the index order), n not a multiple of 32 (a
+    ragged last word and chunk), n_out = 0 (no launch), and a chain of 1024
+    boxes each suppressing its neighbour, one chunk's decisions carried into
+    the next (the greedy keeps every second box). Indices exact."""
+    r = np.random.default_rng(11)
+    n, n_out, th = {"all_tied": (1024, 128, 0.7), "n_1000": (1000, 128, 0.7),
+                    "n_77": (77, 40, 0.3), "n_out_0": (128, 0, 0.3),
+                    "chain": (1024, 600, 0.5)}[case]
+    if case == "chain":              # IoU 8/12 with the next box, 6/14 with the one after
+        x = 2.0 * np.arange(n)
+        boxes = np.stack([np.zeros(n), x, np.full(n, 10.0), x + 10], -1).astype(np.float32)
+        scores = -np.arange(n, dtype=np.float32)
+    else:
+        boxes = np.clip(_boxes(r, 48, 240, 320, 20.0)[r.integers(0, 48, n)]
+                        + r.normal(0, 4, (n, 4)), 0, [240, 320, 240, 320]).astype(np.float32)
+        scores = (np.ones(n) if case == "all_tied" else r.normal(0, 3, n)).astype(np.float32)
+    b, s = torch.from_numpy(boxes).to(card), torch.from_numpy(scores).to(card)
+    before = detect_kernels.nms_fixed.launches
+    got = detect_kernels.nms_fixed(b, s, th, n_out)
+    assert detect_kernels.nms_fixed.launches == before + (1 if n_out else 0)
+    want = detect_kernels.nms_fixed_plain(b, s, th, n_out)
+    assert got.shape == (n_out,) and torch.equal(got, want)
+    if case == "chain":
+        assert torch.equal(got[:512].cpu(), torch.arange(0, 1024, 2, dtype=torch.int32))
+        assert (got[512:] == -1).all()
+
+
 @pytest.mark.parametrize("R, out_size", [(128, 7), (32, 14), (1, 7)])
 def test_roi_align_kernel_equals_plain(card, R, out_size):
     """The crops at the box head's and the mask head's shapes, boxes on all
@@ -737,6 +767,42 @@ def test_roi_align_backward_kernel_equals_plain(card, R, out_size):
     assert got.shape == (sum(a * b for a, b in shapes), 256)
     assert torch.equal(got, again)
     assert torch.equal(got, detect_kernels.roi_align_backward_plain(grad, shapes, boxes))
+
+
+@pytest.mark.parametrize("case", ["no_boxes", "one_row", "off_the_levels", "c4", "many_boxes"])
+def test_roi_align_backward_kernel_edge_cases_equal_plain(card, case):
+    """The ordered gather where it could go wrong: no boxes (every row still
+    written, as zeros), 64 boxes of half a pixel whose 4 x 64 x 196 bins all
+    land on four rows (runs of 12544 contributions), boxes entirely off the
+    image (every tap clamped to a level's border), C = 4 (one float4 a row,
+    most lanes idle) and 1024 boxes (the most the kernel takes: its
+    candidate list beyond 48 KB of shared memory). Bitwise against the plain
+    twin, and repeatable."""
+    r = np.random.default_rng(5)
+    shapes = ((60, 80), (30, 40), (15, 20), (8, 10))
+    R, o, C = {"no_boxes": (0, 7, 256), "one_row": (64, 14, 256),
+               "off_the_levels": (16, 7, 256), "c4": (64, 14, 4),
+               "many_boxes": (1024, 7, 16)}[case]
+    if case == "one_row":
+        boxes = np.tile([[100.0, 100.0, 100.5, 100.5]], (R, 1))
+    elif case == "off_the_levels":
+        ys = np.where(np.arange(R) % 2, r.uniform(-900, -400, R), r.uniform(400, 900, R))
+        xs = r.uniform(-900, 900, R)
+        sides = np.exp(r.uniform(np.log(4), np.log(300), R))
+        boxes = np.stack([ys, xs, ys + sides, xs + sides], -1)
+    else:
+        sides = np.exp(r.uniform(np.log(4), np.log(1000), R))
+        ys, xs = r.uniform(-20, 240, R), r.uniform(-20, 320, R)
+        boxes = np.stack([ys, xs, ys + sides, xs + sides * r.uniform(0.5, 2, R)], -1)
+    boxes = torch.from_numpy(boxes.reshape(R, 4).astype(np.float32)).to(card)
+    grad = torch.from_numpy(r.normal(0, 1, (R, o, o, C)).astype(np.float32)).to(card)
+    got = detect_kernels.roi_align_backward(grad, shapes, boxes)
+    again = detect_kernels.roi_align_backward(grad, shapes, boxes)
+    want = detect_kernels.roi_align_backward_plain(grad, shapes, boxes)
+    assert got.shape == (sum(a * b for a, b in shapes), C)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert bool((got != 0).any()) == (R > 0)
 
 
 def test_roi_align_gradient_flows_through_the_kernels(card):

@@ -128,6 +128,68 @@ def test_nms_fixed_matches_jax(kind, n, n_out, th):
         assert (got >= 0).sum() > n_out // 4
 
 
+def _nms_bitmask_mirror(boxes, scores, th, n_out):
+    """csrc/nms_fixed.cu in plain numpy. Launch 1: the suppression bitmask
+    (row i, word w, bit b: !(iou(box_i, box_32w+b) <= th)) and each box's
+    rank by (score descending, index ascending), dead boxes last. Launch 2:
+    the walk over that order in chunks of 32, each decided from the chunk's
+    own 32 x 32 suppression bits and the removed set, capped at n_out, up
+    to the first dead box; then -1."""
+    n, words = len(boxes), (len(boxes) + 31) // 32
+    b = torch.from_numpy(boxes)
+    sup = np.zeros((n, words * 32), np.uint64)
+    sup[:, :n] = ~(dk.box_iou(b, b) <= th).numpy()
+    mask = (sup.reshape(n, words, 32) << np.arange(32, dtype=np.uint64)).sum(-1)
+    alive = scores > -np.inf
+    key = np.where(alive, scores, -np.inf)
+    idx = np.arange(n)
+    beats = (key[None] > key[:, None]) | ((key[None] == key[:, None]) & (idx[None] < idx[:, None]))
+    order = np.empty(n, np.int64)
+    order[beats.sum(1)] = idx
+    assert sorted(beats.sum(1)) == list(idx)
+    removed, out = np.zeros(words, np.uint64), []
+    for base in range(0, n, 32):
+        if len(out) >= n_out:
+            break
+        cand = order[base:base + 32]
+        rows = [mask[c] if alive[c] else np.zeros(words, np.uint64) for c in cand]
+        bit = lambda word, c: (int(word[c >> 5]) >> (c & 31)) & 1
+        local = [sum(bit(row, c) << u for u, c in enumerate(cand)) for row in rows]
+        open_ = sum((bool(alive[c]) and not bit(removed, c)) << u for u, c in enumerate(cand))
+        kept = 0
+        for t in range(len(cand)):
+            if (open_ >> t) & 1:
+                kept |= 1 << t
+                open_ &= ~local[t]
+        while bin(kept).count("1") > n_out - len(out):
+            kept &= ~(1 << (kept.bit_length() - 1))
+        for t, c in enumerate(cand):
+            if (kept >> t) & 1:
+                out.append(int(c))
+                removed |= rows[t]
+        if len(cand) < 32 or not alive[cand].all():
+            break
+    return np.asarray(out + [-1] * (n_out - len(out)), np.int32)
+
+
+@pytest.mark.parametrize("kind, n, n_out, th", [
+    ("random", 1024, 128, 0.7), ("ties", 1024, 128, 0.7), ("all_inf", 1024, 128, 0.7),
+    ("random", 128, 32, 0.3), ("ties", 128, 32, 0.3), ("all_inf", 128, 32, 0.3),
+    ("ties", 100, 160, 0.5), ("random", 1, 4, 0.5)],
+    ids=["proposals-random", "proposals-ties", "proposals-all_inf", "detections-random",
+         "detections-ties", "detections-all_inf", "n_out_above_n", "one_box"])
+def test_nms_bitmask_walk_matches_jax(kind, n, n_out, th):
+    """The order argument of the card's NMS (csrc/nms_fixed.cu), proved here
+    on a plain mirror of its two launches: the greedy's picks are the boxes
+    of the score order that no earlier kept box suppresses, so the mirror's
+    indices equal the JAX nms_fixed exactly, -1 padded alike."""
+    boxes, scores = _nms_case(kind, n, 7 + n)
+    got = _nms_bitmask_mirror(boxes, scores, th, n_out)
+    want = np.asarray(jm.nms_fixed(jnp.asarray(boxes), jnp.asarray(scores), th, n_out))
+    np.testing.assert_array_equal(got, want)
+    assert (got >= 0).sum() == (0 if kind == "all_inf" else (want >= 0).sum())
+
+
 @pytest.mark.parametrize("out_size, n", [(7, 128), (14, 32)], ids=["box_head", "mask_head"])
 def test_roi_align_matches_jax(models, jax_feats, out_size, n):
     """On the small model's P2..P5, boxes spanning all four levels, to 1e-6

@@ -231,6 +231,72 @@ def test_roi_align_backward_plain_matches_jax_vjp(kind, out_size):
                                           for f in feats]))
 
 
+def _gather_mirror(g, shapes, prologue, tile=(2, 4)):
+    """csrc/roi_align_backward.cu in plain numpy: per tile (rows x columns)
+    of one level, the candidates (tap, box) of that level that meet it, in
+    (tap, box) order, with the bins i of each tile row and j of each tile
+    column; per row, their contributions (g * b) * a summed in (tap, box, i,
+    j) order, each tap into a partial sum added to the total when the next
+    tap begins; every row written."""
+    info, y0, x0, fy, fx = (t.numpy() for t in prologue)
+    R, o, _, C = g.shape
+    out = np.empty((sum(h * w for h, w in shapes), C), np.float32)
+    one, zero = np.float32(1), np.zeros(C, np.float32)
+    off, (th, tw) = 0, tile
+    for h, w in shapes:
+        for ty0 in range(0, h, th):
+            for tx0 in range(0, w, tw):
+                listed = []
+                for tap, (dy, dx) in enumerate(((1, 1), (1, 0), (0, 1), (0, 0))):
+                    for r in range(R):
+                        if info[r, 0] != off:
+                            continue
+                        yi = np.clip(y0[r].astype(np.int64) + dy, 0, info[r, 1] - 1) - ty0
+                        xi = np.clip(x0[r].astype(np.int64) + dx, 0, info[r, 2] - 1) - tx0
+                        im = [np.flatnonzero(yi == q) for q in range(th)]
+                        jm = [np.flatnonzero(xi == q) for q in range(tw)]
+                        if any(len(v) for v in im) and any(len(v) for v in jm):
+                            listed.append((tap, dy, dx, r, im, jm))
+                for ty in range(min(th, h - ty0)):
+                    for tx in range(min(tw, w - tx0)):
+                        total, part, group = zero, zero, -1
+                        for tap, dy, dx, r, im, jm in listed:
+                            for i in im[ty]:
+                                for j in jm[tx]:
+                                    if tap != group:
+                                        if group >= 0:
+                                            total = total + part
+                                        part, group = zero, tap
+                                    a = fy[r, i] if dy else one - fy[r, i]
+                                    b = fx[r, j] if dx else one - fx[r, j]
+                                    part = part + (g[r, i, j] * b) * a
+                        out[off + (ty0 + ty) * w + tx0 + tx] = total + part
+        off += h * w
+    return out
+
+
+@pytest.mark.parametrize("kind", ["levels", "borders", "shared_rows"])
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_roi_align_backward_gather_equals_plain(kind, out_size):
+    """The order argument of the card's ROIAlign gradient
+    (csrc/roi_align_backward.cu), proved here on a plain mirror of its
+    per-tile gather: walking each target row's (tap, box, i, j) in nested
+    order gives the sorted, stable list of roi_align_backward_plain, so the
+    two agree to the bit, zero rows included, on boxes over every level,
+    hanging over the borders, sharing rows, and one inverted box."""
+    r = np.random.default_rng(out_size + len(kind))
+    C = 16
+    shapes = ((24, 32), (12, 16), (6, 8), (3, 4))
+    boxes = np.concatenate([_backward_boxes(kind, r, 12), [[60.0, 90.0, 20.0, 30.0]]])
+    boxes = torch.from_numpy(boxes.astype(np.float32))
+    g = r.normal(0, 1, (boxes.shape[0], out_size, out_size, C)).astype(np.float32)
+    pro = dk.roi_prologue(shapes, boxes, out_size)
+    want = dk.roi_align_backward_plain(torch.from_numpy(g), shapes, boxes, pro).numpy()
+    got = _gather_mirror(g, shapes, pro)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert 0 < (want != 0).any(1).sum() < want.shape[0]
+
+
 def test_roi_align_refuses_boxes_that_want_a_gradient():
     flat = torch.zeros(24 * 32 + 12 * 16 + 6 * 8 + 3 * 4, 8, requires_grad=True)
     boxes = torch.tensor([[0.0, 0.0, 10.0, 10.0]], requires_grad=True)

@@ -10,9 +10,19 @@ twice, as the determinism pair, and `seg_toy` (the toy fit run live by
 rgbd_tum). With --lr-sweep LR..., the seg_train fit (20 steps, from the
 same seeded and calibrated weights) at each learning rate, printing its
 losses and positive ROIs per step: how chip_smoke.TRAIN_LR was chosen.
-For iterating on the segmenter without the full run.
+With --ab-source DIR, the `seg` and `seg_train` phases with an earlier
+version of the NMS and ROIAlign backward kernels (DIR/nms_fixed.cu and
+DIR/roi_align_backward.cu as of commit 4f0bef9) built beside the
+current ones and timed on the same recorded calls: device ms in the order
+old, new, new, old, ms through each wrapper, both exact, and what ptxas
+reports for the old ones. For iterating on the segmenter without the full
+run.
 
     python3 tools/seg_smoke.py [--cli | --train | --lr-sweep 1e-3 3e-3 1e-2 2e-2]
+
+    mkdir -p build/old && for k in nms_fixed roi_align_backward; do
+        git show 4f0bef9:gdslam_tpu_torch/csrc/$k.cu > build/old/$k.cu; done
+    python3 tools/seg_smoke.py --ab-source build/old
 
 Prints chip_smoke.py's JSON lines for those phases; exits non-zero when a
 phase fails or there is no card.
@@ -36,6 +46,9 @@ def main() -> int:
     ap.add_argument("--train", action="store_true", help="run the training phases instead")
     ap.add_argument("--lr-sweep", nargs="+", type=float, metavar="LR",
                     help="fit seg_train at each learning rate instead")
+    ap.add_argument("--ab-source", metavar="DIR",
+                    help="time the earlier nms_fixed.cu and roi_align_backward.cu in DIR "
+                         "beside the current kernels in seg and seg_train")
     opts = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -50,6 +63,17 @@ def main() -> int:
     from gdslam_tpu_torch.utils import metrics
     cfg, dev = SlamConfig(), "cuda"
     cs.emit(cs.phase_build(mk))
+    if opts.ab_source:
+        from gdslam_tpu_torch.ops import detect_kernels as dk
+        old = cs.OldDetectKernels(torch, dk, Path(opts.ab_source).resolve())
+        cs.emit(dict(phase="ab_build", ptxas_old=old.ptxas, card=cs.nvidia_smi_line()))
+        render = lambda i: synthetic.render_frame(i, cfg.camera, with_dynamic=True, device=dev)
+        weights = ROOT / "build" / "seg" / "maskrcnn_r50_seed0.npz"
+        info = cs.write_seg_weights(weights)
+        cs.phase_seg(torch, mk, cfg, [render(i) for i in range(cs.SEG_FRAMES)], System,
+                     synthetic, metrics, dev, weights, info, old)
+        cs.phase_seg_train(torch, dev, {i: render(i) for i in cs.TRAIN_FRAMES}, old)
+        return 0
     if opts.lr_sweep:
         dyn = {i: synthetic.render_frame(i, cfg.camera, with_dynamic=True, device=dev)
                for i in cs.TRAIN_FRAMES}
