@@ -10,8 +10,9 @@ then prints one JSON line per phase:
 
   device   the card (torch and nvidia-smi);
   build    the nvcc builds of every csrc/*.cu (match_top2, nms_fixed,
-           roi_align, roi_align_backward, paste_masks, stereo_match), one nvcc per source
-           started together, timed, and what ptxas reports for each;
+           roi_align, roi_align_backward, paste_masks, stereo_match,
+           categorical_draw), one nvcc per source started together, timed,
+           what ptxas reports for each, and the draw kernel's SASS opcodes;
   kernel   match_top2 (CUDA) against match_top2_plain (PyTorch) on the card,
            exactly, with the kernel choosing its path and with each path
            forced: seeded random and rendered-frame inputs at (M, N) =
@@ -20,6 +21,14 @@ then prints one JSON line per phase:
            one cell, beyond the image, mixed per row, ties across cells,
            invalid and empty sides, non-finite values); the keypoint grid
            against kp_grid_plain; both versions' times;
+  draw     categorical_draw (jax.random.categorical, the draw of every
+           RANSAC) bitwise against its plain twin, indices and Gumbel noise,
+           at 900 x 1500 and 1800 x 1500 on 64 keys of the GD fast path (the
+           key folded on the card from a frame-id tensor, or given as host
+           words), and against the numpy replay
+           (core/prng.py, held to jax.random on the CPU); its ms through the
+           wrapper, on the device, the plain twin's, torch.multinomial's (the
+           call it replaced), the numpy replay's host ms and the bound;
   slice    60 rendered 480x640 frames through System.track_rgbd at the
            SlamConfig() defaults (kmax=256, pmax=65536; epipolar
            triangulation and local BA on, as the tracker is constructed):
@@ -94,7 +103,10 @@ then prints one JSON line per phase:
            run's intermediates at score_th 0.7 and 0 (NMS and ROIAlign
            exact, the paste by the 1e-6 margin rule), with its ms through the
            wrapper, replayed from a CUDA graph, the plain version's and its
-           bound, at every call shape;
+           bound, at every call shape; ROIAlign on boxes a few ulps either
+           side of each level threshold (the crop and the prologue it writes
+           for the gradient bitwise), the paste on adversarial boxes
+           (bitwise, and its tile-list mirror), each one launch a call;
   seg_train
            Mask R-CNN training at full width: MaskRCNN() at 240x320 (a
            480x640 frame molded as the segmenter molds it) on four dynamic
@@ -105,8 +117,9 @@ then prints one JSON line per phase:
            below the first, ms per step, peak device memory, launches per
            step; the ROIAlign backward kernel bitwise against its plain twin
            and repeatable at both training shapes (the box head's [64, 7, 7,
-           256], the mask head's [64, 14, 14, 256]), timed through the
-           wrapper, from a CUDA graph and against its bound;
+           256], the mask head's [64, 14, 14, 256]), also on the prologue the
+           forward kernel writes, timed through the wrapper, from a CUDA
+           graph and against its bound;
   seg_toy  the JAX live-segmenter e2e test's toy fit on the card (train_toy,
            blocks (1, 1, 1, 1) at 120x160, 150 steps) run live by rgbd_tum
            --segmenter on its 14-frame sequence: mean recall of the sphere >
@@ -679,8 +692,9 @@ def phase_build(mk) -> dict:
     mk._load_library()
     flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
-        procs = {n: subprocess.Popen([cuda_build.nvcc(n), *flags, "-Xptxas", "-v", "-cubin", "-o",
-                                      os.path.join(tmp, f"{n}.cubin"), str(cuda_build.source(n))],
+        procs = {n: subprocess.Popen([cuda_build.nvcc(n), *flags, "-Xptxas", "-v", "-cubin",
+                                      "-o", os.path.join(tmp, f"{n}.cubin"),
+                                      str(cuda_build.source(n))],
                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                  for n in cuda_build.SOURCES}
         ptxas = {}
@@ -691,7 +705,154 @@ def phase_build(mk) -> dict:
             ptxas[n] = [ln.strip() for ln in err.splitlines() if "Used" in ln or "spill" in ln]
     return dict(phase="build", library=str(libs["match_top2"].relative_to(ROOT)),
                 libraries={n: str(v.relative_to(ROOT)) for n, v in libs.items()},
-                seconds=build_s, nvcc_flags=list(cuda_build.NVCC_FLAGS), ptxas=ptxas)
+                seconds=build_s, nvcc_flags=list(cuda_build.NVCC_FLAGS),
+                ptxas=ptxas,
+                sass_mix=sass_mix(libs["categorical_draw"], "categorical_kernel"))
+
+
+# ----------------------------------------------------------------------------
+# categorical_draw: jax.random.categorical on the card
+# ----------------------------------------------------------------------------
+
+DRAW_SHAPES = ((900, 1500), (1800, 1500))   # rows x logits: the GD pose RANSAC's 300 x 3
+DRAW_KEYS = 64                              # and relocalization's 300 x 6 over 1500 matches
+DRAW_HOST_KEYS = 16                         # of them also held to the numpy replay
+DRAW_REPLACES = "gdslam_tpu/backend/solvers.py:85"
+DRAW_NO_LIBRARY = ("no PyTorch call computes it: torch.multinomial draws from torch's own "
+                   "generator, not from jax.random's Threefry keys, so it computes another "
+                   "function (timed beside as multinomial_ms, the call it replaces)")
+# the function's own operations per element. Integer: the counter's 64-bit
+# flat index (2), the key's first injection (2), 20 rounds of add, rotate
+# and xor (60), five injections of two adds (10), the uniform's xor, shift
+# and or (3): 77, on the INT32 lanes. The kernel's SASS (the build phase's
+# sass_mix) holds more, none of it the function's: the key's fold once a
+# thread, the loop's count and addresses, and the `noise` store that only
+# the comparison asks for. Float: 244 float instructions
+# of the SASS for five elements' two accurate logf each, 73 operations an
+# element with an FFMA counted as two
+DRAW_INT_OPS = 77
+DRAW_F32_OPS = 73
+
+
+def sass_mix(lib: Path, kernel: str) -> dict | None:
+    """The opcodes of `kernel`'s SASS in the built library (cuobjdump),
+    counted: {opcode: n}, the integer and float totals. None where the
+    toolkit has no cuobjdump."""
+    from gdslam_tpu_torch.ops import cuda_build
+    exe = os.path.join(os.path.dirname(cuda_build.nvcc("sass")), "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    out = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True, timeout=120)
+    counts, inside = collections.Counter(), False
+    for ln in out.stdout.splitlines():
+        if "Function :" in ln:
+            inside = kernel in ln
+        elif inside and "/*" in ln and ";" in ln:
+            op = ln.split("*/", 1)[1].strip().split()[0]
+            if op.startswith("@"):
+                op = ln.split("*/", 1)[1].strip().split()[1]
+            counts[op.split(".")[0]] += 1
+    ints = sum(v for k, v in counts.items() if k in ("IADD3", "LOP3", "SHF", "IMAD", "ISETP",
+                                                     "LEA", "SEL", "IMNMX", "PRMT", "IABS",
+                                                     "VIADD"))
+    floats = sum(v for k, v in counts.items() if k.startswith(("F", "MUFU")))
+    return dict(opcodes=dict(counts.most_common(16)), integer=ints, float=floats,
+                total=sum(counts.values()))
+
+
+def draw_launch(torch, dkw, key, lg, rows, fold) -> tuple:
+    """(C launch function, its arguments up to the device and stream, the
+    tensors they point to) of one draw, for a CUDA graph."""
+    from gdslam_tpu_torch.ops import cuda_build
+    lib = cuda_build.load("categorical_draw", dkw._declare)
+    out = torch.empty(rows, dtype=torch.int64, device=lg.device)
+    return lib.categorical_draw_launch, (lg.data_ptr(), lg.shape[0], rows,
+                                         int(key[0]), int(key[1]), fold.data_ptr(),
+                                         out.data_ptr(), None), (out,)
+
+
+def phase_draw(torch, dev) -> dict:
+    """categorical_draw against its plain twin on the card, bitwise (the
+    indices, and the Gumbel noise both write out), at DRAW_SHAPES on
+    DRAW_KEYS keys of the GD fast path (fold_in(PRNGKey(7), k), folded on
+    the card from a frame-id tensor, and the same key given as host
+    words), over logits uniform on 0%, 7%, 50% and 100% of
+    the rows; the indices also against the numpy replay prng.categorical_rows
+    (held to jax.random on the CPU) on DRAW_HOST_KEYS keys, each differing
+    row reported with the replay's score margin (a near-tie under 1e-5 is
+    an ulp of log, anything wider fails). At the GD shape: ms through the
+    wrapper, on the device alone (the C launch from a CUDA graph), the plain
+    twin's, torch.multinomial's (the call it replaces) through the host and
+    from a graph, the numpy replay's host ms, and the bound."""
+    from gdslam_tpu_torch.core import prng
+    from gdslam_tpu_torch.ops import draw_kernel as dkw
+    from gdslam_tpu_torch.system.slam import GD_KEY
+    shapes = []
+    for rows, n in DRAW_SHAPES:
+        idx_diff = noise_diff = 0
+        near, far = [], []
+        for k in range(DRAW_KEYS):
+            g = torch.Generator().manual_seed(k)
+            valid = (torch.rand(n, generator=g) < (0.0, 0.07, 0.5, 1.0)[k % 4]).to(dev)
+            lg = dkw.uniform_logits(valid)
+            fold = torch.full((1,), k, dtype=torch.int64, device=dev)
+            key = prng.fold_in(GD_KEY, k)
+            nk, npl = (torch.empty(rows, n, device=dev) for _ in range(2))
+            a = dkw.categorical_draw(GD_KEY, lg, rows, fold, noise=nk)
+            b = dkw.categorical_draw_plain(GD_KEY, lg, rows, fold, noise=npl)
+            c = dkw.categorical_draw(key, lg, rows)
+            torch.cuda.synchronize()
+            idx_diff += int((a != b).sum() + (a != c).sum())
+            noise_diff += int((nk.view(torch.int32) != npl.view(torch.int32)).sum())
+            if k < DRAW_HOST_KEYS:
+                h = prng.categorical_rows(key, lg, rows).to(dev)
+                bad = torch.nonzero(a != h)[:, 0].tolist()
+                if bad:
+                    score = prng.gumbel(key, (rows, n)) + lg.cpu().numpy()[None]
+                    for r in bad:
+                        margin = float(score[r, int(h[r])] - score[r, int(a[r])])
+                        (near if margin < 1e-5 else far).append(dict(key=k, row=r,
+                                                                    margin=margin))
+        shapes.append(dict(shape=[rows, n], keys=DRAW_KEYS, index_mismatches=idx_diff,
+                           noise_bits_differing=noise_diff, host_keys=DRAW_HOST_KEYS,
+                           host_near_ties=near, host_mismatches=far))
+    rows, n = DRAW_SHAPES[0]
+    lg = dkw.uniform_logits(torch.ones(n, dtype=torch.bool, device=dev))
+    fold = torch.full((1,), 7, dtype=torch.int64, device=dev)
+    fn, cargs, keep = draw_launch(torch, dkw, GD_KEY, lg, rows, fold)
+    probs = torch.ones(n, device=dev)
+    ops_int, ops_f32 = rows * n * DRAW_INT_OPS, rows * n * DRAW_F32_OPS
+    t_ops = max(ops_int / INT32_OPS_PER_S, ops_f32 / F32_OPS_PER_S) * 1e3
+    nbytes = n * 4 + rows * 8
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    before = dkw.categorical_draw.launches
+    dkw.categorical_draw(GD_KEY, lg, rows, fold)
+    one_launch = dkw.categorical_draw.launches == before + 1
+    t0 = time.perf_counter()
+    for _ in range(3):
+        prng.gumbel(prng.fold_in(GD_KEY, 7), (rows, n))
+    replay_ms = (time.perf_counter() - t0) * 1e3 / 3
+    timing = dict(
+        shape=[rows, n],
+        ms=cuda_ms(torch, lambda: dkw.categorical_draw(GD_KEY, lg, rows, fold), reps=100),
+        device_ms=graph_ms(torch, fn, cargs),
+        plain_ms=cuda_ms(torch, lambda: dkw.categorical_draw_plain(GD_KEY, lg, rows, fold),
+                         reps=10, windows=3),
+        multinomial_ms=cuda_ms(torch, lambda: torch.multinomial(probs, rows, replacement=True),
+                               reps=100),
+        multinomial_device_ms=graph_call_ms(
+            torch, lambda: torch.multinomial(probs, rows, replacement=True)),
+        numpy_replay_host_ms=replay_ms,
+        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+        operations=dict(int32=ops_int, f32=ops_f32), bytes=nbytes, library_ms=None,
+        library_note=DRAW_NO_LIBRARY, one_launch_per_call=one_launch)
+    del keep
+    res = dict(phase="draw", checks=shapes, timing=timing, card=nvidia_smi_line())
+    emit(res)
+    if any(c["index_mismatches"] or c["noise_bits_differing"] or c["host_mismatches"]
+           for c in shapes) or not one_launch:
+        fail(f"draw: categorical_draw differs from its plain twin or the replay: {shapes}")
+    return res
 
 
 def phase_kernel(torch, mk, frames, dev, old=None) -> tuple[dict, int]:
@@ -803,7 +964,14 @@ def sync_sites(torch, fn) -> dict:
 
 
 def reset_launch_counts(mk) -> None:
+    from gdslam_tpu_torch.ops import draw_kernel
     mk.match_top2.launches = mk.match_top2.cuda_launches = mk.kp_grid.launches = 0
+    draw_kernel.categorical_draw.launches = 0
+
+
+def draw_launches() -> int:
+    from gdslam_tpu_torch.ops import draw_kernel
+    return draw_kernel.categorical_draw.launches
 
 
 def phase_slice(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, dev,
@@ -971,12 +1139,13 @@ def phase_reloc(torch, mk, slam, frames, n_done, cfg, TrackState, solvers, track
     T = tr.process(fr.gray, fr.depth, torch.ones_like(fr.gray), n_done / 30.0)
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3
-    launches = mk.match_top2.launches
+    launches, draws = mk.match_top2.launches, draw_launches()
     err_m, err_deg = pose_error(np.asarray(T), fr.T_wc.cpu().numpy(),
                                 frames[0].T_wc.cpu().numpy())
     res = dict(phase="reloc", relocalized=len(calls), state=tr.state.name,
                n_inliers=tr.n_inliers, err_m=err_m, err_deg=err_deg, frame_ms=frame_ms,
-               keyframes=tr.n_kf_host, match_top2_launches=launches)
+               keyframes=tr.n_kf_host, match_top2_launches=launches,
+               categorical_draw_launches=draws)
     if not (len(calls) == 1 and tr.state == TrackState.OK and tr.n_kf_host >= n_kf):
         emit(res)
         fail("the forced loss did not end in a relocalization")
@@ -1001,13 +1170,12 @@ def phase_reloc(torch, mk, slam, frames, n_done, cfg, TrackState, solvers, track
     pw = arena.pt_pos[pt.clamp(min=0).long()]
     cam = cfg.camera
     K = (cam.fx, cam.fy, cam.cx, cam.cy)
-    gen = torch.Generator(device=pw.device)
+    key = tracking.prng.prng_key(lost.frame_id)        # relocalization's key
     pnp = lambda: solvers.ransac_pnp(pw, frame.uv, has_pt, K, px_threshold=5.991 ** 0.5,  # noqa: E731
-                                     generator=gen.manual_seed(1))
+                                     key=key)
     q = tracking.cam_ops.backproject(frame.uv, frame.depth, cam)
     rigid = lambda: solvers.ransac_rigid(pw, q, has_pt & (frame.depth > 0), K, frame.uv,  # noqa: E731
-                                         px_threshold=5.991 ** 0.5 * 2,
-                                         generator=gen.manual_seed(1))
+                                         px_threshold=5.991 ** 0.5 * 2, key=key)
     res.update(ransac_pnp_ms=wall_ms(torch, pnp, reps=5, warmup=1),
                ransac_rigid_ms=wall_ms(torch, rigid, reps=5, warmup=1),
                matches=int(has_pt.sum()), pnp_inliers=int(pnp().n_inliers),
@@ -1018,8 +1186,8 @@ def phase_reloc(torch, mk, slam, frames, n_done, cfg, TrackState, solvers, track
     if not (err_m <= RELOC_GUARD[0] and err_deg <= RELOC_GUARD[1]
             and tr.n_inliers >= RELOC_GUARD[2]):
         fail(f"relocalized pose off by {err_m} m, {err_deg} degrees with {tr.n_inliers} inliers")
-    if launches < 6:
-        fail(f"relocalization launched match_top2 {launches} times")
+    if launches < 6 or draws < 1:
+        fail(f"relocalization launched match_top2 {launches} times and drew {draws} times")
     return res, pnp, rigid
 
 
@@ -1216,7 +1384,7 @@ def phase_gd_slice(torch, mk, cfg, frames, raw, System, TrackState, synthetic, m
         finally:
             torch.cuda.set_sync_debug_mode("default")
     n = tail[-1] + 1
-    launches, grids = mk.match_top2.launches, mk.kp_grid.launches
+    launches, grids, draws = mk.match_top2.launches, mk.kp_grid.launches, draw_launches()
     traj = tr.camera_trajectory()
     recall, iou = mask_quality(masks, frames, tail)
     sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in timed)
@@ -1235,7 +1403,8 @@ def phase_gd_slice(torch, mk, cfg, frames, raw, System, TrackState, synthetic, m
                packed_fast_path_frames=counters.packed,
                pose_ransac_ok_share=counters.pose_ok_share(torch, cfg.geomask.min_matches),
                match_top2_launches=launches, match_top2_by_site=dict(counters.sites),
-               kp_grid_launches=grids, keyframes=slam.keyframe_count,
+               kp_grid_launches=grids, categorical_draw_launches=draws,
+               keyframes=slam.keyframe_count,
                keyframe_slots_used=tr.n_kf_host, map_points=slam.map_point_count,
                mask_recall=recall, mask_iou=iou,
                jax_tpu_quality_reference=GD_JAX_QUALITY,
@@ -1249,6 +1418,8 @@ def phase_gd_slice(torch, mk, cfg, frames, raw, System, TrackState, synthetic, m
              f"{n - cfg.geomask.inter_frame_size}")
     if counters.sites["gd_cur_x_ref"] != counters.packed or launches < 3 * counters.packed:
         fail(f"gd_slice: match_top2 launches {launches}, by site {dict(counters.sites)}")
+    if draws < counters.packed:
+        fail(f"gd_slice: {draws} draws on the card for {counters.packed} fast-path frames")
     return slam, res, n
 
 
@@ -1292,7 +1463,8 @@ def phase_gd_staged(torch, mk, cfg, frames, raw, System, TrackState, synthetic, 
                packed_fast_path_frames=counters.packed,
                pose_ransac_ok_share=counters.pose_ok_share(torch, cfg.geomask.min_matches),
                match_top2_launches=mk.match_top2.launches,
-               match_top2_by_site=dict(counters.sites), keyframes=slam.keyframe_count,
+               match_top2_by_site=dict(counters.sites), categorical_draw_launches=draw_launches(),
+               keyframes=slam.keyframe_count,
                mask_recall=recall, mask_iou=iou, quality_frames=n - 10,
                jax_tpu_quality_reference=GD_JAX_QUALITY, card=nvidia_smi_line(),
                **ate_pair(torch, synthetic, metrics, traj,
@@ -1302,6 +1474,9 @@ def phase_gd_staged(torch, mk, cfg, frames, raw, System, TrackState, synthetic, 
     if counters.packed != 0 or counters.sites["gd_cur_x_ref"] != n - cfg.geomask.inter_frame_size:
         fail(f"gd_staged: the staged path was not taken ({counters.packed} packed frames, "
              f"{dict(counters.sites)})")
+    if res["categorical_draw_launches"] < n - cfg.geomask.inter_frame_size:
+        fail(f"gd_staged: {res['categorical_draw_launches']} draws on the card for "
+             f"{n - cfg.geomask.inter_frame_size} masked frames")
     return res
 
 
@@ -1334,7 +1509,8 @@ def phase_gd_stages(torch, mk, slam, raw_next, cfg, modules) -> tuple[dict, dict
     feats = extractor.extract(gray, cfg.orb, cam.height, cam.width)
     s = geomask.res_factor(cfg)
     finest = {1: 0, 2: 1, 4: 2}[s]
-    gen = lambda: solvers.frame_generator(0, dev)                           # noqa: E731
+    key = slam_mod.GD_KEY                   # the fast path's key, folded with a device frame id
+    fold = torch.full((1,), slam.tracker.frame_id, dtype=torch.int64, device=dev)
     K = (cam.fx, cam.fy, cam.cx, cam.cy)
 
     # the pose RANSAC's inputs as gd_step_core builds them
@@ -1347,7 +1523,7 @@ def phase_gd_stages(torch, mk, slam, raw_next, cfg, modules) -> tuple[dict, dict
     Q = cam_ops.backproject(ref_feats.uv[idx], zB[idx], cam)
     uv_q = ref_feats.uv[idx]
     res = solvers.ransac_rigid(P, Q, good, K, uv_q, n_iters=300, min_inliers=20,
-                               px_threshold=4.0, generator=gen())
+                               px_threshold=4.0, key=key, fold=fold)
     flow = flow_ops.farneback_flow(gray, ref_gray, levels=5, finest_level=finest,
                                    upsample=s == 1)
     cam_h = dataclasses.replace(cam, fx=cam.fx / s, fy=cam.fy / s, cx=cam.cx / s,
@@ -1355,7 +1531,7 @@ def phase_gd_stages(torch, mk, slam, raw_next, cfg, modules) -> tuple[dict, dict
                                 height=-(-cam.height // s))
 
     def gd_step():
-        return geomask.gd_step(gray, depth, sem, ref_gray, ref_depth, ref_feats, cfg, gen())
+        return geomask.gd_step(gray, depth, sem, ref_gray, ref_depth, ref_feats, cfg, key, fold)
 
     sites = sync_sites(torch, gd_step)
     if sites:
@@ -1363,7 +1539,7 @@ def phase_gd_stages(torch, mk, slam, raw_next, cfg, modules) -> tuple[dict, dict
     stages = {
         "gd_step": stage_numbers(torch, gd_step),
         "gd_step_core": stage_numbers(torch, lambda: geomask.gd_step_core(
-            feats, gray, depth, sem, ref_gray, ref_depth, ref_feats, cfg, gen())),
+            feats, gray, depth, sem, ref_gray, ref_depth, ref_feats, cfg, key, fold)),
         "farneback_flow": stage_numbers(torch, lambda: flow_ops.farneback_flow(
             gray, ref_gray, levels=5, finest_level=finest, upsample=s == 1)),
         "mahalanobis_mask": stage_numbers(torch, lambda: geomask.mahalanobis_mask(
@@ -1373,8 +1549,8 @@ def phase_gd_stages(torch, mk, slam, raw_next, cfg, modules) -> tuple[dict, dict
         "cur_x_ref_match": stage_numbers(torch, lambda: geomask.ratio_matches(
             feats, ref_feats, cfg.orb.n_levels)),
         "ransac_rigid": stage_numbers(torch, lambda: solvers.ransac_rigid(
-            P, Q, good, K, uv_q, n_iters=300, min_inliers=20, px_threshold=4.0,
-            generator=gen())),
+            P, Q, good, K, uv_q, n_iters=300, min_inliers=20, px_threshold=4.0, key=key,
+            fold=fold)),
     }
     args = record_top2_calls(geomask, lambda: geomask.ratio_matches(
         feats, ref_feats, cfg.orb.n_levels))[0]
@@ -2242,7 +2418,8 @@ def phase_loop(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, d
                host_syncs_per_keyframe=float(np.mean(probe.syncs)),
                host_syncs_per_keyframe_max=max(probe.syncs),
                match_top2_launches=mk.match_top2.launches,
-               match_top2_by_site=dict(probe.sites), card=nvidia_smi_line())
+               match_top2_by_site=dict(probe.sites), categorical_draw_launches=draw_launches(),
+               card=nvidia_smi_line())
     emit(res)
     if not res["all_ok"] or len(traj) != len(frames):
         fail(f"{label}: a frame was not tracked OK ({len(traj)} poses)")
@@ -2252,7 +2429,8 @@ def phase_loop(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, d
     if probe.ms["detect"] == [] or (expect_loop and probe.sites["bow_guided_matches"] < 1):
         fail(f"{label}: the BoW database was not queried")
     if genuine and not (probe.sites["_search_by_sim3"] >= 2 and
-                        probe.sites["_search_loop_points"] >= 1):
+                        probe.sites["_search_loop_points"] >= 1 and
+                        res["categorical_draw_launches"] >= 1):
         fail(f"{label}: the verification's call sites did not launch: {dict(probe.sites)}")
     out = dict(traj=np.stack([T for _, T in traj]), kf_pose=kf_pose,
                map_points=res["map_points"], loops=res["loops"])
@@ -2493,17 +2671,18 @@ def detect_launch(torch, dk, name, a, k) -> tuple:
                                       scratch.data_ptr()), (out, scratch)
     if name == "roi_align":
         flat, shapes, boxes, size = a
-        pro = dk.roi_prologue(shapes, boxes, size)
+        boxes = boxes.contiguous()
         out = torch.empty((boxes.shape[0], size, size, flat.shape[1]), device=flat.device)
-        return lib.roi_align_launch, (flat.data_ptr(), flat.shape[1],
-                                      *(t.data_ptr() for t in pro), boxes.shape[0], size,
-                                      out.data_ptr()), (out, *pro)
+        return lib.roi_align_launch, (flat.data_ptr(), flat.shape[1], boxes.data_ptr(),
+                                      boxes.shape[0], size, dk.roi_step(size),
+                                      *(v for hw in shapes for v in hw),
+                                      out.data_ptr(), *(None,) * 5), (out, boxes)
     det, (H, W) = a[0], a[1]
-    ok = dk.paste_ok(det).to(torch.uint8)
-    out = torch.empty((H, W), dtype=torch.uint8, device=ok.device)
-    return lib.paste_masks_launch, (det["boxes"].data_ptr(), ok.data_ptr(),
-                                    det["masks"].data_ptr(), det["boxes"].shape[0], H, W,
-                                    float(np.float32(0.5)), out.data_ptr()), (out, ok)
+    out = torch.empty((H, W), dtype=torch.uint8, device=det["boxes"].device)
+    return lib.paste_masks_launch, (det["boxes"].data_ptr(), det["classes"].data_ptr(),
+                                    det["valid"].data_ptr(), det["masks"].data_ptr(),
+                                    det["boxes"].shape[0], H, W, float(np.float32(0.5)),
+                                    *dk.DYNAMIC_CLASS_WORDS, 1, out.data_ptr()), (out,)
 
 
 def detect_bound(torch, dk, name, a, k) -> dict:
@@ -2564,6 +2743,67 @@ def time_detect(torch, dk, name, a, k) -> dict:
     return out
 
 
+def one_launch(torch, wrapper, fn) -> dict:
+    """One wrapper call: its launch count's step and the device operations
+    the profiler sees (one kernel, no small PyTorch ops)."""
+    before = wrapper.launches
+    fn()
+    torch.cuda.synchronize()
+    step = wrapper.launches - before
+    ops = profile_window(torch, fn, 1)["device_ops"]
+    return dict(count_step=step, device_ops=ops, ok=step == 1 and ops == 1)
+
+
+def check_detect_edges(torch, dk, roi_calls, dev) -> dict:
+    """roi_align and paste_masks beyond the recorded calls: ROIAlign on the
+    recorded features at both call sizes on roi_boundary_boxes (with boxes
+    off the image and degenerate) and on the recorded boxes, the crop and the prologue the kernel writes out for the
+    gradient bitwise against roi_align_plain and roi_prologue; the paste on
+    paste_adversarial_det (3 seeds, 32 detections, with and without the
+    class test) bitwise against paste_masks_plain and the tile-list mirror;
+    each wrapper one launch a call (its count, the profiler's device
+    operations)."""
+    from gdslam_tpu_torch.ops.detect_cases import paste_adversarial_det, roi_boundary_boxes
+    out = dict(roi_align=[], paste_masks=[])
+    flat, shapes = roi_calls[0][0], roi_calls[0][1]
+    off_image = [[-80, -90, 20, 30], [230, 300, 260, 340], [5, 5, 5, 5], [50, 60, 40, 50],
+                 [0.25, 0.25, 0.75, 0.75], [-1000, -1000, 2000, 2000]]
+    boundary = torch.from_numpy(np.concatenate(
+        [roi_boundary_boxes(), np.asarray(off_image, np.float32)])).to(dev)
+    for (_, _, rec_boxes, size) in roi_calls:
+        for label, boxes in (("recorded", rec_boxes), ("boundary", boundary)):
+            got, pro = dk._roi_align(flat, shapes, boxes, size, with_prologue=True)
+            want, want_pro = dk.roi_align_plain(flat, shapes, boxes, size), \
+                dk.roi_prologue(shapes, boxes, size)
+            torch.cuda.synchronize()
+            levels = torch.unique(dk.roi_levels(boxes)).tolist()
+            out["roi_align"].append(dict(
+                boxes=label, out=size, n=int(boxes.shape[0]), levels=levels,
+                exact=bool(torch.equal(got, want)),
+                prologue_exact=all(bool(torch.equal(a, b)) for a, b in zip(pro, want_pro))))
+    out["roi_align_launch"] = one_launch(torch, dk.roi_align, lambda: dk.roi_align(
+        flat, shapes, roi_calls[0][2], roi_calls[0][3]))
+    for seed in range(3):
+        det = {k: torch.from_numpy(v).to(dev) for k, v in paste_adversarial_det(
+            np.random.default_rng(seed), 32, 480, 640).items()}
+        for dyn in (True, False):
+            got = dk.paste_masks(det, (480, 640), dyn)
+            want = dk.paste_masks_plain(det, (480, 640), dyn)
+            tiled = dk.paste_masks_tiled_plain(det, (480, 640), dyn)
+            torch.cuda.synchronize()
+            out["paste_masks"].append(dict(seed=seed, dynamic_only=dyn, exact=bool(
+                torch.equal(got, want)), tiled_mirror_exact=bool(torch.equal(tiled, want)),
+                differing=int((got != want).sum()), mask_px=int(want.sum())))
+    out["paste_masks_launch"] = one_launch(torch, dk.paste_masks,
+                                           lambda: dk.paste_masks(det, (480, 640)))
+    bad = [c for c in out["roi_align"] if not (c["exact"] and c["prologue_exact"])] + \
+        [c for c in out["paste_masks"] if not (c["exact"] and c["tiled_mirror_exact"])]
+    if bad or not (out["roi_align_launch"]["ok"] and out["paste_masks_launch"]["ok"]):
+        fail(f"seg: roi_align / paste_masks differ from their plain twins or take more than "
+             f"one launch: {bad}, {out['roi_align_launch']}, {out['paste_masks_launch']}")
+    return out
+
+
 def check_detect_kernels(torch, dk, seg, rgb_dev, old=None) -> dict:
     """Each detection kernel against its plain version, and timed, on the
     segmenter's real intermediates of one frame: at the main path's score
@@ -2583,15 +2823,18 @@ def check_detect_kernels(torch, dk, seg, rgb_dev, old=None) -> dict:
             if rec["max_abs_err"] != 0:
                 fail(f"seg: {name} ({role}, {label}) differs from its plain version: {rec}")
             rec.update(time_detect(torch, dk, name, a, k))
-            if old is not None and name == "nms_fixed":
-                rec["ab"] = ab_times(torch, lambda: old.nms_launch(*a),
+            if old is not None and old.has(name):
+                rec["ab"] = ab_times(torch, lambda: old.launch(name, *a),
                                      lambda: detect_launch(torch, dk, name, a, k),
-                                     lambda: old.nms(*a), lambda: dk.nms_fixed(*a),
-                                     dk.nms_fixed_plain(*a))
+                                     lambda: old.call(name, *a),
+                                     lambda: getattr(dk, name)(*a, **k),
+                                     getattr(dk, f"{name}_plain")(*a, **k))
             sites.append(rec)
         out[label] = sites
     if out["score_th_0"][4]["pasting"] < 32:
         fail(f"seg: score_th 0 pasted {out['score_th_0'][4]['pasting']} detections, not 32")
+    out["edges"] = check_detect_edges(torch, dk, [c[1] for c in calls if c[0] == "roi_align"],
+                                      rgb_dev.device)
     return out
 
 
@@ -2864,20 +3107,28 @@ def backward_launch(torch, dk, grad, shapes, boxes) -> tuple:
 
 
 class OldDetectKernels:
-    """The earlier nms_fixed and roi_align_backward (one CTA of greedy
-    steps; one warp per run of sorted targets), their sources in `src_dir`
-    (as of commit 4f0bef9), built there with the same flags, behind their
-    earlier wrappers (the NMS one without its checks; the backward one with
-    its sorted lists, roi_backward_prologue, and a zero-filled output), to
-    be timed beside the current kernels in one process. `ptxas` holds what
-    ptxas reports for each."""
+    """Earlier versions of the detection kernels, whichever of nms_fixed.cu,
+    roi_align_backward.cu (as of commit 4f0bef9: one CTA of greedy steps;
+    one warp per run of sorted targets), roi_align.cu and paste_masks.cu (as
+    of commit 57509e6: the prologue in PyTorch; every mask staged by every
+    tile, the class test in PyTorch) `src_dir` holds, built there with the
+    same flags, behind their earlier wrappers (the NMS one without its
+    checks; the backward one with its sorted lists, roi_backward_prologue,
+    and a zero-filled output; ROIAlign's with roi_prologue's small ops; the
+    paste's with paste_ok's isin and cast), to be timed beside the current
+    kernels in one process. `ptxas` holds what ptxas reports for each."""
+
+    SIGS = {"nms_fixed": "pp ifi p i p", "roi_align_backward": "pi pppp ii p i p",
+            "roi_align": "pi ppppp ii p i p", "paste_masks": "ppp iii f p i p"}
 
     def __init__(self, torch, dk, src_dir: Path):
         from gdslam_tpu_torch.ops import cuda_build
         self.torch, self.dk = torch, dk
         flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
         procs = {}
-        for n in ("nms_fixed", "roi_align_backward"):
+        for n in self.SIGS:
+            if not (src_dir / f"{n}.cu").exists():
+                continue
             src, nvcc = str(src_dir / f"{n}.cu"), cuda_build.nvcc(n)
             procs[n] = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                          text=True)
@@ -2885,19 +3136,23 @@ class OldDetectKernels:
                                      str(src_dir / f"lib{n}_old.so"), src],
                                     [nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o",
                                      str(src_dir / f"{n}_old.cubin"), src])]
-        self.ptxas = {}
+        if not procs:
+            fail(f"ab: no earlier kernel source in {src_dir}")
+        self.ptxas, self.fns = {}, {}
+        kinds = dict(p=ctypes.c_void_p, i=ctypes.c_int, f=ctypes.c_float)
         for n, (so, report) in procs.items():
             errs = [proc.communicate(timeout=600)[1] for proc in (so, report)]
             if so.returncode or report.returncode:
                 fail(f"ab: the parent's {n} did not build:\n{errs[0]}{errs[1]}")
             self.ptxas[n] = [ln.strip() for ln in errs[1].splitlines()
                              if "Used" in ln or "spill" in ln]
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.nms_fn = ctypes.CDLL(str(src_dir / "libnms_fixed_old.so")).nms_fixed_launch
-        self.nms_fn.argtypes, self.nms_fn.restype = [p, p, i, f, i, p, i, p], i
-        self.bwd_fn = ctypes.CDLL(str(src_dir / "libroi_align_backward_old.so")) \
-            .roi_align_backward_launch
-        self.bwd_fn.argtypes, self.bwd_fn.restype = [p, i, p, p, p, p, i, i, p, i, p], i
+            fn = getattr(ctypes.CDLL(str(src_dir / f"lib{n}_old.so")), f"{n}_launch")
+            fn.argtypes = [kinds[c] for c in self.SIGS[n].replace(" ", "")]
+            fn.restype = ctypes.c_int
+            self.fns[n] = fn
+
+    def has(self, name: str) -> bool:
+        return name in self.fns
 
     def _run(self, fn, a) -> None:
         torch = self.torch
@@ -2905,28 +3160,41 @@ class OldDetectKernels:
         if err != 0:
             fail(f"ab: a parent kernel's launch failed with CUDA error {err}")
 
-    def nms_launch(self, boxes, scores, th, n_out) -> tuple:
-        out = self.torch.empty(n_out, dtype=self.torch.int32, device=boxes.device)
-        return self.nms_fn, (boxes.data_ptr(), scores.data_ptr(), boxes.shape[0],
-                             float(np.float32(th)), n_out, out.data_ptr()), (out,)
+    def launch(self, name, *a) -> tuple:
+        """(C launch function, its arguments, the tensors they point to) of
+        the earlier wrapper's call on these arguments."""
+        torch, dk, fn = self.torch, self.dk, self.fns[name]
+        if name == "nms_fixed":
+            boxes, scores, th, n_out = a
+            out = torch.empty(n_out, dtype=torch.int32, device=boxes.device)
+            return fn, (boxes.data_ptr(), scores.data_ptr(), boxes.shape[0],
+                        float(np.float32(th)), n_out, out.data_ptr()), (out,)
+        if name == "roi_align_backward":
+            grad, shapes, boxes, *prologue = a
+            R, o, _, C = grad.shape
+            target, order, fa, fb = dk.roi_backward_prologue(
+                prologue[0] if prologue and prologue[0] is not None
+                else dk.roi_prologue(shapes, boxes, o))
+            out = torch.zeros((sum(x * y for x, y in shapes), C), device=grad.device)
+            return fn, (grad.data_ptr(), C, target.data_ptr(), order.data_ptr(),
+                        fa.data_ptr(), fb.data_ptr(), target.shape[0], R * o * o,
+                        out.data_ptr()), (out, target, order, fa, fb)
+        if name == "roi_align":
+            flat, shapes, boxes, size = a
+            pro = dk.roi_prologue(shapes, boxes, size)
+            out = torch.empty((boxes.shape[0], size, size, flat.shape[1]), device=flat.device)
+            return fn, (flat.data_ptr(), flat.shape[1], *(t.data_ptr() for t in pro),
+                        boxes.shape[0], size, out.data_ptr()), (out, *pro)
+        det, (H, W) = a[0], a[1]
+        ok = dk.paste_ok(det).to(torch.uint8)
+        out = torch.empty((H, W), dtype=torch.uint8, device=ok.device)
+        return fn, (det["boxes"].data_ptr(), ok.data_ptr(), det["masks"].data_ptr(),
+                    det["boxes"].shape[0], H, W, float(np.float32(0.5)), out.data_ptr()), \
+            (out, ok)
 
-    def nms(self, boxes, scores, th, n_out):
-        fn, a, keep = self.nms_launch(boxes, scores, th, n_out)
-        self._run(fn, a)
-        return keep[0]
-
-    def backward_launch(self, grad, shapes, boxes, prologue=None) -> tuple:
-        R, o, _, C = grad.shape
-        target, order, fa, fb = self.dk.roi_backward_prologue(
-            prologue or self.dk.roi_prologue(shapes, boxes, o))
-        out = self.torch.zeros((sum(a * b for a, b in shapes), C), device=grad.device)
-        return self.bwd_fn, (grad.data_ptr(), C, target.data_ptr(), order.data_ptr(),
-                             fa.data_ptr(), fb.data_ptr(), target.shape[0], R * o * o,
-                             out.data_ptr()), (out, target, order, fa, fb)
-
-    def backward(self, grad, shapes, boxes, prologue=None):
-        fn, a, keep = self.backward_launch(grad, shapes, boxes, prologue)
-        self._run(fn, a)
+    def call(self, name, *a):
+        fn, args, keep = self.launch(name, *a)
+        self._run(fn, args)
         return keep[0]
 
 
@@ -3003,13 +3271,20 @@ def check_backward_kernel(torch, dk, calls, old=None) -> list:
         nbytes = grad.numel() * 4 + S * C * 4 + R * (12 + o * 16)
         ops = n * C * 3                                  # two products and a sum
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        pro = dk.roi_prologue(shapes, boxes, o)         # what the forward hands the backward
+        pro = dk.roi_prologue(shapes, boxes, o)
+        # what the forward kernel hands the backward under autograd
+        kpro = dk._roi_align(torch.zeros((S, 4), device=grad.device), shapes, boxes, o,
+                             with_prologue=True)[1]
+        a_kpro = dk.roi_align_backward(grad, shapes, boxes, kpro)
+        torch.cuda.synchronize()
         fn, cargs, keep = backward_launch(torch, dk, grad, shapes, boxes)
         rec = dict(shape=list(grad.shape),
                    cotangent_rows_nonzero=int((grad.reshape(R, -1).abs().amax(1) > 0).sum()),
                    gradient_rows_nonzero=int((a.abs().amax(1) > 0).sum()),
                    exact=bool(torch.equal(a, want)), repeatable=bool(torch.equal(a, b)),
                    exact_on_noise=bool(torch.equal(a_noise, want_noise)),
+                   forward_prologue_exact=all(bool(torch.equal(x, y)) for x, y in zip(kpro, pro)),
+                   exact_on_forward_prologue=bool(torch.equal(a_kpro, want)),
                    max_abs_err=max(float((a - want).abs().max()),
                                    float((a_noise - want_noise).abs().max())),
                    contributions=n, target_rows=rows,
@@ -3027,16 +3302,17 @@ def check_backward_kernel(torch, dk, calls, old=None) -> list:
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=nbytes, operations=ops, library_ms=None)
         del keep
-        if old is not None:
+        if old is not None and old.has("roi_align_backward"):
             rec["ab"] = ab_times(
-                torch, lambda: old.backward_launch(grad, shapes, boxes, pro),
+                torch, lambda: old.launch("roi_align_backward", grad, shapes, boxes, pro),
                 lambda: backward_launch(torch, dk, grad, shapes, boxes),
-                lambda: old.backward(grad, shapes, boxes, pro),
+                lambda: old.call("roi_align_backward", grad, shapes, boxes, pro),
                 lambda: dk.roi_align_backward(grad, shapes, boxes, pro), want)
         if not (rec["cotangent_rows_nonzero"] and rec["gradient_rows_nonzero"]):
             fail(f"seg_train: roi_align_backward at {rec['shape']} was checked on a zero "
                  f"cotangent or gave a zero gradient: {rec}")
-        if not (rec["exact"] and rec["repeatable"] and rec["exact_on_noise"]):
+        if not (rec["exact"] and rec["repeatable"] and rec["exact_on_noise"]
+                and rec["forward_prologue_exact"] and rec["exact_on_forward_prologue"]):
             fail(f"seg_train: roi_align_backward at {rec['shape']} differs from its plain twin "
                  f"or from itself: {rec}")
         sites.append(rec)
@@ -3568,7 +3844,7 @@ def phase_mono(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
         return inits, boots, systems[0], text, sec
 
     inits, boots, slam, text, run_s = run("run")
-    launches = dict(match_top2=mk.match_top2.launches)
+    launches = dict(match_top2=mk.match_top2.launches, categorical_draw=draw_launches())
     tr = slam.tracker
     ok_calls = [i for i, (_, _, o) in enumerate(inits) if bool(o.ok)]
     boot = ok_calls[0] if ok_calls else None
@@ -3599,9 +3875,10 @@ def phase_mono(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
         fail(f"mono: bootstrap {res['bootstrap_frame']}, state {res['state']}, {n} keyframes, "
              f"{res['map_points_after_bootstrap_pair']} points after the pair, ATE {ate} m "
              f"(gate {gate} m)")
-    if launches["match_top2"] < 1:
+    if launches["match_top2"] < 1 or launches["categorical_draw"] < 2 * len(inits):
         emit(res)
-        fail(f"mono: the path launched no kernel: {launches}")
+        fail(f"mono: the path launched no kernel, or the bootstrap drew off the card: "
+             f"{launches}")
 
     # the bootstrap's match: the kernel's call exact against the plain
     # version, each path forced; the index rule against the CPU's plain route
@@ -3843,6 +4120,7 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
                            f.depth, ones, cam) for f in frames[:6]]
     kres, err = phase_kernel(torch, mk, kframes, dev, old)
     emit(kres)
+    drawres = phase_draw(torch, dev)
 
     slice_args = (cfg, frames[:n_frames], System, TrackState, synthetic, metrics, dev, keyframes)
     slam, sres = phase_slice(torch, mk, *slice_args, modules=(mapping, ba))
@@ -4072,6 +4350,24 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "bound_by": sk["bound_by"], "library_ms": None, "library_note": STEREO_NO_LIBRARY,
         "device_ms": sk["device_ms"], "bound_all_pairs_ms": sk["bound_all_pairs_ms"],
         "shape": sk["shape"], "exact_on": [k["images"] for k in stres["kernel"]]})
+    dt = drawres["timing"]
+    detect_lines.append({
+        "name": "categorical_draw", "route": "cuda",
+        "source": "gdslam_tpu_torch/csrc/categorical_draw.cu", "replaces": DRAW_REPLACES,
+        "replaces_note": "jax.random.categorical, XLA-fused in the JAX package, no Pallas",
+        "launches": gres["categorical_draw_launches"],
+        "launches_by_path": dict(gd_slice=gres["categorical_draw_launches"],
+                                 gd_staged=sgres["categorical_draw_launches"],
+                                 reloc=rres["categorical_draw_launches"],
+                                 mono=mores["launches"]["categorical_draw"],
+                                 loop_small=small[0][1]["categorical_draw_launches"]),
+        "max_abs_err": max(c["index_mismatches"] + c["noise_bits_differing"]
+                           for c in drawres["checks"]),
+        "ms": dt["ms"], "plain_ms": dt["plain_ms"], "bound_ms": dt["bound_ms"],
+        "bound_by": dt["bound_by"], "library_ms": None, "library_note": DRAW_NO_LIBRARY,
+        "device_ms": dt["device_ms"], "multinomial_ms": dt["multinomial_ms"],
+        "multinomial_device_ms": dt["multinomial_device_ms"],
+        "numpy_replay_host_ms": dt["numpy_replay_host_ms"], "shape": dt["shape"]})
     top2_sites = path_calls + loop_calls + stres["match_top2_call_sites"] + \
         mores["bootstrap_match"]["call_sites"]
     emit(dict(phase="phase_seconds", seconds=dict(PHASE_SECONDS),

@@ -13,10 +13,10 @@ gdslam_tpu.backend.solvers).
 All hypotheses are solved and scored as one batch (n_iters fixed, no early
 exit); consensus is scored by reprojection error in the target view.
 
-Random numbers: the JAX functions draw their samples from a `jax.random`
-key, which the port cannot replay. Here the samples come from a
-`torch.Generator`, or from `sample_idx` when the caller supplies the draw
-(the parity tests pass the JAX package's).
+Random numbers: each RANSAC draws its samples as the JAX function does,
+`jax.random.categorical` under the caller's key (`ops/draw_kernel.py`, a
+CUDA kernel on the card), or takes `sample_idx` when the caller supplies
+the draw.
 
 - `ransac_sim3` / `optimize_sim3`: the loop closer's Sim3 (SE3 for RGB-D)
   RANSAC and its Gauss-Newton refinement (Sim3Solver, OptimizeSim3).
@@ -29,7 +29,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from gdslam_tpu_torch.core import lie, prng
+from gdslam_tpu_torch.core import lie
+from gdslam_tpu_torch.ops import draw_kernel
 
 
 def _rotation_from_cross_covariance(H: torch.Tensor, squarings: int = 16) -> torch.Tensor:
@@ -97,26 +98,17 @@ class RansacResult(NamedTuple):
     ok: torch.Tensor         # scalar bool (enough inliers found)
 
 
-def frame_generator(frame_id: int, device) -> torch.Generator:
-    """The RANSAC draws of a frame, seeded from its frame id (the JAX
-    package derives its key from the frame id too)."""
-    return torch.Generator(device=device).manual_seed(frame_id)
-
-
-def _draw(valid: torch.Tensor, n_iters: int, size: int,
-          generator: Optional[torch.Generator], sample_idx: Optional[torch.Tensor],
-          key: Optional[tuple] = None):
+def _draw(valid: torch.Tensor, n_iters: int, size: int, key, sample_idx: Optional[torch.Tensor],
+          fold: Optional[torch.Tensor] = None):
     """[n_iters, size] sample rows: `sample_idx` if given, else drawn with
     replacement, uniformly over the valid rows (over all rows when none is
-    valid, as the reference's log(p + 1e-12) does): the JAX package's own
-    draw under `key` (core.prng) when given, else from `generator`."""
+    valid, as the reference's log(p + 1e-12) does), as the JAX package draws
+    them under `key` (fold: draw_kernel.categorical_draw's)."""
     if sample_idx is not None:
         return sample_idx.reshape(n_iters, size).long()
-    if key is not None:
-        return prng.uniform_over(key, valid, n_iters * size).reshape(n_iters, size)
-    probs = valid.float() + 1e-12
-    return torch.multinomial(probs, n_iters * size, replacement=True,
-                             generator=generator).reshape(n_iters, size)
+    if key is None:
+        raise ValueError("a RANSAC needs the draw's key or sample_idx")
+    return draw_kernel.uniform_over(key, valid, n_iters * size, fold).reshape(n_iters, size)
 
 
 def _score(T: torch.Tensor, pw: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
@@ -141,16 +133,17 @@ def _argmax_row(scores: torch.Tensor) -> torch.Tensor:
 
 def ransac_rigid(P: torch.Tensor, Q: torch.Tensor, valid: torch.Tensor, K: tuple,
                  uv_q: torch.Tensor, n_iters: int = 300, sample_size: int = 3,
-                 min_inliers: int = 10, px_threshold: float = 4.0, *,
-                 generator: Optional[torch.Generator] = None,
+                 min_inliers: int = 10, px_threshold: float = 4.0, *, key=None,
+                 fold: Optional[torch.Tensor] = None,
                  sample_idx: Optional[torch.Tensor] = None) -> RansacResult:
     """RANSAC rigid 3D-3D with reprojection consensus.
 
     P [n,3] source points, Q [n,3] target-frame points, uv_q [n,2] observed
     pixels in the target view; K = (fx, fy, cx, cy). Samples are drawn with
-    replacement; a degenerate (repeated-index) sample yields a poor
+    replacement under `key` (and `fold`), or given as sample_idx [n_iters *
+    sample_size]; a degenerate (repeated-index) sample yields a poor
     hypothesis that loses the argmax."""
-    idx = _draw(valid, n_iters, sample_size, generator, sample_idx)
+    idx = _draw(valid, n_iters, sample_size, key, sample_idx, fold)
     R, t, _ = horn_alignment(P[idx], Q[idx], torch.ones(idx.shape, device=P.device))
     Ts = lie.rt_to_mat(R, t)                                          # [iters, 4, 4]
     scores, inls = _score(Ts, P, uv_q, valid, K, px_threshold)
@@ -185,17 +178,17 @@ def _P_to_T(Pm: torch.Tensor, Xh: torch.Tensor, w: torch.Tensor) -> torch.Tensor
 
 def ransac_pnp(pw: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor, K: tuple,
                n_iters: int = 300, min_inliers: int = 10, px_threshold: float = 2.45, *,
-               generator: Optional[torch.Generator] = None,
-               sample_idx: Optional[torch.Tensor] = None) -> RansacResult:
+               key=None, sample_idx: Optional[torch.Tensor] = None) -> RansacResult:
     """2D-3D pose RANSAC (reference PnPsolver.h:73, SetRansacParameters(0.99,
     10, 300, 4, 0.5, 5.991) at Tracking.cc:1715) for observations without
     depth. Minimal solver: 6-point DLT for the projection matrix with known
     K, R orthonormalized by SVD; consensus by reprojection (threshold ~
-    sqrt(5.991) px)."""
+    sqrt(5.991) px). The draw is the JAX package's under `key` (relocalization
+    gives PRNGKey(frame_id)), or sample_idx [n_iters * 6]."""
     fx, fy, cx, cy = K
     n = pw.shape[0]
     xn = torch.stack([(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fy], dim=1)
-    idx = _draw(valid, n_iters, 6, generator, sample_idx)
+    idx = _draw(valid, n_iters, 6, key, sample_idx)
 
     Xh_all = torch.cat([pw, torch.ones((n, 1), device=pw.device)], dim=1)
     z4_all = torch.zeros((n, 4), device=pw.device)
@@ -255,13 +248,11 @@ def ransac_sim3(P: torch.Tensor, Q: torch.Tensor, valid: torch.Tensor, n_iters: 
     (Sim3Solver::CheckInliers, Sim3Solver.cc:180-209): S P projected into
     the current image against uv_q and S^-1 Q into the candidate's against
     uv_p, px_threshold a scalar or per point [N]. The draws are the JAX
-    package's under `key` (core.prng; the loop closer gives PRNGKey(kf_id),
-    the JAX package's key), or `sample_idx` [n_iters * 3].
+    package's under `key` (the loop closer gives PRNGKey(kf_id), the JAX
+    package's key), or `sample_idx` [n_iters * 3].
 
     Returns (R, t, s, inliers [N], n_inliers, ok), all on the device."""
-    if key is None and sample_idx is None:
-        raise ValueError("ransac_sim3: give the draw's key or sample_idx")
-    idx = _draw(valid, n_iters, 3, None, sample_idx, key)
+    idx = _draw(valid, n_iters, 3, key, sample_idx)
     Rs, ts, ss = horn_alignment(P[idx], Q[idx], torch.ones(idx.shape, device=P.device),
                                 with_scale=with_scale)
 

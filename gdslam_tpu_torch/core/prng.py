@@ -1,24 +1,26 @@
-"""The JAX package's counter-based random draws, replayed bit for bit.
+"""The JAX package's counter-based random draws, replayed bit for bit in
+numpy: the host reference of the port's draw.
 
-The monocular bootstrap and the loop closer's Sim3 RANSAC of the JAX
-package draw their samples with `jax.random.categorical`, under
-`PRNGKey(0)` (gdslam_tpu/system/tracking.py, frontend/initializer.py) and
-`PRNGKey(kf_id)` (backend/loop_closing.py). Those draws decide which
-hypothesis wins: at the bootstrap's narrow baselines the winner sets the
-scale of a monocular map, and a Sim3 winner whose inliers hold one bad point
-refits to a wrong scale and one inlier. So the port replays them rather
-than drawing its own: the Threefry-2x32 hash (Salmon et al., SC 2011) as JAX
-computes it (20 rounds, key schedule with 0x1BD11BDA, counters of the
-partitionable layout: the flat index's high and low words), JAX's float
-construction of uniforms in [tiny, 1), the Gumbel noise -log(-log(u)) in
-float32, and categorical = argmax(noise + logits). The noise depends only
-on the key and the shape, so it is computed once on the host (numpy uint32
-arithmetic wraps as the hash needs) and kept on each device.
+Every RANSAC of the JAX package draws its samples with
+`jax.random.categorical`: the GD pose under fold_in(PRNGKey(7), frame_id)
+(gdslam_tpu/system/slam.py) or a split chain from PRNGKey(7)
+(masking/geomask.py), relocalization under PRNGKey(frame_id)
+(system/tracking.py), the monocular bootstrap under PRNGKey(0) and the loop
+closer's Sim3 under PRNGKey(kf_id). Those draws decide which hypothesis
+wins: at the bootstrap's narrow baselines the winner sets the scale of a
+monocular map, and a Sim3 winner whose inliers hold one bad point refits to
+a wrong scale and one inlier. So the port draws what the JAX package draws.
+The draw itself runs on the device (`ops/draw_kernel.py`, a CUDA kernel on
+the card); this module keeps the keys (`prng_key`, `fold_in`, `split`, made
+on the host) and the numpy reference the draw is held to: the Threefry-2x32
+hash (Salmon et al., SC 2011) as JAX computes it (20 rounds, key schedule
+with 0x1BD11BDA, counters of the partitionable layout: the flat index's
+high and low words), JAX's float construction of uniforms in [tiny, 1),
+the Gumbel noise -log(-log(u)) in float32, and categorical = argmax(noise +
+logits).
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
@@ -58,6 +60,13 @@ def fold_in(key: tuple, data: int) -> tuple:
     return (a[0], b[0])
 
 
+def split(key: tuple, num: int = 2) -> list:
+    """jax.random.split(key, num) of the partitionable layout: key i is the
+    hash of the counter (0, i)."""
+    a, b = threefry2x32(key, np.zeros(num, np.uint32), np.arange(num, dtype=np.uint32))
+    return [(a[i], b[i]) for i in range(num)]
+
+
 def random_bits(key: tuple, shape: tuple) -> np.ndarray:
     """32-bit words as jax.random.bits gives them (the partitionable
     layout): the hash of each flat index's (high, low) words, XORed."""
@@ -79,22 +88,12 @@ def gumbel(key: tuple, shape: tuple) -> np.ndarray:
     return -np.log(-np.log(u))
 
 
-@functools.lru_cache(maxsize=8)
-def _noise_on(key: tuple, rows: int, n: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(gumbel(key, (rows, n))).to(device)
-
-
-def uniform_over(key: tuple, valid: torch.Tensor, rows: int) -> torch.Tensor:
-    """[rows] int64 draws with replacement, uniform over the valid rows, as
-    the JAX package draws them: categorical under `key` of the logits
-    log(valid / max(sum(valid), 1) + 1e-12) (every row when none is valid)."""
-    logp = torch.log(valid.float() / torch.clamp(valid.sum(), min=1) + 1e-12)
-    return categorical_rows(key, logp, rows)
-
-
 def categorical_rows(key: tuple, logits: torch.Tensor, rows: int) -> torch.Tensor:
-    """jax.random.categorical(key, logits[None].repeat(rows, 0)): [rows]
-    int64 draws, each the argmax of Gumbel noise plus the logits [n] (the
-    lowest index among ties)."""
-    noise = _noise_on((int(key[0]), int(key[1])), rows, logits.shape[0], logits.device)
-    return torch.argmax(noise + logits[None], dim=1)
+    """jax.random.categorical(key, logits[None].repeat(rows, 0)) replayed on
+    the host: [rows] int64 draws (on the logits' device), each the argmax of
+    Gumbel noise plus the logits [n], the lowest index among ties. The
+    reference the device draw is held to; it reads the logits on the host."""
+    noise = gumbel((int(key[0]), int(key[1])), (rows, logits.shape[0]))
+    lg = logits.detach().cpu().numpy().astype(np.float32)
+    return torch.from_numpy(np.argmax(noise + lg[None], axis=1).astype(np.int64)).to(
+        logits.device)

@@ -12,7 +12,8 @@ translation (the monocular scale is free).
 
 The hypotheses are batches of small SVDs; nothing is read on the host. The
 RANSAC draws are the JAX package's own, `jax.random.categorical` under
-`PRNGKey(seed)` and its fold_in 1, replayed bit for bit by `core.prng` (at
+`PRNGKey(seed)` and its fold_in 1, drawn bit for bit by
+`ops/draw_kernel.py` (a CUDA kernel on the card; at
 the bootstrap's narrow baselines the draw decides the map's scale: other
 draws give median depths from 20 to 200 baselines on the same pair), or
 `sample_idx` when the caller gives them.
@@ -27,6 +28,7 @@ import torch
 
 from gdslam_tpu_torch.backend import optimizer as opt
 from gdslam_tpu_torch.core import lie, prng
+from gdslam_tpu_torch.ops import draw_kernel
 
 
 def triangulate(P1: torch.Tensor, P2: torch.Tensor, x1: torch.Tensor,
@@ -148,8 +150,9 @@ def initialize(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor, K: tuple
     n = x1.shape[0]
     if sample_idx is None:
         key = prng.prng_key(seed)
-        idx_f = prng.uniform_over(key, valid, n_iters * 8).reshape(n_iters, 8)
-        idx_h = prng.uniform_over(prng.fold_in(key, 1), valid, n_iters * 4).reshape(n_iters, 4)
+        idx_f = draw_kernel.uniform_over(key, valid, n_iters * 8).reshape(n_iters, 8)
+        idx_h = draw_kernel.uniform_over(prng.fold_in(key, 1), valid,
+                                         n_iters * 4).reshape(n_iters, 4)
     else:
         idx_f = torch.as_tensor(sample_idx[0], device=dev).reshape(n_iters, 8).long()
         idx_h = torch.as_tensor(sample_idx[1], device=dev).reshape(n_iters, 4).long()

@@ -22,7 +22,9 @@ with < 20 pose inliers keep the semantic mask (cc:145-148), as do the first
 5 frames (cc:171-175).
 
 Everything is plain tensor code on the device; no value is read on the
-host. Random draws come from an explicit `torch.Generator`.
+host. The pose RANSAC draws as the JAX package does, under the caller's
+key: fold_in(PRNGKey(7), frame_id) on the fast path (`fold`, the frame id on
+the device), a split chain from PRNGKey(7) in GeoMaskMaker.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 from gdslam_tpu_torch.backend import solvers
 from gdslam_tpu_torch.config import SlamConfig
 from gdslam_tpu_torch.core import camera as cam_ops
+from gdslam_tpu_torch.core import prng
 from gdslam_tpu_torch.frontend import extractor
 from gdslam_tpu_torch.frontend.extractor import Features
 from gdslam_tpu_torch.frontend.frame import dilate_mask, erode_mask
@@ -290,14 +293,15 @@ def top_matches(good: torch.Tensor, best: torch.Tensor, k: int) -> torch.Tensor:
     return good & torch.zeros_like(good).index_fill_(0, order[:k], True)
 
 
-def _match_pose(fa: Features, depth_a, fb: Features, depth_b, cfg: SlamConfig,
-                generator: Optional[torch.Generator] = None,
+def _match_pose(fa: Features, depth_a, fb: Features, depth_b, cfg: SlamConfig, key=None,
+                fold: Optional[torch.Tensor] = None,
                 sample_idx: Optional[torch.Tensor] = None) -> solvers.RansacResult:
     """The pose b <- a from feature matches (GetRt, cc:77-156): per keypoint
     of `fa` its ratio-test match in `fb`, both with depth at the rounded
     keypoint pixel, the strongest pnp_top_matches kept, then the 3D-3D
-    RANSAC (300 hypotheses, 4 px, >= 20 inliers). The draws come from
-    `generator`, or from `sample_idx` (the caller's draw, [300 * 3])."""
+    RANSAC (300 hypotheses, 4 px, >= 20 inliers). The draws are the JAX
+    package's under `key` (and `fold`), or `sample_idx` (the caller's draw,
+    [300 * 3])."""
     cam = cfg.camera
     zA = _kp_depth(depth_a, fa.uv, cam)
     zB = _kp_depth(depth_b, fb.uv, cam)
@@ -308,31 +312,34 @@ def _match_pose(fa: Features, depth_a, fb: Features, depth_b, cfg: SlamConfig,
     Q = cam_ops.backproject(uv_b, zB[idx], cam)
     return solvers.ransac_rigid(P, Q, good, (cam.fx, cam.fy, cam.cx, cam.cy), uv_b,
                                 n_iters=300, min_inliers=20, px_threshold=4.0,
-                                generator=generator, sample_idx=sample_idx)
+                                key=key, fold=fold, sample_idx=sample_idx)
 
 
-def relative_pose(ref_gray, ref_depth, cur_gray, cur_depth, cfg: SlamConfig,
-                  generator: Optional[torch.Generator] = None,
+def relative_pose(ref_gray, ref_depth, cur_gray, cur_depth, cfg: SlamConfig, key=None,
                   sample_idx: Optional[torch.Tensor] = None):
     """GetRt (GeoMaskMaker.cc:77-156): ORB features on both frames, ratio
-    matches, the robust relative pose. Returns (T_cur_ref [4, 4], n_inliers)."""
+    matches, the robust relative pose, drawn under `key` (PRNGKey(0) when
+    not given, as the JAX function's default). Returns (T_cur_ref [4, 4],
+    n_inliers)."""
     cam = cfg.camera
     A = extractor.extract(ref_gray, cfg.orb, cam.height, cam.width)
     B = extractor.extract(cur_gray, cfg.orb, cam.height, cam.width)
-    res = _match_pose(A, ref_depth, B, cur_depth, cfg, generator, sample_idx)
+    res = _match_pose(A, ref_depth, B, cur_depth, cfg,
+                      prng.prng_key(0) if key is None else key, sample_idx=sample_idx)
     return res.T, res.n_inliers
 
 
 def gd_step_core(feats: Features, cur_gray, cur_depth, sem_mask, ref_gray, ref_depth,
-                 ref_feats: Features, cfg: SlamConfig,
-                 generator: Optional[torch.Generator] = None,
+                 ref_feats: Features, cfg: SlamConfig, key=None,
+                 fold: Optional[torch.Tensor] = None,
                  sample_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The GD masking program on the current frame's features: relative pose
     cur -> ref from (current x cached reference features), dense flow, the
     Mahalanobis map; where the pose RANSAC finds fewer than min_matches
     inliers the semantic mask passes through (cc:145-148), decided on the
-    device. Returns the refined static mask."""
-    res = _match_pose(feats, cur_depth, ref_feats, ref_depth, cfg, generator, sample_idx)
+    device. The pose RANSAC draws under `key` (and `fold`), or takes
+    sample_idx. Returns the refined static mask."""
+    res = _match_pose(feats, cur_depth, ref_feats, ref_depth, cfg, key, fold, sample_idx)
     # flow stops at the Mahalanobis grid's level and is consumed there
     s = res_factor(cfg)
     flow = flow_ops.farneback_flow(cur_gray, ref_gray, levels=5,
@@ -344,24 +351,27 @@ def gd_step_core(feats: Features, cur_gray, cur_depth, sem_mask, ref_gray, ref_d
 
 
 def gd_step(cur_gray, cur_depth, sem_mask, ref_gray, ref_depth, ref_feats: Features,
-            cfg: SlamConfig, generator: Optional[torch.Generator] = None):
-    """Extract the current frame's features once, then gd_step_core.
-    Returns (cur_feats, refined_mask)."""
+            cfg: SlamConfig, key, fold: Optional[torch.Tensor] = None):
+    """Extract the current frame's features once, then gd_step_core, its
+    RANSAC drawn under `key` (and `fold`). Returns (cur_feats, refined_mask)."""
     cam = cfg.camera
     feats = extractor.extract(cur_gray, cfg.orb, cam.height, cam.width)
     return feats, gd_step_core(feats, cur_gray, cur_depth, sem_mask, ref_gray, ref_depth,
-                               ref_feats, cfg, generator)
+                               ref_feats, cfg, key, fold)
 
 
 class GeoMaskMaker:
     """Host wrapper with the 5-frame ring buffer (GeoMaskMaker.cc:409-429).
     Ring entries carry their extracted features, so the relative-pose stage
-    never re-extracts a past frame."""
+    never re-extracts a past frame. Each call of get_mask that runs the
+    masker splits the maker's key, which starts at PRNGKey(7), and draws
+    under the second half, as the JAX GeoMaskMaker does."""
 
     def __init__(self, cfg: SlamConfig):
         self.cfg = cfg
         self.ring: list = []          # (gray, depth, feats) device tensors
         self.frame_count = 0
+        self._key = prng.prng_key(7)
         self.last_feats: Optional[Features] = None
 
     def _extract(self, gray) -> Features:
@@ -394,9 +404,9 @@ class GeoMaskMaker:
         self.add_new_image(gray, depth, feats=feats)
         self.last_feats = feats
 
-    def get_mask(self, sem_mask, frame_id: int = 0):
+    def get_mask(self, sem_mask):
         """Refined static mask [H, W] float (1 = static) of the newest ring
-        frame; its RANSAC draws are seeded from `frame_id`."""
+        frame."""
         cur_gray, cur_depth, _ = self.ring[-1]
         if self.frame_count <= self.cfg.geomask.inter_frame_size:
             # warm-up: all-pass (cc:171-175); still extract + cache features
@@ -407,9 +417,9 @@ class GeoMaskMaker:
         if ref_feats is None:
             ref_feats = self._extract(ref_gray)
             self.ring[0] = (ref_gray, ref_depth, ref_feats)
+        self._key, key = prng.split(self._key)
         feats, refined = gd_step(cur_gray, cur_depth, sem_mask, ref_gray, ref_depth,
-                                 ref_feats, self.cfg,
-                                 solvers.frame_generator(frame_id, cur_gray.device))
+                                 ref_feats, self.cfg, key)
         self.last_feats = feats
         self.ring[-1] = (cur_gray, cur_depth, feats)
         return refined

@@ -34,15 +34,24 @@ ROI_BACKWARD_MAX_R = 1024        # the listed candidates fit shared memory
 MASK = 28                        # the mask head's output side
 PASTE_MAX_D = 64                 # masks staged in shared memory: 64 x 3,156 bytes
 ROI_STRIDES = (4, 8, 16, 32)     # P2..P5
+# The smallest float32 box areas fl(max(h, 1) * max(w, 1)) of levels 1, 2, 3:
+# where floor(2 + log2(sqrt(area) / 224 + 1e-9)), the JAX package's rule
+# evaluated op by op in float32, steps up (the last a few ulps below 448^2,
+# where 2 + log2 rounds up to 3).
+ROI_LEVEL_AREA = (12544.0, 50176.0, 200703.96875)
 DYNAMIC_CLASS_IDS = tuple(range(1, 10)) + tuple(range(15, 25))
+# the dynamic classes as the kernel's 96-bit class mask, three 32-bit words
+DYNAMIC_CLASS_WORDS = tuple(sum(1 << (c - 32 * k) for c in DYNAMIC_CLASS_IDS
+                                if 32 * k <= c < 32 * k + 32) for k in range(3))
+PASTE_TILE = 32                  # the kernel's tile side
 
 
 def _declare(lib) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     sigs = {"nms_fixed_launch": [p, p, i, f, i, p, p],
-            "roi_align_launch": [p, i, p, p, p, p, p, i, i, p],
+            "roi_align_launch": [p, i, p, i, i, f] + [i] * 8 + [p] * 6,
             "roi_align_backward_launch": [p, i, i, i, p, p, p, p, p] + [i] * 8 + [p],
-            "paste_masks_launch": [p, p, p, i, i, i, f, p]}
+            "paste_masks_launch": [p, p, p, p, i, i, i, f, u, u, u, i, p]}
     for name, args in sigs.items():
         fn = getattr(lib, name, None)
         if fn is not None:
@@ -171,16 +180,33 @@ def _roi_tables(shapes, out_size: int, device):
     return table.to(device), stride.to(device), t.to(device)
 
 
-def roi_prologue(shapes, boxes: torch.Tensor, out_size: int):
-    """The per-box part of ROIAlign, shared by both routes: the level of
-    each box (the sqrt(hw) / 224 rule), its sample rows and columns.
-    Returns (info [R, 3] int32: level offset, h, w; y0, x0 [R, out] int32;
-    fy, fx [R, out] f32)."""
-    table, strides, t = _roi_tables(tuple(shapes), out_size, boxes.device)
+def roi_step(out_size: int) -> float:
+    """The float32 reciprocal of out - 1, linspace's step (_linspace01),
+    handed to the kernel; 0 for a lone point."""
+    return float(_linspace01(out_size)[1]) if out_size > 1 else 0.0
+
+
+def roi_levels(boxes: torch.Tensor) -> torch.Tensor:
+    """[R] int64 FPN level (0 = P2) of each box by the sqrt(hw) / 224 rule,
+    as the kernel decides it: the number of ROI_LEVEL_AREA thresholds that
+    the float32 area fl(max(y2 - y1, 1) * max(x2 - x1, 1)) reaches. Every
+    step of the JAX expression is monotone in the area, so this equals it
+    wherever it equals it at the thresholds (tests/test_torch_maskrcnn.py
+    holds it to the JAX roi_align on boxes a few ulps either side of each),
+    with no log2, whose last bit differs between the CPU and the card."""
     h = torch.clamp(boxes[:, 2] - boxes[:, 0], min=1.0)
     w = torch.clamp(boxes[:, 3] - boxes[:, 1], min=1.0)
-    level = torch.clamp(torch.floor(2 + torch.log2(torch.sqrt(h * w) / 224.0 + 1e-9)),
-                        0, 3).long()
+    area = h * w
+    return sum((area >= a).long() for a in ROI_LEVEL_AREA)
+
+
+def roi_prologue(shapes, boxes: torch.Tensor, out_size: int):
+    """The per-box part of ROIAlign, which the kernel computes for itself
+    (and writes out for the gradient): the level of each box (roi_levels),
+    its sample rows and columns. Returns (info [R, 3] int32: level offset,
+    h, w; y0, x0 [R, out] int32; fy, fx [R, out] f32)."""
+    table, strides, t = _roi_tables(tuple(shapes), out_size, boxes.device)
+    level = roi_levels(boxes)
     info = table.index_select(0, level)                                  # [R, 3]
     stride = strides.index_select(0, level)[:, None]
     y = (boxes[:, 0:1] + t[None] * (boxes[:, 2:3] - boxes[:, 0:1])) / stride - 0.5
@@ -214,7 +240,7 @@ def roi_align_plain(flat, shapes, boxes, out_size: int, prologue=None) -> torch.
 def roi_align(flat, shapes, boxes, out_size: int) -> torch.Tensor:
     """ROIAlign over P2..P5: flat [S, C] f32 (`flatten_levels`), boxes
     [R, 4] f32 in image pixels. Returns [R, out, out, C] f32, channels last.
-    One launch on the card (the prologue is a few small PyTorch ops).
+    One launch on the card, the per-box prologue included.
     Differentiable with respect to flat (`roi_align_backward`); the boxes
     get no gradient (they are ground truth or detached proposals), and
     boxes that require one are refused."""
@@ -223,49 +249,62 @@ def roi_align(flat, shapes, boxes, out_size: int) -> torch.Tensor:
         if boxes.requires_grad:
             raise ValueError(f"{name}: the boxes get no gradient; pass them detached")
         return _RoiAlignGrad.apply(flat, boxes, tuple(shapes), out_size)
-    return _roi_align(flat, shapes, boxes, out_size)
+    return _roi_align(flat, shapes, boxes, out_size)[0]
 
 
-def _roi_align(flat, shapes, boxes, out_size: int, prologue=None) -> torch.Tensor:
-    """roi_align's forward, on the prologue it was given if any."""
+def _roi_align(flat, shapes, boxes, out_size: int, with_prologue: bool = False):
+    """roi_align's forward: (out, the prologue if with_prologue else None).
+    On the card the kernel computes the prologue and writes it out when
+    asked, bit for bit what roi_prologue gives."""
     name = "roi_align"
     device = _device(name, flat)
     if device.type == "cpu":
-        return roi_align_plain(flat, shapes, boxes, out_size, prologue)
+        prologue = roi_prologue(shapes, boxes, out_size)
+        return (roi_align_plain(flat, shapes, boxes, out_size, prologue),
+                prologue if with_prologue else None)
     S, C = flat.shape
     R = boxes.shape[0]
-    if C % 4 or S != sum(a * b for a, b in shapes):
+    if C % 4 or len(shapes) != len(ROI_STRIDES) or S != sum(a * b for a, b in shapes):
         raise ValueError(f"{name}: flat [{S}, {C}] does not hold the levels {shapes} "
                          "with C a multiple of 4")
+    if out_size < 1:
+        raise ValueError(f"{name}: out {out_size} < 1")
+    boxes = boxes.contiguous()
     cuda_build.check(name, "flat", flat, torch.float32, (S, C), device)
     cuda_build.check(name, "boxes", boxes, torch.float32, (R, 4), device)
     lib = _library(name)
-    if flat.data_ptr() % 16:
-        raise ValueError(f"{name}: flat must be 16-byte aligned")
-    info, y0, x0, fy, fx = prologue or roi_prologue(shapes, boxes, out_size)
+    if flat.data_ptr() % 16 or boxes.data_ptr() % 16:
+        raise ValueError(f"{name}: flat and boxes must be 16-byte aligned")
     out = torch.empty((R, out_size, out_size, C), dtype=torch.float32, device=device)
+    prologue = None
+    if with_prologue:
+        prologue = (torch.empty((R, 3), dtype=torch.int32, device=device),
+                    *(torch.empty((R, out_size), dtype=dt, device=device)
+                      for dt in (torch.int32, torch.int32, torch.float32, torch.float32)))
     if R:
         cuda_build.launch(name, device, lib.roi_align_launch, flat.data_ptr(), C,
-                          info.data_ptr(), y0.data_ptr(), x0.data_ptr(), fy.data_ptr(),
-                          fx.data_ptr(), R, out_size, out.data_ptr())
+                          boxes.data_ptr(), R, out_size, roi_step(out_size),
+                          *(v for hw in shapes for v in hw),
+                          out.data_ptr(),
+                          *((None,) * 5 if prologue is None else (t.data_ptr() for t in prologue)))
         roi_align.launches += 1
-    return out
+    return out, prologue
 
 
 roi_align.launches = 0
 
 
 class _RoiAlignGrad(torch.autograd.Function):
-    """roi_align with its gradient: the forward kernel, and a backward
-    kernel that scatters the cotangent back onto the levels, both on the
-    one prologue the forward computes."""
+    """roi_align with its gradient: the forward kernel, which also writes
+    the prologue out, and a backward kernel that scatters the cotangent back
+    onto the levels on that prologue."""
 
     @staticmethod
     def forward(ctx, flat, boxes, shapes, out_size):
-        prologue = roi_prologue(shapes, boxes, out_size)
+        out, prologue = _roi_align(flat, shapes, boxes, out_size, with_prologue=True)
         ctx.shapes = shapes
         ctx.save_for_backward(boxes, *prologue)
-        return _roi_align(flat, shapes, boxes, out_size, prologue)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
@@ -428,33 +467,83 @@ def paste_masks_plain(det: dict, image_hw, dynamic_only: bool = True,
     return hit.any(0).to(torch.uint8)
 
 
+def class_mask_ok(classes: torch.Tensor, words=DYNAMIC_CLASS_WORDS) -> torch.Tensor:
+    """[D] bool: class c in the 96-bit class mask `words`, the kernel's
+    test (the plain mirror of torch.isin(classes, DYNAMIC_CLASS_IDS))."""
+    c = classes.long()
+    word = torch.tensor(words, dtype=torch.int64, device=c.device)[(c.clamp(0, 95) >> 5)]
+    return (c >= 0) & (c < 96) & (((word >> (c & 31)) & 1) == 1)
+
+
+def paste_tile_lists(det: dict, image_hw, dynamic_only: bool = True) -> torch.Tensor:
+    """[tiles_y, tiles_x, D] bool: the kernel's per-tile list, the
+    detections that paste and whose box meets the 32 x 32 tile (y2 above
+    its first row, y1 at most its last, the same for columns). The plain
+    mirror of the kernel's ballot; the kernel walks each list in order."""
+    H, W = image_hw
+    boxes = det["boxes"]
+    dev = boxes.device
+    ok = det["valid"]
+    if dynamic_only:
+        ok = ok & class_mask_ok(det["classes"])
+    y0 = torch.arange(0, H, PASTE_TILE, dtype=torch.float32, device=dev)
+    x0 = torch.arange(0, W, PASTE_TILE, dtype=torch.float32, device=dev)
+    y1 = torch.clamp(y0 + PASTE_TILE, max=H) - 1
+    x1 = torch.clamp(x0 + PASTE_TILE, max=W) - 1
+    rows = (y1[:, None] >= boxes[None, :, 0]) & (y0[:, None] < boxes[None, :, 2])
+    cols = (x1[:, None] >= boxes[None, :, 1]) & (x0[:, None] < boxes[None, :, 3])
+    return rows[:, None, :] & cols[None, :, :] & ok[None, None, :]
+
+
+def paste_masks_tiled_plain(det: dict, image_hw, dynamic_only: bool = True,
+                            mask_th: float = 0.5) -> torch.Tensor:
+    """The kernel's route in plain PyTorch: each tile pastes only the
+    detections on its list (paste_tile_lists). Equal to paste_masks_plain
+    wherever the lists hold every box that sets a pixel of their tile."""
+    H, W = image_hw
+    lists = paste_tile_lists(det, image_hw, dynamic_only)
+    ty = torch.arange(H, device=lists.device) // PASTE_TILE
+    tx = torch.arange(W, device=lists.device) // PASTE_TILE
+    listed = lists[ty[:, None], tx[None, :]].permute(2, 0, 1)          # [D, H, W]
+    boxes = det["boxes"]
+    ys = torch.arange(H, dtype=torch.float32, device=boxes.device)[None, :, None]
+    xs = torch.arange(W, dtype=torch.float32, device=boxes.device)[None, None, :]
+    b = boxes[:, :, None, None]
+    inside = (ys >= b[:, 0]) & (ys < b[:, 2]) & (xs >= b[:, 1]) & (xs < b[:, 3])
+    hit = listed & inside & (paste_values(det, image_hw) > mask_th)
+    return hit.any(0).to(torch.uint8)
+
+
 def paste_masks(det: dict, image_hw, dynamic_only: bool = True,
                 mask_th: float = 0.5) -> torch.Tensor:
-    """GetDynSeg: det holds boxes [D, 4] f32 in output pixels, classes [D],
-    masks [D, 28, 28] f32, valid [D] bool. Returns [H, W] uint8, 1 where a
-    valid dynamic-class detection whose box holds the pixel has a bilinear
-    mask value above mask_th. One launch on the card."""
+    """GetDynSeg: det holds boxes [D, 4] f32 in output pixels, classes [D]
+    int32, masks [D, 28, 28] f32, valid [D] bool. Returns [H, W] uint8, 1
+    where a valid dynamic-class detection whose box holds the pixel has a
+    bilinear mask value above mask_th. One launch on the card: the class
+    test is in the kernel (a constant mask of the dynamic classes)."""
     name = "paste_masks"
-    boxes, masks = det["boxes"], det["masks"]
-    device = _device(name, boxes)
+    boxes, masks, classes, valid = det["boxes"], det["masks"], det["classes"], det["valid"]
+    device = boxes.device
     if device.type == "cpu":
         return paste_masks_plain(det, image_hw, dynamic_only, mask_th)
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
     D = boxes.shape[0]
     H, W = image_hw
     if D > PASTE_MAX_D:
         raise ValueError(f"{name}: {D} detections, the kernel takes at most {PASTE_MAX_D}")
     cuda_build.check(name, "boxes", boxes, torch.float32, (D, 4), device)
     cuda_build.check(name, "masks", masks, torch.float32, (D, MASK, MASK), device)
-    for what in ("classes", "valid"):
-        if det[what].shape != (D,) or det[what].device != device:
-            raise ValueError(f"{name}: {what} must be [{D}] on {device}")
+    cuda_build.check(name, "classes", classes, torch.int32, (D,), device)
+    cuda_build.check(name, "valid", valid, torch.bool, (D,), device)
     lib = _library(name)
     if boxes.data_ptr() % 16:
         raise ValueError(f"{name}: boxes must be 16-byte aligned")
-    ok = paste_ok(det, dynamic_only).to(torch.uint8)
     out = torch.empty((H, W), dtype=torch.uint8, device=device)
-    cuda_build.launch(name, device, lib.paste_masks_launch, boxes.data_ptr(), ok.data_ptr(),
-                      masks.data_ptr(), D, H, W, float(np.float32(mask_th)), out.data_ptr())
+    cuda_build.launch(name, device, lib.paste_masks_launch, boxes.data_ptr(),
+                      classes.data_ptr(), valid.data_ptr(), masks.data_ptr(), D, H, W,
+                      float(np.float32(mask_th)), *DYNAMIC_CLASS_WORDS, int(dynamic_only),
+                      out.data_ptr())
     paste_masks.launches += 1
     return out
 

@@ -22,10 +22,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gdslam_tpu_torch.backend import solvers
 from gdslam_tpu_torch.backend import vocabulary as voc_mod
 from gdslam_tpu_torch.backend.loop_closing import LoopCloser
 from gdslam_tpu_torch.config import SlamConfig
+from gdslam_tpu_torch.core import prng
 from gdslam_tpu_torch.frontend import extractor
 from gdslam_tpu_torch.frontend.frame import build_frame
 from gdslam_tpu_torch.masking import geomask, geometry
@@ -40,16 +40,33 @@ class Sensor(enum.Enum):
     RGBD = 2
 
 
-def pack_gd_frame(gray: np.ndarray, depth: np.ndarray, out: np.ndarray) -> np.ndarray:
-    """The GD frame's one upload buffer, uint8 [H*W + 2*H2*W2]: gray, then
-    the low and the high bytes of the half-resolution depth
-    (depth[::2, ::2], H2 = ceil(H / 2), W2 = ceil(W / 2)), written into `out`."""
+GD_KEY = prng.prng_key(7)   # the fast path draws under fold_in(GD_KEY, frame_id)
+
+
+def _frame_id_offset(H: int, W: int) -> int:
+    """Where the packed buffer keeps the frame id: after gray and the two
+    depth planes, rounded up to 8 bytes."""
+    return -(-(H * W + 2 * ((H + 1) // 2) * ((W + 1) // 2)) // 8) * 8
+
+
+def packed_nbytes(H: int, W: int) -> int:
+    return _frame_id_offset(H, W) + 8
+
+
+def pack_gd_frame(gray: np.ndarray, depth: np.ndarray, out: np.ndarray,
+                  frame_id: int = 0) -> np.ndarray:
+    """The GD frame's one upload buffer, uint8 [packed_nbytes(H, W)]: gray,
+    then the low and the high bytes of the half-resolution depth
+    (depth[::2, ::2], H2 = ceil(H / 2), W2 = ceil(W / 2)), then the frame id
+    as an int64 at an 8-byte boundary, written into `out`."""
     n = gray.size
     dh = depth[::2, ::2]
     m = dh.size
     out[:n] = gray.reshape(-1)
     out[n:n + m] = (dh & 0xFF).reshape(-1)
     out[n + m:n + 2 * m] = (dh >> 8).reshape(-1)
+    at = _frame_id_offset(*gray.shape)
+    out[at:at + 8] = np.array([frame_id], np.int64).view(np.uint8)
     return out
 
 
@@ -66,6 +83,12 @@ def unpack_gd_frame(packed: torch.Tensor, H: int, W: int, depth_scale: float):
     return gray, depth.float() * depth_scale
 
 
+def packed_frame_id(packed: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """pack_gd_frame's frame id on the device: int64 [1], a view."""
+    at = _frame_id_offset(H, W)
+    return packed[at:at + 8].view(torch.int64)
+
+
 class PackedUpload:
     """Uploads GD frames without waiting for the card: each frame is packed
     into a pinned host buffer and copied with non_blocking=True. A buffer
@@ -74,18 +97,19 @@ class PackedUpload:
     the ring grows by one (it holds as many buffers as frames in flight)."""
 
     def __init__(self, H: int, W: int, device: torch.device):
-        self.nbytes = H * W + 2 * ((H + 1) // 2) * ((W + 1) // 2)
+        self.nbytes = packed_nbytes(H, W)
         self.device = device
         self.ring: list = []        # [pinned host buffer, event or None]
 
-    def __call__(self, gray: np.ndarray, depth: np.ndarray) -> torch.Tensor:
+    def __call__(self, gray: np.ndarray, depth: np.ndarray, frame_id: int = 0) -> torch.Tensor:
         if self.device.type != "cuda":
-            return torch.from_numpy(pack_gd_frame(gray, depth, np.empty(self.nbytes, np.uint8)))
+            return torch.from_numpy(pack_gd_frame(gray, depth, np.empty(self.nbytes, np.uint8),
+                                                  frame_id))
         slot = next((s for s in self.ring if s[1] is None or s[1].query()), None)
         if slot is None:
             slot = [torch.empty(self.nbytes, dtype=torch.uint8, pin_memory=True), None]
             self.ring.append(slot)
-        pack_gd_frame(gray, depth, slot[0].numpy())
+        pack_gd_frame(gray, depth, slot[0].numpy(), frame_id)
         dev = torch.empty(self.nbytes, dtype=torch.uint8, device=self.device)
         dev.copy_(slot[0], non_blocking=True)
         slot[1] = torch.cuda.Event()
@@ -326,8 +350,10 @@ class System:
         uploaded as one packed buffer (gray + half-resolution depth) from
         pinned memory without waiting for the card. Every other frame takes
         the staged path: the ring's get_mask, then build_frame and the
-        tracker's common body. The RANSAC draws of either path are seeded
-        from the tracker's frame id."""
+        tracker's common body. The fast path's RANSAC draws under
+        fold_in(PRNGKey(7), frame_id), folded on the device from the frame id
+        that rides in the packed upload (or is filled on the device); the
+        staged path's under the ring's split chain, as the JAX package draws."""
         if inpaint and getattr(rgb, "ndim", 3) != 3:
             raise ValueError("inpaint=True needs a 3-channel rgb input "
                              "(the inpainted output is colour imagery)")
@@ -342,20 +368,22 @@ class System:
                     and isinstance(depth, np.ndarray) and depth.dtype == np.uint16):
                 if self._packed is None:
                     self._packed = PackedUpload(cam.height, cam.width, self.device)
-                gray, depth_m = unpack_gd_frame(self._packed(rgb, depth), cam.height,
-                                                cam.width, 1.0 / cam.depth_map_factor)
+                packed = self._packed(rgb, depth, tr.frame_id)
+                gray, depth_m = unpack_gd_frame(packed, cam.height, cam.width,
+                                                1.0 / cam.depth_map_factor)
+                frame_id = packed_frame_id(packed, cam.height, cam.width)
             else:
                 gray, depth_m = self._to_gray(rgb), self._to_depth(depth)
-            feats, refined = geomask.gd_step(
-                gray, depth_m, sem, ref_gray, ref_depth, ref_feats, self.cfg,
-                solvers.frame_generator(tr.frame_id, self.device))
+                frame_id = torch.full((1,), tr.frame_id, dtype=torch.int64, device=self.device)
+            feats, refined = geomask.gd_step(gray, depth_m, sem, ref_gray, ref_depth, ref_feats,
+                                             self.cfg, GD_KEY, fold=frame_id)
             out = tr._dispatch(build_frame(feats, depth_m, refined, cam))
             geo.push(gray, depth_m, feats)
             return tr.adopt_dispatched(out, timestamp), refined
         im = self._upload(rgb).float()
         gray, depth_m = self._to_gray(im), self._to_depth(depth)
         geo.add_new_image(gray, depth_m, sem)
-        refined = geo.get_mask(sem, tr.frame_id)
+        refined = geo.get_mask(sem)
         # the GD stage's extraction is reused: the refined mask culls
         # keypoints at the Frame level (the reference re-extracts because
         # its masking is image-level, Tracking.cc:252)

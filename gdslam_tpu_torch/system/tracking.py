@@ -45,7 +45,7 @@ from gdslam_tpu_torch.backend import mapping, optimizer, solvers
 from gdslam_tpu_torch.backend import vocabulary as voc
 from gdslam_tpu_torch.config import SlamConfig
 from gdslam_tpu_torch.core import camera as cam_ops
-from gdslam_tpu_torch.core import lie
+from gdslam_tpu_torch.core import lie, prng
 from gdslam_tpu_torch.frontend import extractor, initializer, matcher
 from gdslam_tpu_torch.frontend.frame import Frame, build_frame, build_frame_stereo
 from gdslam_tpu_torch.ops import stereo as stereo_ops
@@ -1084,8 +1084,8 @@ class Tracking:
         n_ms = torch.stack([n for _, n in matches]).tolist()
         # Try candidates best-first (the reference iterates all candidates'
         # PnP solvers round-robin, Tracking.cc:1737; best-first reaches the
-        # same accept with fewer RANSAC runs). The sample draws are seeded
-        # from the frame id, as the JAX package seeds its key.
+        # same accept with fewer RANSAC runs). The samples are drawn under
+        # PRNGKey(frame_id), the JAX package's key.
         px = 5.991 ** 0.5
         for ci in sorted(range(len(matches)), key=lambda i: -n_ms[i]):
             if n_ms[ci] < 15:
@@ -1098,7 +1098,7 @@ class Tracking:
             # 2D-3D PnP RANSAC: no keypoint depth required.
             res = solvers.ransac_pnp(pw, frame.uv, has_pt, _K(cfg), n_iters=300,
                                      min_inliers=10, px_threshold=px,
-                                     generator=solvers.frame_generator(self.frame_id, self.device))
+                                     key=prng.prng_key(self.frame_id))
             if not bool(res.ok):
                 # fallback hypothesis from 3D-3D where depth exists
                 has_3d = has_pt & (frame.depth > 0)
@@ -1107,8 +1107,7 @@ class Tracking:
                 q = cam_ops.backproject(frame.uv, frame.depth, cam)
                 res = solvers.ransac_rigid(pw, q, has_3d, _K(cfg), frame.uv, n_iters=300,
                                            min_inliers=10, px_threshold=px * 2,
-                                           generator=solvers.frame_generator(self.frame_id,
-                                                                             self.device))
+                                           key=prng.prng_key(self.frame_id))
                 if not bool(res.ok):
                     continue
             matched = has_pt & res.inliers

@@ -19,7 +19,8 @@ from gdslam_tpu_torch.frontend import extractor
 from gdslam_tpu_torch.io import synthetic
 from gdslam_tpu_torch.masking import geomask, geometry
 from gdslam_tpu_torch.models import maskrcnn
-from gdslam_tpu_torch.ops import detect_kernels, match_kernel
+from gdslam_tpu_torch.ops import detect_cases, detect_kernels, match_kernel
+from gdslam_tpu_torch.ops import draw_kernel
 from gdslam_tpu_torch.system import slam as slam_mod
 from gdslam_tpu_torch.system import tracking
 from gdslam_tpu_torch.system.slam import System
@@ -351,22 +352,51 @@ def test_gd_slice_on_card_tracks_like_cpu(card, pipeline, monkeypatch):
 def test_gd_step_waits_for_nothing(card):
     """gd_step on the card under torch's sync debug mode "error": no upload,
     no read, no solver that checks its result on the host (the Horn
-    rotation is the quaternion form, not an SVD)."""
+    rotation is the quaternion form, not an SVD), and the RANSAC's draw made
+    on the card from a frame-id tensor (the fast path's key)."""
     frames, raw = _gd_raw(6, card)
     gray = frames[5].gray
     depth = frames[5].depth
     ref = frames[0]
     feats = extractor.extract(ref.gray, GD_CFG.orb, 240, 320)
     sem = torch.ones_like(gray)
-    gen = solvers.frame_generator(5, card)
-    geomask.gd_step(gray, depth, sem, ref.gray, ref.depth, feats, GD_CFG, gen)   # warm caches
+    fold = torch.full((1,), 5, dtype=torch.int64, device=card)
+    args = (gray, depth, sem, ref.gray, ref.depth, feats, GD_CFG, slam_mod.GD_KEY, fold)
+    geomask.gd_step(*args)                                    # warm caches
     torch.cuda.synchronize()
+    before = draw_kernel.categorical_draw.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
-        _, refined = geomask.gd_step(gray, depth, sem, ref.gray, ref.depth, feats, GD_CFG, gen)
+        _, refined = geomask.gd_step(*args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert refined.shape == (240, 320) and bool((refined < 0.5).any())
+    assert draw_kernel.categorical_draw.launches == before + 1
+
+
+def test_gd_fast_path_draws_on_the_card_without_waiting(card):
+    """Pipelined GD frames on the packed fast path, between flushes, under
+    torch's sync debug mode "error": the frame id rides in the packed
+    upload, the key is folded on the card and the draw is one kernel launch
+    a frame; nothing waits for the card."""
+    frames, raw = _gd_raw(10)
+    s = System(GD_CFG, kmax=32, pmax=16384, pipeline=True, device=card)
+    s.tracker.use_local_ba = s.tracker.use_triangulation = False
+    s.tracker.commit_every = 100                  # no flush inside the checked frames
+    for i in range(7):
+        s.track_rgbd_gd(*raw[i], None, i / 30.0)
+    s.tracker.flush()
+    torch.cuda.synchronize()
+    before = draw_kernel.categorical_draw.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(7, 10):
+            s.track_rgbd_gd(*raw[i], None, i / 30.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert draw_kernel.categorical_draw.launches == before + 3
+    s.shutdown()
+    assert s.tracking_state.name == "OK"
 
 
 def test_packed_upload_round_trip(card):
@@ -1098,5 +1128,68 @@ def test_bootstrap_helpers_on_card_equal_cpu(card):
     valid = torch.from_numpy(r.uniform(size=1500) < 0.4)
     for seed in (0, 31):
         key = prng.prng_key(seed)
-        assert torch.equal(prng.uniform_over(key, valid.to(card), 1600).cpu(),
-                           prng.uniform_over(key, valid, 1600))
+        assert torch.equal(draw_kernel.uniform_over(key, valid.to(card), 1600).cpu(),
+                           draw_kernel.uniform_over(key, valid, 1600))
+        assert torch.equal(draw_kernel.uniform_over(key, valid.to(card), 1600).cpu(),
+                           prng.categorical_rows(key, draw_kernel.uniform_logits(valid), 1600))
+
+
+@pytest.mark.parametrize("rows, n", [(900, 1500), (1800, 1500), (800, 37), (3, 20000)])
+def test_categorical_draw_kernel_equals_plain(card, rows, n):
+    """The draw kernel against its plain twin on the card, bitwise: the
+    Gumbel noise both write out and the indices, over logits uniform on
+    none, some and all rows and with -inf entries, the key as host words
+    and folded from a frame-id tensor; the indices also
+    the numpy replay's (held to jax.random on the CPU)."""
+    from gdslam_tpu_torch.core import prng
+    r = np.random.default_rng(rows + n)
+    for k, share in enumerate((0.0, 0.07, 1.0)):
+        valid = torch.from_numpy(r.uniform(size=n) < share).to(card)
+        lg = draw_kernel.uniform_logits(valid)
+        if k == 1:
+            lg[: n // 3] = -float("inf")
+        fold = torch.full((1,), 1000 + k, dtype=torch.int64, device=card)
+        key = prng.fold_in(prng.prng_key(7), 1000 + k)
+        nk, npl = torch.empty(rows, n, device=card), torch.empty(rows, n, device=card)
+        got = draw_kernel.categorical_draw(prng.prng_key(7), lg, rows, fold, noise=nk)
+        want = draw_kernel.categorical_draw_plain(prng.prng_key(7), lg, rows, fold, noise=npl)
+        assert torch.equal(nk.view(torch.int32), npl.view(torch.int32))
+        assert torch.equal(got, want)
+        assert torch.equal(draw_kernel.categorical_draw(key, lg, rows), want)
+        assert torch.equal(got.cpu(), prng.categorical_rows(key, lg, rows).cpu())
+
+
+def test_roi_align_prologue_in_the_kernel(card):
+    """ROIAlign's prologue computed in the kernel: on boxes a few ulps either
+    side of each level threshold (the areas of ROI_LEVEL_AREA) the crop and
+    the prologue written out for the gradient equal roi_align_plain and
+    roi_prologue bitwise, and a call is one launch."""
+    r = np.random.default_rng(9)
+    shapes = ((120, 160), (60, 80), (30, 40), (15, 20))
+    flat = torch.from_numpy(r.normal(0, 1, (sum(a * b for a, b in shapes), 64))
+                            .astype(np.float32)).to(card)
+    boxes = torch.from_numpy(detect_cases.roi_boundary_boxes()).to(card)
+    assert set(detect_kernels.roi_levels(boxes).tolist()) == {0, 1, 2, 3}
+    for size in (7, 14, 1):
+        before = detect_kernels.roi_align.launches
+        got, pro = detect_kernels._roi_align(flat, shapes, boxes, size, with_prologue=True)
+        assert detect_kernels.roi_align.launches == before + 1
+        assert torch.equal(got, detect_kernels.roi_align_plain(flat, shapes, boxes, size))
+        for a, b in zip(pro, detect_kernels.roi_prologue(shapes, boxes, size)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_paste_kernel_tile_lists_on_adversarial_boxes(card, seed):
+    """The paste kernel's per-tile lists on boxes at, just off and between
+    tile borders, past the image, degenerate, invalid and of static
+    classes, with masks below the threshold, a hair under it and a blob:
+    bitwise the plain twin, with and without the class test."""
+    H, W, D = 480, 640, 32
+    det = {k: torch.from_numpy(v).to(card) for k, v in detect_cases.paste_adversarial_det(
+        np.random.default_rng(seed), D, H, W).items()}
+    for dyn in (True, False):
+        before = detect_kernels.paste_masks.launches
+        got = detect_kernels.paste_masks(det, (H, W), dyn)
+        assert detect_kernels.paste_masks.launches == before + 1
+        assert torch.equal(got, detect_kernels.paste_masks_plain(det, (H, W), dyn))

@@ -23,6 +23,7 @@ from gdslam_tpu.ops import hamming as jham
 from gdslam_tpu.ops import image as jimage
 from gdslam_tpu.ops import orb as jorb
 from gdslam_tpu_torch import convert
+from gdslam_tpu_torch.core import prng
 from gdslam_tpu_torch.frontend import frame as tframe
 from gdslam_tpu_torch.io import synthetic as tsyn
 from gdslam_tpu_torch.masking import geomask as tgeo
@@ -246,7 +247,9 @@ def test_gd_step_core_matches_jax(dyn):
     JAX RANSAC draw passed to the port as sample_idx: the refined masks
     agree to IoU > 0.99 (the flow's summation order moves a few boundary
     pixels) and flag part of the moving sphere (the JAX package's own bound
-    at this size, tests/test_masking.py); the features cross through
+    at this size, tests/test_masking.py); the port's own draw under the
+    fast path's key, fold_in(PRNGKey(7), 7) folded from a frame-id tensor,
+    gives the same mask; the features cross through
     convert.features_from_numpy / features_to_numpy unchanged."""
     cur, ref = dyn[7], dyn[2]
     fa = jext.extract(cur.gray, SCFG.orb, SCAM.height, SCAM.width)
@@ -277,6 +280,10 @@ def test_gd_step_core_matches_jax(dyn):
     got = tgeo.gd_step_core(tf[0], _t(cur.gray), _t(cur.depth), torch.ones(120, 160),
                             _t(ref.gray), _t(ref.depth), tf[1], TCFG,
                             sample_idx=_t(draw)).numpy()
+    drawn = tgeo.gd_step_core(tf[0], _t(cur.gray), _t(cur.depth), torch.ones(120, 160),
+                              _t(ref.gray), _t(ref.depth), tf[1], TCFG, prng.prng_key(7),
+                              fold=torch.tensor([7])).numpy()
+    np.testing.assert_array_equal(drawn, got)
     dyn_j, dyn_t = want < 0.5, got < 0.5
     assert good.sum() >= 20 and dyn_j.sum() > 30
     assert _iou(dyn_t, dyn_j) > 0.99
@@ -315,10 +322,10 @@ def test_geomask_maker_ring(dyn):
     ring[0] after the next push, and the ring keeps six entries."""
     gm = tgeo.GeoMaskMaker(TCFG)
     sem = torch.ones(120, 160)
-    for i, fr in enumerate(dyn[:5]):
+    for fr in dyn[:5]:
         assert not gm.warm
         gm.add_new_image(_t(fr.gray), _t(fr.depth), sem)
-        assert gm.get_mask(sem, i) is sem and gm.ring[-1][2] is gm.last_feats
+        assert gm.get_mask(sem) is sem and gm.ring[-1][2] is gm.last_feats
     assert gm.warm and gm.frame_count == 5
     ref = gm.ref_for_next()
     assert ref[0] is gm.ring[0][0]

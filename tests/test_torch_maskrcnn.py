@@ -23,6 +23,7 @@ import torch
 from gdslam_tpu.models import maskrcnn as jm
 from gdslam_tpu_torch.models import maskrcnn as tm
 from gdslam_tpu_torch.ops import detect_kernels as dk
+from gdslam_tpu_torch.ops.detect_cases import paste_adversarial_det, roi_boundary_boxes
 
 torch.set_num_threads(1)
 
@@ -213,6 +214,70 @@ def test_roi_align_matches_jax(models, jax_feats, out_size, n):
                                    out_size, HW))
     assert got.shape == want.shape == (n, out_size, out_size, 256)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_roi_level_rule_matches_jax():
+    """The kernel's level rule (roi_levels, the area against ROI_LEVEL_AREA)
+    gives the JAX roi_align's levels on boxes a few ulps either side of each
+    threshold, and on random boxes: each level's features hold a distinct
+    constant, so the crop reads back the level. It is what the log2 formula
+    gave before it (torch on the CPU, the JAX package op by op: the same
+    bits). Under jit XLA rounds sqrt(hw) / 224 otherwise and moves the first
+    two thresholds down by 1-2 ulps of the area (ROADMAP section 3)."""
+    shapes = ((32, 40), (16, 20), (8, 10), (4, 5))
+    feats = [np.full((1, h, w, 4), 10.0 * lv, np.float32) for lv, (h, w) in enumerate(shapes)]
+    r = np.random.default_rng(2)
+    sides = np.exp(r.uniform(np.log(5), np.log(1500), (200, 2))).astype(np.float32)
+    boxes = np.concatenate([roi_boundary_boxes(), np.concatenate(
+        [np.zeros((200, 2), np.float32), sides], 1)])
+    crop = np.asarray(jm.roi_align([jnp.asarray(f) for f in feats], jnp.asarray(boxes), 2,
+                                   (128, 160)))
+    want = np.rint(crop[:, 0, 0, 0] / 10).astype(np.int64)
+    tb = torch.from_numpy(boxes)
+    got = dk.roi_levels(tb).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert set(got) == {0, 1, 2, 3}
+    h = torch.clamp(tb[:, 2] - tb[:, 0], min=1.0)
+    w = torch.clamp(tb[:, 3] - tb[:, 1], min=1.0)
+    log2_rule = torch.clamp(torch.floor(2 + torch.log2(torch.sqrt(h * w) / 224.0 + 1e-9)), 0, 3)
+    np.testing.assert_array_equal(got, log2_rule.long().numpy())
+    flat, _ = dk.flatten_levels([torch.from_numpy(f).permute(0, 3, 1, 2) for f in feats])
+    info = dk.roi_prologue(shapes, tb, 2)[0].numpy()
+    offsets = np.cumsum([0] + [a * b for a, b in shapes])[:4]
+    np.testing.assert_array_equal(info[:, 0], offsets[got])
+
+
+@pytest.mark.parametrize("D, hw", [(32, (480, 640)), (64, (120, 161)), (5, (33, 31))])
+def test_paste_tile_lists_keep_the_union(D, hw):
+    """The paste kernel's per-tile lists (paste_tile_lists, its plain
+    mirror) hold every detection that sets a pixel of their tile, so
+    pasting each tile's list alone
+    (paste_masks_tiled_plain) gives paste_masks_plain on every pixel, with
+    the class test as a bitmask (class_mask_ok) equal to torch.isin over the
+    dynamic classes. Masks below the threshold everywhere, a hair under it,
+    and a single blob are among them."""
+    H, W = hw
+    for seed in range(3):
+        det = {k: torch.from_numpy(v) for k, v in paste_adversarial_det(
+            np.random.default_rng(seed), D, H, W).items()}
+        for dynamic_only in (True, False):
+            want = dk.paste_masks_plain(det, hw, dynamic_only)
+            assert torch.equal(dk.paste_masks_tiled_plain(det, hw, dynamic_only), want)
+            # every (detection, pixel) that pastes lies in a tile that lists it
+            b = det["boxes"][:, :, None, None]
+            ys = torch.arange(H, dtype=torch.float32)[None, :, None]
+            xs = torch.arange(W, dtype=torch.float32)[None, None, :]
+            sets = dk.paste_ok(det, dynamic_only)[:, None, None] & \
+                (ys >= b[:, 0]) & (ys < b[:, 2]) & (xs >= b[:, 1]) & (xs < b[:, 3]) & \
+                (dk.paste_values(det, hw) > 0.5)
+            lists = dk.paste_tile_lists(det, hw, dynamic_only)
+            ty, tx = torch.arange(H) // dk.PASTE_TILE, torch.arange(W) // dk.PASTE_TILE
+            listed = lists[ty[:, None], tx[None, :]].permute(2, 0, 1)
+            assert not (sets & ~listed).any()
+        assert 0 < int(want.sum()) < H * W
+    c = torch.arange(-5, 200, dtype=torch.int32)
+    assert torch.equal(dk.class_mask_ok(c),
+                       torch.isin(c, torch.tensor(dk.DYNAMIC_CLASS_IDS, dtype=torch.int32)))
 
 
 def _random_det(r, D, H, W):

@@ -14,6 +14,7 @@ from gdslam_tpu.backend import solvers as jsolvers
 from gdslam_tpu.core import lie as jlie
 from gdslam_tpu_torch import convert
 from gdslam_tpu_torch.backend import solvers as tsolvers
+from gdslam_tpu_torch.core import prng
 
 # One torch thread per test process: xdist's six workers share the cores,
 # and eight spinning OpenMP threads in each ran these tests twice as slow.
@@ -150,17 +151,20 @@ def test_ransac_pnp_matches_jax(seed):
 
 
 def test_ransac_draws_from_the_generator():
-    """Without sample_idx the port draws from its generator: the same seed
-    gives the same result, only valid rows are sampled, and the scene's pose
-    is found."""
+    """Without sample_idx the port draws under its key (the JAX package's
+    draw; there is no torch generator any more): the same key gives the
+    same result, only valid rows are sampled, the scene's pose is found,
+    and a draw with no key is refused."""
     pw, T, pc, uv, valid, _ = _scene(5)
     args = (torch.from_numpy(pw), torch.from_numpy(uv), torch.from_numpy(valid), K)
-    a = tsolvers.ransac_pnp(*args, generator=torch.Generator().manual_seed(7))
-    b = tsolvers.ransac_pnp(*args, generator=torch.Generator().manual_seed(7))
+    a = tsolvers.ransac_pnp(*args, key=prng.prng_key(7))
+    b = tsolvers.ransac_pnp(*args, key=prng.prng_key(7))
     assert torch.equal(a.T, b.T) and torch.equal(a.inliers, b.inliers) and bool(a.ok)
     np.testing.assert_allclose(a.T.numpy(), T, atol=5e-2)
-    idx = tsolvers._draw(torch.from_numpy(valid), 300, 6, torch.Generator().manual_seed(7), None)
+    idx = tsolvers._draw(torch.from_numpy(valid), 300, 6, prng.prng_key(7), None)
     assert valid[idx.numpy()].all() and idx.shape == (300, 6)
     none = tsolvers.ransac_pnp(args[0], args[1], torch.zeros_like(args[2]), K,
-                               generator=torch.Generator().manual_seed(7))
+                               key=prng.prng_key(7))
     assert not bool(none.ok) and int(none.n_inliers) == 0
+    with pytest.raises(ValueError, match="key or sample_idx"):
+        tsolvers.ransac_pnp(*args)

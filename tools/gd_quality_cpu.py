@@ -8,9 +8,10 @@ the CLI's uint8 gray + uint16 depth pipelined with commit_every 10 (so warm
 frames take each package's packed fast path), and prints as JSON: the mask
 recall and IoU against the renderer's dyn_mask per 10-frame window for each
 package (bench.py::_mask_quality's rule), the IoU of the port's masks
-against the JAX package's per frame, keyframe counts and ATE. The RANSAC
-draws differ between the packages (jax.random against torch.Generator), so
-the comparison is statistical. Takes ~10 minutes.
+against the JAX package's per frame, keyframe counts and ATE. Both draw the
+RANSAC samples under the same jax.random keys (the port's
+ops/draw_kernel.py), so the masks differ only where the flow's summation
+order moves a pixel. Takes ~10 minutes.
 """
 
 from __future__ import annotations

@@ -10,18 +10,19 @@ twice, as the determinism pair, and `seg_toy` (the toy fit run live by
 rgbd_tum). With --lr-sweep LR..., the seg_train fit (20 steps, from the
 same seeded and calibrated weights) at each learning rate, printing its
 losses and positive ROIs per step: how chip_smoke.TRAIN_LR was chosen.
-With --ab-source DIR, the `seg` and `seg_train` phases with an earlier
-version of the NMS and ROIAlign backward kernels (DIR/nms_fixed.cu and
-DIR/roi_align_backward.cu as of commit 4f0bef9) built beside the
-current ones and timed on the same recorded calls: device ms in the order
-old, new, new, old, ms through each wrapper, both exact, and what ptxas
-reports for the old ones. For iterating on the segmenter without the full
-run.
+With --ab-source DIR, the `seg` and `seg_train` phases with earlier
+versions of the detection kernels that DIR holds (nms_fixed.cu and
+roi_align_backward.cu as of commit 4f0bef9; roi_align.cu and
+paste_masks.cu as of commit 57509e6) built beside the current ones and
+timed on the same recorded calls: device ms in the order old, new, new,
+old, the device work of everything each wrapper launches, ms through each
+wrapper, both exact, and what ptxas reports for the old ones. For
+iterating on the segmenter without the full run.
 
     python3 tools/seg_smoke.py [--cli | --train | --lr-sweep 1e-3 3e-3 1e-2 2e-2]
 
-    mkdir -p build/old && for k in nms_fixed roi_align_backward; do
-        git show 4f0bef9:gdslam_tpu_torch/csrc/$k.cu > build/old/$k.cu; done
+    mkdir -p build/old && for k in roi_align paste_masks; do
+        git show 57509e6:gdslam_tpu_torch/csrc/$k.cu > build/old/$k.cu; done
     python3 tools/seg_smoke.py --ab-source build/old
 
 Prints chip_smoke.py's JSON lines for those phases; exits non-zero when a
@@ -47,8 +48,8 @@ def main() -> int:
     ap.add_argument("--lr-sweep", nargs="+", type=float, metavar="LR",
                     help="fit seg_train at each learning rate instead")
     ap.add_argument("--ab-source", metavar="DIR",
-                    help="time the earlier nms_fixed.cu and roi_align_backward.cu in DIR "
-                         "beside the current kernels in seg and seg_train")
+                    help="time the earlier detection kernels in DIR beside the current "
+                         "ones in seg and seg_train")
     opts = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
