@@ -202,6 +202,7 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import hashlib
 import json
 import os
 import shutil
@@ -762,7 +763,8 @@ def sass_mix(lib: Path, kernel: str) -> dict | None:
 
 def draw_launch(torch, dkw, key, lg, rows, fold) -> tuple:
     """(C launch function, its arguments up to the device and stream, the
-    tensors they point to) of one draw, for a CUDA graph."""
+    tensors they point to) of one draw (the variant every call site runs,
+    with no noise store), for a CUDA graph."""
     from gdslam_tpu_torch.ops import cuda_build
     lib = cuda_build.load("categorical_draw", dkw._declare)
     out = torch.empty(rows, dtype=torch.int64, device=lg.device)
@@ -771,19 +773,35 @@ def draw_launch(torch, dkw, key, lg, rows, fold) -> tuple:
                                          out.data_ptr(), None), (out,)
 
 
-def phase_draw(torch, dev) -> dict:
+def draw_bound(rows: int, n: int) -> dict:
+    """The least time the card could take for one draw of rows x n: the
+    function's operations over the H100's INT32 and FP32 rates, or its
+    bytes (the logits once, an index a row) over the memory's."""
+    ops_int, ops_f32 = rows * n * DRAW_INT_OPS, rows * n * DRAW_F32_OPS
+    t_ops = max(ops_int / INT32_OPS_PER_S, ops_f32 / F32_OPS_PER_S) * 1e3
+    nbytes = n * 4 + rows * 8
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                operations=dict(int32=ops_int, f32=ops_f32), bytes=nbytes)
+
+
+def phase_draw(torch, dev, old=None) -> dict:
     """categorical_draw against its plain twin on the card, bitwise (the
-    indices, and the Gumbel noise both write out), at DRAW_SHAPES on
-    DRAW_KEYS keys of the GD fast path (fold_in(PRNGKey(7), k), folded on
-    the card from a frame-id tensor, and the same key given as host
-    words), over logits uniform on 0%, 7%, 50% and 100% of
-    the rows; the indices also against the numpy replay prng.categorical_rows
-    (held to jax.random on the CPU) on DRAW_HOST_KEYS keys, each differing
-    row reported with the replay's score margin (a near-tie under 1e-5 is
-    an ulp of log, anything wider fails). At the GD shape: ms through the
-    wrapper, on the device alone (the C launch from a CUDA graph), the plain
-    twin's, torch.multinomial's (the call it replaces) through the host and
-    from a graph, the numpy replay's host ms, and the bound."""
+    indices of both variants, and the Gumbel noise the writing variant and
+    the twin write out), at DRAW_SHAPES on DRAW_KEYS keys of the GD fast
+    path (fold_in(PRNGKey(7), k), folded on the card from a frame-id tensor,
+    and the same key given as host words), over logits uniform on 0%, 7%,
+    50% and 100% of the rows; the indices also against the numpy replay
+    prng.categorical_rows (held to jax.random on the CPU) on DRAW_HOST_KEYS
+    keys, each differing row reported with the replay's score margin (a
+    near-tie under 1e-5 is an ulp of log, anything wider fails). At each
+    shape: ms through the wrapper, on the device alone (the C launch from a
+    CUDA graph), the plain twin's and the bound; at the GD shape
+    torch.multinomial's (the call it replaces) through the host and from a
+    graph and the numpy replay's host ms. With `old` (ParentKernels), the
+    parent's kernel beside the new one at both shapes on the GD keys
+    (ab_times)."""
     from gdslam_tpu_torch.core import prng
     from gdslam_tpu_torch.ops import draw_kernel as dkw
     from gdslam_tpu_torch.system.slam import GD_KEY
@@ -816,42 +834,73 @@ def phase_draw(torch, dev) -> dict:
         shapes.append(dict(shape=[rows, n], keys=DRAW_KEYS, index_mismatches=idx_diff,
                            noise_bits_differing=noise_diff, host_keys=DRAW_HOST_KEYS,
                            host_near_ties=near, host_mismatches=far))
-    rows, n = DRAW_SHAPES[0]
-    lg = dkw.uniform_logits(torch.ones(n, dtype=torch.bool, device=dev))
     fold = torch.full((1,), 7, dtype=torch.int64, device=dev)
-    fn, cargs, keep = draw_launch(torch, dkw, GD_KEY, lg, rows, fold)
+    timings = []
+    for rows, n in DRAW_SHAPES:
+        lg = dkw.uniform_logits(torch.ones(n, dtype=torch.bool, device=dev))
+        fn, cargs, keep = draw_launch(torch, dkw, GD_KEY, lg, rows, fold)
+        t = dict(shape=[rows, n],
+                 ms=cuda_ms(torch, lambda: dkw.categorical_draw(GD_KEY, lg, rows, fold),
+                            reps=100),
+                 device_ms=graph_ms(torch, fn, cargs),
+                 plain_ms=cuda_ms(torch, lambda: dkw.categorical_draw_plain(GD_KEY, lg, rows,
+                                                                            fold),
+                                  reps=10, windows=3),
+                 library_ms=None, library_note=DRAW_NO_LIBRARY, **draw_bound(rows, n),
+                 launches_per_call=one_launch(torch, dkw.categorical_draw,
+                                              lambda: dkw.categorical_draw(GD_KEY, lg, rows,
+                                                                           fold)))
+        del keep
+        if old is not None:
+            t["ab"] = draw_ab(torch, dkw, old, lg, rows, fold)
+        timings.append(t)
+    timing = timings[0]
+    rows, n = DRAW_SHAPES[0]
     probs = torch.ones(n, device=dev)
-    ops_int, ops_f32 = rows * n * DRAW_INT_OPS, rows * n * DRAW_F32_OPS
-    t_ops = max(ops_int / INT32_OPS_PER_S, ops_f32 / F32_OPS_PER_S) * 1e3
-    nbytes = n * 4 + rows * 8
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    before = dkw.categorical_draw.launches
-    dkw.categorical_draw(GD_KEY, lg, rows, fold)
-    one_launch = dkw.categorical_draw.launches == before + 1
     t0 = time.perf_counter()
     for _ in range(3):
         prng.gumbel(prng.fold_in(GD_KEY, 7), (rows, n))
     replay_ms = (time.perf_counter() - t0) * 1e3 / 3
-    timing = dict(
-        shape=[rows, n],
-        ms=cuda_ms(torch, lambda: dkw.categorical_draw(GD_KEY, lg, rows, fold), reps=100),
-        device_ms=graph_ms(torch, fn, cargs),
-        plain_ms=cuda_ms(torch, lambda: dkw.categorical_draw_plain(GD_KEY, lg, rows, fold),
-                         reps=10, windows=3),
+    timing.update(
         multinomial_ms=cuda_ms(torch, lambda: torch.multinomial(probs, rows, replacement=True),
                                reps=100),
         multinomial_device_ms=graph_call_ms(
             torch, lambda: torch.multinomial(probs, rows, replacement=True)),
-        numpy_replay_host_ms=replay_ms,
-        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-        operations=dict(int32=ops_int, f32=ops_f32), bytes=nbytes, library_ms=None,
-        library_note=DRAW_NO_LIBRARY, one_launch_per_call=one_launch)
-    del keep
-    res = dict(phase="draw", checks=shapes, timing=timing, card=nvidia_smi_line())
+        numpy_replay_host_ms=replay_ms)
+    res = dict(phase="draw", checks=shapes, timing=timing, timing_reloc=timings[1],
+               card=nvidia_smi_line())
     emit(res)
     if any(c["index_mismatches"] or c["noise_bits_differing"] or c["host_mismatches"]
-           for c in shapes) or not one_launch:
-        fail(f"draw: categorical_draw differs from its plain twin or the replay: {shapes}")
+           for c in shapes) or not all(t["launches_per_call"]["ok"] for t in timings):
+        fail(f"draw: categorical_draw differs from its plain twin or the replay, or a call "
+             f"is not one launch: {shapes} {[t['launches_per_call'] for t in timings]}")
+    return res
+
+
+def draw_ab(torch, dkw, old, lg, rows, fold) -> dict:
+    """The parent's draw kernel beside the new one on one call (ab_times),
+    and the indices of both on DRAW_KEYS GD keys (folded from frame-id
+    tensors) bitwise the plain twin's."""
+    from gdslam_tpu_torch.system.slam import GD_KEY
+
+    def old_launch():
+        fn, a, keep = draw_launch(torch, dkw, GD_KEY, lg, rows, fold)
+        return old.fns["categorical_draw"], old.old_args("categorical_draw", a), keep
+
+    call = lambda: dkw.categorical_draw(GD_KEY, lg, rows, fold)
+    res = ab_times(torch, old_launch, lambda: draw_launch(torch, dkw, GD_KEY, lg, rows, fold),
+                   lambda: old.call(call), call,
+                   dkw.categorical_draw_plain(GD_KEY, lg, rows, fold))
+    diff = 0
+    for k in range(DRAW_KEYS):
+        fk = torch.full((1,), k, dtype=torch.int64, device=lg.device)
+        want = dkw.categorical_draw_plain(GD_KEY, lg, rows, fk)
+        got = (old.call(lambda: dkw.categorical_draw(GD_KEY, lg, rows, fk)),
+               dkw.categorical_draw(GD_KEY, lg, rows, fk))
+        diff += sum(int((g != want).sum()) for g in got)
+    res["keys"], res["index_mismatches_old_and_new"] = DRAW_KEYS, diff
+    if diff:
+        fail(f"ab: a draw kernel differs from its plain twin on the GD keys: {diff}")
     return res
 
 
@@ -2743,15 +2792,40 @@ def time_detect(torch, dk, name, a, k) -> dict:
     return out
 
 
+def graph_kernels(torch, fn) -> int:
+    """The kernels one call of fn launches: the call captured into a CUDA
+    graph (after a warm-up call), its kernel nodes counted through the
+    driver. Exact, where a short torch.profiler window can miss a session's
+    first kernels."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    drv = ctypes.CDLL("libcuda.so.1")
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    if drv.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    drv.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    del g
+    return sum(k == 0 for k in kinds)        # CU_GRAPH_NODE_TYPE_KERNEL
+
+
 def one_launch(torch, wrapper, fn) -> dict:
-    """One wrapper call: its launch count's step and the device operations
-    the profiler sees (one kernel, no small PyTorch ops)."""
+    """One wrapper call: its launch count's step and the kernels it launches
+    (graph_kernels: one kernel, no small PyTorch ops)."""
     before = wrapper.launches
     fn()
     torch.cuda.synchronize()
     step = wrapper.launches - before
-    ops = profile_window(torch, fn, 1)["device_ops"]
-    return dict(count_step=step, device_ops=ops, ok=step == 1 and ops == 1)
+    kernels = graph_kernels(torch, fn)
+    return dict(count_step=step, kernels=kernels, ok=step == 1 and kernels == 1)
 
 
 def check_detect_edges(torch, dk, roi_calls, dev) -> dict:
@@ -2761,8 +2835,7 @@ def check_detect_edges(torch, dk, roi_calls, dev) -> dict:
     gradient bitwise against roi_align_plain and roi_prologue; the paste on
     paste_adversarial_det (3 seeds, 32 detections, with and without the
     class test) bitwise against paste_masks_plain and the tile-list mirror;
-    each wrapper one launch a call (its count, the profiler's device
-    operations)."""
+    each wrapper one launch a call (its count, graph_kernels)."""
     from gdslam_tpu_torch.ops.detect_cases import paste_adversarial_det, roi_boundary_boxes
     out = dict(roi_align=[], paste_masks=[])
     flat, shapes = roi_calls[0][0], roi_calls[0][1]
@@ -3106,6 +3179,40 @@ def backward_launch(torch, dk, grad, shapes, boxes) -> tuple:
                                           out.data_ptr()), (out, *pro)
 
 
+def build_parent_sources(src_dir: Path, sigs: dict) -> tuple[dict, dict]:
+    """Build the earlier kernel sources `src_dir` holds, whichever of sigs'
+    names ({name: its C entry point's argument kinds, p/i/f/u}) it has, with
+    the current flags, every nvcc started at once: (ptxas, fns), what ptxas
+    reports for each and its `<name>_launch` entry point loaded by ctypes."""
+    from gdslam_tpu_torch.ops import cuda_build
+    flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    procs = {}
+    for n in sigs:
+        if not (src_dir / f"{n}.cu").exists():
+            continue
+        src, nvcc = str(src_dir / f"{n}.cu"), cuda_build.nvcc(n)
+        procs[n] = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True)
+                    for cmd in ([nvcc, *cuda_build.NVCC_FLAGS, "-o",
+                                 str(src_dir / f"lib{n}_old.so"), src],
+                                [nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o",
+                                 str(src_dir / f"{n}_old.cubin"), src])]
+    if not procs:
+        fail(f"ab: none of {sorted(sigs)} has an earlier source in {src_dir}")
+    kinds = dict(p=ctypes.c_void_p, i=ctypes.c_int, f=ctypes.c_float, u=ctypes.c_uint)
+    ptxas, fns = {}, {}
+    for n, (so, report) in procs.items():
+        errs = [proc.communicate(timeout=600)[1] for proc in (so, report)]
+        if so.returncode or report.returncode:
+            fail(f"ab: the parent's {n} did not build:\n{errs[0]}{errs[1]}")
+        ptxas[n] = [ln.strip() for ln in errs[1].splitlines() if "Used" in ln or "spill" in ln]
+        fn = getattr(ctypes.CDLL(str(src_dir / f"lib{n}_old.so")), f"{n}_launch")
+        fn.argtypes = [kinds[c] for c in sigs[n].replace(" ", "")]
+        fn.restype = ctypes.c_int
+        fns[n] = fn
+    return ptxas, fns
+
+
 class OldDetectKernels:
     """Earlier versions of the detection kernels, whichever of nms_fixed.cu,
     roi_align_backward.cu (as of commit 4f0bef9: one CTA of greedy steps;
@@ -3122,34 +3229,8 @@ class OldDetectKernels:
             "roi_align": "pi ppppp ii p i p", "paste_masks": "ppp iii f p i p"}
 
     def __init__(self, torch, dk, src_dir: Path):
-        from gdslam_tpu_torch.ops import cuda_build
         self.torch, self.dk = torch, dk
-        flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-        procs = {}
-        for n in self.SIGS:
-            if not (src_dir / f"{n}.cu").exists():
-                continue
-            src, nvcc = str(src_dir / f"{n}.cu"), cuda_build.nvcc(n)
-            procs[n] = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                         text=True)
-                        for cmd in ([nvcc, *cuda_build.NVCC_FLAGS, "-o",
-                                     str(src_dir / f"lib{n}_old.so"), src],
-                                    [nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o",
-                                     str(src_dir / f"{n}_old.cubin"), src])]
-        if not procs:
-            fail(f"ab: no earlier kernel source in {src_dir}")
-        self.ptxas, self.fns = {}, {}
-        kinds = dict(p=ctypes.c_void_p, i=ctypes.c_int, f=ctypes.c_float)
-        for n, (so, report) in procs.items():
-            errs = [proc.communicate(timeout=600)[1] for proc in (so, report)]
-            if so.returncode or report.returncode:
-                fail(f"ab: the parent's {n} did not build:\n{errs[0]}{errs[1]}")
-            self.ptxas[n] = [ln.strip() for ln in errs[1].splitlines()
-                             if "Used" in ln or "spill" in ln]
-            fn = getattr(ctypes.CDLL(str(src_dir / f"lib{n}_old.so")), f"{n}_launch")
-            fn.argtypes = [kinds[c] for c in self.SIGS[n].replace(" ", "")]
-            fn.restype = ctypes.c_int
-            self.fns[n] = fn
+        self.ptxas, self.fns = build_parent_sources(src_dir, self.SIGS)
 
     def has(self, name: str) -> bool:
         return name in self.fns
@@ -3196,6 +3277,47 @@ class OldDetectKernels:
         fn, args, keep = self.launch(name, *a)
         self._run(fn, args)
         return keep[0]
+
+
+class ParentKernels:
+    """Earlier versions of stereo_match.cu and categorical_draw.cu (as of
+    commit 6b10eba: one warp per left keypoint striding over every right
+    keypoint, lanes 0-10 summing the SADs from device memory; one warp a
+    row, four rows a CTA), whichever `src_dir` holds, built there with the
+    same flags, behind the current wrappers: inside `call`, cuda_build's
+    cache holds them in place of the current libraries, each C entry point
+    taking the arguments its earlier version took (old_args drops the new
+    ones: stereo's bucket rows and scratch). So the wrappers, their counts
+    and every caller run unchanged on the parents' kernels. `ptxas` holds
+    what ptxas reports for each."""
+
+    SIGS = {"stereo_match": "ppppippppipppiiffppip", "categorical_draw": "piiuupppip"}
+    NEW_ARGS = {"stereo_match": (17, 19)}
+
+    def __init__(self, torch, src_dir: Path):
+        self.ptxas, self.fns = build_parent_sources(src_dir, self.SIGS)
+
+    def old_args(self, name: str, a: tuple) -> tuple:
+        """A current launch's arguments (device and stream included or not)
+        as the earlier entry point takes them."""
+        lo, hi = self.NEW_ARGS.get(name, (0, 0))
+        return tuple(a[:lo]) + tuple(a[hi:])
+
+    def call(self, fn):
+        """fn() with the parents' kernels behind the wrappers."""
+        from gdslam_tpu_torch.ops import cuda_build
+        saved = {n: cuda_build._libs.get(n) for n in self.fns}
+        for n, old in self.fns.items():
+            cuda_build._libs[n] = type("ParentLibrary", (), {
+                f"{n}_launch": staticmethod(lambda *a, n=n, old=old: old(*self.old_args(n, a)))})
+        try:
+            return fn()
+        finally:
+            for n, lib in saved.items():
+                if lib is None:
+                    cuda_build._libs.pop(n, None)
+                else:
+                    cuda_build._libs[n] = lib
 
 
 def graph_call_ms(torch, fn, calls: int = 10) -> float:
@@ -3650,20 +3772,30 @@ def stereo_launch(torch, stereo, args) -> tuple:
     luv, llv, ldesc, lval, ruv, rlv, rdesc, rval, bf, min_z, il, ir, scale = args
     band = stereo.band_table(scale, luv.device)
     out = torch.empty(2, luv.shape[0], device=luv.device)
+    rows = stereo.bucket_rows(il.shape[0])
+    scratch = stereo._scratch(ruv.shape[0], rows, luv.device)
     cargs = (luv.data_ptr(), llv.data_ptr(), ldesc.data_ptr(), lval.data_ptr(), luv.shape[0],
              ruv.data_ptr(), rlv.data_ptr(), rdesc.data_ptr(), rval.data_ptr(), ruv.shape[0],
              band.data_ptr(), il.data_ptr(), ir.data_ptr(), il.shape[0], il.shape[1],
-             float(np.float32(bf)), float(np.float32(bf / min_z)), out[0].data_ptr(),
-             out[1].data_ptr())
-    return lib.stereo_match_launch, cargs, (out, band)
+             float(np.float32(bf)), float(np.float32(bf / min_z)), rows, scratch.data_ptr(),
+             out[0].data_ptr(), out[1].data_ptr())
+    return lib.stereo_match_launch, cargs, (out, band, scratch)
 
 
-def check_stereo_kernel(torch, stereo, extractor, cfg, views: dict) -> list:
+def stereo_out(result):
+    """stereo_match's (ur, depth) on the card as the one [2, N] tensor they
+    are rows of (no copy, so a graph of the call holds only its launches)."""
+    return result[0]._base
+
+
+def check_stereo_kernel(torch, stereo, extractor, cfg, views: dict, old=None) -> list:
     """The kernel against its plain twin at the full shape on each pair of
     `views` ({label: (left, right) float gray on the card}): features
     extracted on the card, ur and depth bit for bit; on the first pair its
-    ms through the wrapper, from a CUDA graph, the plain twin's and the
-    bound."""
+    ms through the wrapper, from a CUDA graph, the plain twin's, the
+    launches a call (the wrapper's count and graph_kernels) and the bound.
+    With `old` (ParentKernels), the parent's kernel beside the new one on
+    each pair (ab_times)."""
     cam, out = cfg.camera, []
     for label, (gl, gr) in views.items():
         A, B = (extractor.extract(g, cfg.orb, cam.height, cam.width) for g in (gl, gr))
@@ -3682,13 +3814,29 @@ def check_stereo_kernel(torch, stereo, extractor, cfg, views: dict) -> list:
             fail(f"stereo: the kernel differs from its plain twin on the {label} pair: {rec}")
         if not out:
             fn, cargs, keep = stereo_launch(torch, stereo, args)
+            before = stereo.stereo_match.launches
+            stereo.stereo_match(*args)
+            count = stereo.stereo_match.launches - before
+            kernels = graph_kernels(torch, lambda: stereo.stereo_match(*args))
             rec.update(ms=cuda_ms(torch, lambda: stereo.stereo_match(*args), reps=100),
-                       device_ms=graph_ms(torch, fn, cargs),
+                       device_ms=graph_ms(torch, fn, cargs), count_per_call=count,
+                       cuda_launches_per_call=kernels,
                        plain_ms=cuda_ms(torch, lambda: stereo.stereo_match_plain(*args), reps=5,
                                         windows=3),
                        library_ms=None, library_note=STEREO_NO_LIBRARY,
                        **stereo_bound(torch, stereo, args, cam.height, cam.width))
             del keep
+            if count != 1 or not 1 <= kernels <= 2:
+                fail(f"stereo: a call counted {count} and launched {kernels} kernels (1 or 2)")
+        if old is not None:
+            call = lambda: stereo_out(stereo.stereo_match(*args))
+
+            def old_launch():
+                fn, a, keep = stereo_launch(torch, stereo, args)
+                return old.fns["stereo_match"], old.old_args("stereo_match", a), keep
+
+            rec["ab"] = ab_times(torch, old_launch, lambda: stereo_launch(torch, stereo, args),
+                                 lambda: old.call(call), call, torch.stack(want))
         out.append(rec)
     return out
 
@@ -3712,7 +3860,26 @@ def top2_call_sites(torch, mk, calls, role: str) -> list:
     return sites
 
 
-def phase_stereo(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
+def stereo_kitti_run(torch, mk, mods, argv, out_dir: Path) -> tuple:
+    """cli/stereo_kitti.py in-process with `argv`, writing into out_dir, its
+    stereo_match and match_top2 counts set to 0 just before: (depths a
+    frame, the System, the recorded match_top2 calls, the driver's text,
+    seconds)."""
+    stereo, matcher, slam_mod, stereo_kitti = mods[0], mods[1], mods[2], mods[8]
+    depths, systems, box = [], [], []
+    reset_launch_counts(mk)
+    stereo.stereo_match.launches = 0
+    with spy(stereo, "stereo_match", lambda a, k, o: depths.append(o[1])), \
+            spy(slam_mod.System, "shutdown", lambda a, k, o: systems.append(a[0])):
+        calls = record_top2_calls(matcher, lambda: box.append(
+            run_cli(stereo_kitti.main, argv, out_dir)))
+    rc, text, sec = box[0]
+    if rc != 0:
+        fail(f"stereo: stereo_kitti returned {rc}: {text[-2000:]}")
+    return depths, systems[0], calls, text, sec
+
+
+def phase_stereo(torch, mk, cfg, dev, mods, old=None) -> tuple[dict, dict]:
     """The stereo tracker as a user runs it: 60 rendered pairs at KITTI's
     settings (KITTI00-02.yaml: 1241 x 376, 2000 features, 8 levels) written as
     a KITTI layout of 8-bit PNGs under build/, then cli/stereo_kitti.py
@@ -3733,17 +3900,7 @@ def phase_stereo(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
     argv = ["none", str(seq / "settings.yaml"), str(seq), "--device", dev]
 
     def run(label):
-        depths, systems, box = [], [], []
-        reset_launch_counts(mk)
-        stereo.stereo_match.launches = 0
-        with spy(stereo, "stereo_match", lambda a, k, o: depths.append(o[1])), \
-                spy(slam_mod.System, "shutdown", lambda a, k, o: systems.append(a[0])):
-            calls = record_top2_calls(matcher, lambda: box.append(
-                run_cli(stereo_kitti.main, argv, base / label)))
-        rc, text, sec = box[0]
-        if rc != 0:
-            fail(f"stereo: stereo_kitti returned {rc}: {text[-2000:]}")
-        return depths, systems[0], calls, text, sec
+        return stereo_kitti_run(torch, mk, mods, argv, base / label)
 
     depths, slam, calls, text, run_s = run("run")
     launches = dict(stereo_match=stereo.stereo_match.launches,
@@ -3783,7 +3940,9 @@ def phase_stereo(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
                    for P in (T, T @ shift.to(dev)))
     res["kernel"] = check_stereo_kernel(
         torch, stereo, extractor, scfg,
-        {"png": tuple(torch.from_numpy(x).to(dev) for x in (left, right)), "float": floats})
+        {"png": tuple(torch.from_numpy(x).to(dev) for x in (left, right)), "float": floats},
+        old)
+    res["kernel"][0].update(launch_floor(torch, mk))
     res["match_top2_call_sites"] = top2_call_sites(torch, mk, calls, "stereo_tracker")
 
     # one profiled window: 5 frames past 5 of warm-up, on a fresh system
@@ -3807,6 +3966,68 @@ def phase_stereo(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
                     again[1].tracker.arena.kf_pose.cpu().numpy())))
     shutil.rmtree(base)
     return res, same
+
+
+def phase_ab_quality(torch, mk, cfg, dev, stereo_mods, gd_run, old) -> dict:
+    """The parents' stereo_match and categorical_draw kernels (ParentKernels)
+    and the new ones on the same end-to-end runs, in the order parent, new,
+    new, parent: the stereo phase's driver run (stereo_kitti on
+    STEREO_FRAMES PNG pairs: ATE, stereo points a frame, keyframes, the
+    trajectory file; its frame times) and gd_slice (gd_run(): ATE, mask
+    recall and IoU, keyframes, draws; its frame time). The card is
+    bit-reproducible and both kernels equal their unchanged plain twins bit
+    for bit, so every number but the times must be the same in all four
+    runs; a difference fails. The times of both sides in one process say
+    how far the host's load moves a frame."""
+    stereo, png, synthetic, metrics = (stereo_mods[0], stereo_mods[4], stereo_mods[5],
+                                       stereo_mods[6])
+    scfg = kitti_config(cfg)
+    base = Path(tempfile.mkdtemp(prefix="stereo_ab_", dir=ROOT / "build"))
+    seq = base / "seq"
+    gts, _ = write_kitti_sequence(torch, scfg, STEREO_FRAMES, seq, png, synthetic, dev)
+    argv = ["none", str(seq / "settings.yaml"), str(seq), "--device", dev]
+    order = [("parent", old.call), ("new", lambda f: f()), ("new", lambda f: f()),
+             ("parent", old.call)]
+    times = ("run_s", "frame_ms_median", "frame_ms_mean", "frame_ms")
+    st, gd = {"parent": [], "new": []}, {"parent": [], "new": []}
+    for k, (label, wrap) in enumerate(order):
+        depths, slam, _, text, sec = wrap(lambda: stereo_kitti_run(
+            torch, mk, stereo_mods, argv, base / f"{label}{k}"))
+        traj = base / f"{label}{k}" / "CameraTrajectory.txt"
+        ate, n_rows = kitti_rows_ate(traj, gts, metrics)
+        st[label].append(dict(
+            ate_m=ate, poses=n_rows, keyframes=slam.keyframe_count,
+            stereo_points=[int((d > 0).sum()) for d in depths],
+            stereo_match_calls=stereo.stereo_match.launches, run_s=sec,
+            frame_ms_median=1e3 * float(text.split("median tracking time:")[1].split()[0]),
+            frame_ms_mean=1e3 * float(text.split("mean tracking time:")[1].split()[0]),
+            trajectory_sha1=hashlib.sha1(traj.read_bytes()).hexdigest()))
+    for label, wrap in order:
+        g = wrap(gd_run)
+        gd[label].append({k: g[k] for k in ("ate_m", "ate_bench_m", "mask_recall", "mask_iou",
+                                            "keyframes", "map_points",
+                                            "categorical_draw_launches", "frame_ms")})
+    shutil.rmtree(base)
+    same = {}
+    for name, runs in (("stereo", st), ("gd_slice", gd)):
+        first = runs["parent"][0]
+        same[name] = all(r[k] == first[k] for side in runs.values() for r in side
+                         for k in first if k not in times)
+    res = dict(phase="ab_quality", order=[label for label, _ in order],
+               stereo={label: dict({k: v for k, v in runs[0].items() if k not in times
+                                    and k != "stereo_points"},
+                                   stereo_points_per_frame=float(np.mean(runs[0]["stereo_points"])),
+                                   **{k: [r[k] for r in runs] for k in times if k in runs[0]})
+                       for label, runs in st.items()},
+               gd_slice={label: dict({k: v for k, v in runs[0].items() if k not in times},
+                                     frame_ms=[r["frame_ms"] for r in runs])
+                         for label, runs in gd.items()},
+               stereo_equal=same["stereo"], gd_slice_equal=same["gd_slice"],
+               card=nvidia_smi_line())
+    emit(res)
+    if not all(same.values()):
+        fail("ab_quality: the parent's and the new kernels gave different results")
+    return res
 
 
 def phase_mono(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
@@ -4349,6 +4570,11 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "ms": sk["ms"], "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
         "bound_by": sk["bound_by"], "library_ms": None, "library_note": STEREO_NO_LIBRARY,
         "device_ms": sk["device_ms"], "bound_all_pairs_ms": sk["bound_all_pairs_ms"],
+        "cuda_launches_per_call": sk["cuda_launches_per_call"],
+        "launch_floor_device_ms": [sk["launch_floor_device_ms_1"],
+                                   sk["launch_floor_device_ms_2"]],
+        "redesigned": "row buckets (a counting sort by row), the band walk, the SAD on "
+                      "all 32 lanes",
         "shape": sk["shape"], "exact_on": [k["images"] for k in stres["kernel"]]})
     dt = drawres["timing"]
     detect_lines.append({
@@ -4367,7 +4593,11 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "bound_by": dt["bound_by"], "library_ms": None, "library_note": DRAW_NO_LIBRARY,
         "device_ms": dt["device_ms"], "multinomial_ms": dt["multinomial_ms"],
         "multinomial_device_ms": dt["multinomial_device_ms"],
-        "numpy_replay_host_ms": dt["numpy_replay_host_ms"], "shape": dt["shape"]})
+        "numpy_replay_host_ms": dt["numpy_replay_host_ms"], "shape": dt["shape"],
+        "reloc_shape": {k: drawres["timing_reloc"][k] for k in (
+            "shape", "ms", "device_ms", "plain_ms", "bound_ms")},
+        "redesigned": "a CTA a row over 4 warps, two hash chains a thread, the "
+                      "noise store in its own variant"})
     top2_sites = path_calls + loop_calls + stres["match_top2_call_sites"] + \
         mores["bootstrap_match"]["call_sites"]
     emit(dict(phase="phase_seconds", seconds=dict(PHASE_SECONDS),

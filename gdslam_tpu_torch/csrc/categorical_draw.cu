@@ -28,10 +28,24 @@
 // 900 x 1500 ~1.04e8 integer operations, ~6.2 us on the INT32 lanes (132
 // SMs x 64 lanes x 1.98 GHz). Bytes are negligible (the logits once, 8
 // bytes a row).
-// Design: one warp per row, ROWS_PER_CTA rows per CTA sharing the logits
-// staged once in shared memory; each lane strides over j keeping its
-// running (score, index), then a shuffle argmax on all 32 lanes (no shuffle
-// under a divergent condition).
+//
+// Design. One CTA a row, its columns split over WARPS = 4 warps (16 such
+// CTAs fit an SM, so 900 rows and 1800 rows each run in one wave, 27-55
+// warps an SM hide the hash chains' latency, and the SMs' loads differ by
+// one row at most; on an H100 4 warps took 10.3 and 17.7 us at 900 and 1800
+// rows, 8 warps 10.4 and 19.1, 16 warps 11.6 and 21.9, all from CUDA
+// graphs, PERF.md), the logits staged
+// once a CTA in shared memory (read from device memory past MAX_STAGED).
+// The folded key is hashed once a CTA by its first warp. Each thread walks
+// its columns two at a time (two independent hash chains in flight), the
+// flat index a 64-bit counter advanced by the CTA's width (an add with an
+// exact carry into the high word), keeping its running (score, index);
+// then a shuffle argmax in each warp (every lane shuffles, then compares)
+// and the warps' pairs combined in shared memory by the same total order,
+// so the result does not depend on which warp holds which column. Two
+// variants from one template: the one every call site launches stores
+// nothing but the index; the one that also writes the noise (for the
+// comparison with the twin) shares the same `gumbel`.
 
 #include <cuda_runtime.h>
 
@@ -39,9 +53,9 @@
 
 namespace {
 
-constexpr int ROWS_PER_CTA = 4;
-constexpr int THREADS = 32 * ROWS_PER_CTA;
-constexpr int MAX_STAGED = 12288;             // logits staged in 48 KB of shared memory
+constexpr int MAX_STAGED = 12000;             // logits staged in 47 KB of shared memory
+constexpr int WARPS = 4;                      // the warps of a row's CTA
+constexpr int T = WARPS * 32;                 // its threads
 
 struct DeviceGuard {                          // the launch goes to `device`
   int prev = -1;
@@ -81,62 +95,81 @@ __device__ __forceinline__ bool beats(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-__global__ void __launch_bounds__(THREADS)
-categorical_kernel(const float* __restrict__ logits, int n, int rows,
-                   uint32_t k0, uint32_t k1,
+template <bool WRITE_NOISE>
+__global__ void __launch_bounds__(T, 2048 / T)
+categorical_kernel(const float* __restrict__ logits, int n, uint32_t k0, uint32_t k1,
                    const long long* __restrict__ fold, long long* __restrict__ out,
                    float* __restrict__ noise) {
   extern __shared__ float s_logits[];
+  __shared__ uint32_t s_key[2];
+  __shared__ float s_best[WARPS];
+  __shared__ int s_arg[WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool staged = n <= MAX_STAGED;
   if (staged)
-    for (int j = threadIdx.x; j < n; j += THREADS) s_logits[j] = logits[j];
-  if (fold != nullptr) {
+    for (int j = tid; j < n; j += T) s_logits[j] = logits[j];
+  if (fold != nullptr && warp == 0) {         // the folded key, once a CTA
     uint32_t a = 0u, b = static_cast<uint32_t>(fold[0]);
     threefry(k0, k1, a, b);
-    k0 = a;
-    k1 = b;
+    if (lane == 0) { s_key[0] = a; s_key[1] = b; }
   }
   __syncthreads();
+  if (fold != nullptr) { k0 = s_key[0]; k1 = s_key[1]; }
   const float* lg = staged ? s_logits : logits;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * ROWS_PER_CTA + (threadIdx.x >> 5);
+
   float best = -INFINITY;
   int arg = n;                                // beaten by any element, -inf included
-  if (row < rows) {
-    const unsigned long long base = static_cast<unsigned long long>(row) * n;
-#pragma unroll 4
-    for (int j = lane; j < n; j += 32) {
-      const float g = gumbel(k0, k1, base + j);
-      if (noise != nullptr) noise[base + j] = g;
-      const float v = g + lg[j];
-      if (beats(v, j, best, arg)) { best = v; arg = j; }
-    }
+  unsigned long long f = static_cast<unsigned long long>(blockIdx.x) * n + tid;   // row * n + j
+  int j = tid;
+  for (; j + T < n; j += 2 * T, f += 2 * T) { // two columns, two hash chains
+    const float g0 = gumbel(k0, k1, f), g1 = gumbel(k0, k1, f + T);
+    if constexpr (WRITE_NOISE) { noise[f] = g0; noise[f + T] = g1; }
+    const float v0 = g0 + lg[j], v1 = g1 + lg[j + T];
+    if (beats(v0, j, best, arg)) { best = v0; arg = j; }
+    if (beats(v1, j + T, best, arg)) { best = v1; arg = j + T; }
+  }
+  if (j < n) {
+    const float g = gumbel(k0, k1, f);
+    if constexpr (WRITE_NOISE) noise[f] = g;
+    const float v = g + lg[j];
+    if (beats(v, j, best, arg)) { best = v; arg = j; }
   }
   for (int s = 16; s > 0; s >>= 1) {          // every lane shuffles, then compares
     const float ov = __shfl_xor_sync(0xFFFFFFFFu, best, s);
     const int oi = __shfl_xor_sync(0xFFFFFFFFu, arg, s);
     if (beats(ov, oi, best, arg)) { best = ov; arg = oi; }
   }
-  if (row < rows && lane == 0) out[row] = arg;
+  if (lane == 0) { s_best[warp] = best; s_arg[warp] = arg; }
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w)
+      if (beats(s_best[w], s_arg[w], best, arg)) { best = s_best[w]; arg = s_arg[w]; }
+    out[blockIdx.x] = arg;
+  }
 }
 
 }  // namespace
 
 // logits [n] f32 (finite or -inf); k0, k1: the key's words; fold: [1]
-// int64 on the device or null; out
-// [rows] int64; noise: [rows, n] f32 or null, the Gumbel noise written out
-// (for the comparison with the plain twin).
+// int64 on the device or null; out [rows] int64; noise: [rows, n] f32 or
+// null, the Gumbel noise written out (for the comparison with the plain
+// twin; null launches the variant that stores nothing else).
 extern "C" int categorical_draw_launch(const void* logits, int n, int rows, unsigned k0,
-                                       unsigned k1, const void* fold, void* out,
-                                       void* noise, int device, void* stream) {
+                                       unsigned k1, const void* fold, void* out, void* noise,
+                                       int device, void* stream) {
   if (n < 1 || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return static_cast<int>(cudaSuccess);
   DeviceGuard guard(device);
   const size_t smem = n <= MAX_STAGED ? static_cast<size_t>(n) * sizeof(float) : 0;
-  const int blocks = (rows + ROWS_PER_CTA - 1) / ROWS_PER_CTA;
-  categorical_kernel<<<blocks, THREADS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), n, rows, k0, k1,
-      static_cast<const long long*>(fold), static_cast<long long*>(out),
-      static_cast<float*>(noise));
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const float* lg = static_cast<const float*>(logits);
+  const long long* fd = static_cast<const long long*>(fold);
+  long long* o = static_cast<long long*>(out);
+  float* nz = static_cast<float*>(noise);
+  if (nz != nullptr)
+    categorical_kernel<true><<<rows, T, smem, st>>>(lg, n, k0, k1, fd, o, nz);
+  else
+    categorical_kernel<false><<<rows, T, smem, st>>>(lg, n, k0, k1, fd, o, nullptr);
   return static_cast<int>(cudaGetLastError());
 }

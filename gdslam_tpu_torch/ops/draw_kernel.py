@@ -20,10 +20,12 @@ hash and no wait for the card.
 
 `categorical_draw` takes the plain version only for tensors on the CPU;
 for a CUDA tensor it launches the kernel or raises, and counts its
-launches in `categorical_draw.launches`. On the card both routes take the
-CUDA library's logf (torch.log's), so the kernel's noise equals the twin's
-bit for bit; on the CPU torch.log may differ from XLA's log by an ulp,
-which moves no draw but a near-tie.
+launches in `categorical_draw.launches`. The kernel takes a row per CTA,
+its columns split over 4 warps; a call without `noise` runs the variant
+that stores only the indices. On the card both routes take the CUDA
+library's logf (torch.log's), so the kernel's noise equals the twin's bit
+for bit; on the CPU torch.log may differ from XLA's log by an ulp, which
+moves no draw but a near-tie.
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ from gdslam_tpu_torch.io import synthetic
 from gdslam_tpu_torch.masking import geomask, geometry
 from gdslam_tpu_torch.models import maskrcnn
 from gdslam_tpu_torch.ops import detect_cases, detect_kernels, match_kernel
-from gdslam_tpu_torch.ops import draw_kernel
+from gdslam_tpu_torch.ops import draw_kernel, stereo_cases
+from gdslam_tpu_torch.ops.stereo_cases import stereo_inputs
 from gdslam_tpu_torch.system import slam as slam_mod
 from gdslam_tpu_torch.system import tracking
 from gdslam_tpu_torch.system.slam import System
@@ -973,32 +974,6 @@ def test_train_sampled_step_on_card_equals_cpu(card):
 # The stereo matcher kernel (ops/stereo.py) and the mono bootstrap's match
 # ----------------------------------------------------------------------------
 
-def stereo_inputs(seed: int, N: int, M: int, H: int = 376, W: int = 1241,
-                  integer: bool = True) -> dict:
-    """A seeded pair at KITTI's size: 70% of the left keypoints have a right
-    twin at a disparity of 1-200 px, 0-2 px off their row, a level apart at
-    most and a descriptor a few bits off; the rest and the images random."""
-    r = np.random.default_rng(seed)
-    d = dict(left_uv=np.stack([r.uniform(0, W, N), r.uniform(0, H, N)], 1).astype(np.float32),
-             left_level=r.integers(0, 8, N).astype(np.int32),
-             left_desc=r.integers(0, 256, (N, 32)).astype(np.uint8),
-             left_valid=r.uniform(size=N) > 0.05,
-             right_uv=np.stack([r.uniform(0, W, M), r.uniform(0, H, M)], 1).astype(np.float32),
-             right_level=r.integers(0, 8, M).astype(np.int32),
-             right_desc=r.integers(0, 256, (M, 32)).astype(np.uint8),
-             right_valid=r.uniform(size=M) > 0.05)
-    k = min(int(0.7 * N), M)
-    src, dst = r.permutation(N)[:k], r.permutation(M)[:k]
-    d["right_uv"][dst] = d["left_uv"][src] - np.stack([r.uniform(1, 200, k),
-                                                       r.normal(0, 1, k)], 1)
-    d["right_level"][dst] = np.clip(d["left_level"][src] + r.integers(-1, 2, k), 0, 7)
-    flips = (1 << r.integers(0, 8, (k, 32))) * (r.uniform(size=(k, 32)) < 0.06)
-    d["right_desc"][dst] = d["left_desc"][src] ^ flips.astype(np.uint8)
-    img = r.uniform(0, 255, (2, H, W))
-    d["img_left"], d["img_right"] = (np.round(img) if integer else img).astype(np.float32)
-    return d
-
-
 STEREO_ARGS = ("left_uv", "left_level", "left_desc", "left_valid",
                "right_uv", "right_level", "right_desc", "right_valid")
 
@@ -1010,13 +985,22 @@ def _stereo_call(fn, d, dev, images=True):
 
 
 @pytest.mark.parametrize("case", ["integer", "float", "no_images", "all_invalid_right",
-                                  "empty_right"])
+                                  "empty_right", *stereo_cases.CASES])
 def test_stereo_kernel_equals_plain(card, case):
     """At KITTI's 2000 x 2000 (1241 x 376 images): ur and depth bit for bit
-    against the plain twin on the CPU and on the card, one launch a call."""
+    against the plain twin on the CPU and on the card, one count a call; on
+    seeded keypoints and on the bucket edges of stereo_cases (a hot bucket,
+    the band's edge at each level, rows at and past the borders, Hamming
+    ties across buckets, 1997 left keypoints, 3000 right keypoints past the
+    one-pass build), the buckets built in every CTA, and past a block's
+    shared memory (6000 right keypoints, and the first four edges again at
+    6000: the `_wide` cases), where a first launch builds them."""
     from gdslam_tpu_torch.ops import stereo
-    d = stereo_inputs(7, 2000, 0 if case == "empty_right" else 2000,
-                      integer=case != "float")
+    if case in stereo_cases.CASES:
+        d = stereo_cases.stereo_edge_inputs(case)
+    else:
+        d = stereo_inputs(7, 2000, 0 if case == "empty_right" else 2000,
+                          integer=case != "float")
     if case == "all_invalid_right":
         d["right_valid"][:] = False
     images = case != "no_images"
@@ -1030,6 +1014,30 @@ def test_stereo_kernel_equals_plain(card, case):
             assert torch.equal(g.cpu(), w.cpu()), dev
     n_ok = int((got[1] > 0).sum())
     assert n_ok == 0 if case in ("all_invalid_right", "empty_right") else n_ok > 500
+
+
+@pytest.mark.parametrize("case", ["random", *stereo_cases.CASES])
+def test_stereo_row_buckets_equal_plain(card, case):
+    """The kernel's bucket launch (the first of the two that stereo_match
+    makes past a block's shared memory) against row_buckets_plain: the same offsets, and the same right keypoints in
+    each bucket as sets (the order inside a bucket follows the atomics), at
+    the image's 376 rows and at the 4096 rows taken with no images."""
+    from gdslam_tpu_torch.ops import stereo
+    d = (stereo_inputs(7, 2000, 2000) if case == "random"
+         else stereo_cases.stereo_edge_inputs(case))
+    uv, lv, desc, val = (torch.from_numpy(np.array(d[k])) for k in (
+        "right_uv", "right_level", "right_desc", "right_valid"))
+    for rows in (stereo.bucket_rows(stereo_cases.H), stereo.bucket_rows(0)):
+        want_order, want_off = stereo.row_buckets_plain(uv, val, rows)
+        before = stereo.row_buckets.launches
+        order, off = stereo.row_buckets(uv.to(card), lv.to(card), desc.to(card), val.to(card),
+                                        rows)
+        assert stereo.row_buckets.launches == before + 1
+        assert torch.equal(off.cpu(), want_off)
+        order = order.cpu()
+        for b in torch.nonzero(want_off[1:] > want_off[:-1])[:, 0].tolist():
+            a, e = int(want_off[b]), int(want_off[b + 1])
+            assert torch.equal(torch.sort(order[a:e]).values, torch.sort(want_order[a:e]).values)
 
 
 def test_stereo_kernel_on_a_rendered_pair(card):
@@ -1134,20 +1142,28 @@ def test_bootstrap_helpers_on_card_equal_cpu(card):
                            prng.categorical_rows(key, draw_kernel.uniform_logits(valid), 1600))
 
 
-@pytest.mark.parametrize("rows, n", [(900, 1500), (1800, 1500), (800, 37), (3, 20000)])
+@pytest.mark.parametrize("rows, n", [
+    (900, 1500), (1800, 1500), (800, 37), (3, 20000), (1, 1), (900, 129), (900, 257),
+    (40, 12000), (40, 12001)])
 def test_categorical_draw_kernel_equals_plain(card, rows, n):
     """The draw kernel against its plain twin on the card, bitwise: the
-    Gumbel noise both write out and the indices, over logits uniform on
-    none, some and all rows and with -inf entries, the key as host words
-    and folded from a frame-id tensor; the indices also
-    the numpy replay's (held to jax.random on the CPU)."""
+    Gumbel noise the writing variant and the twin write out, and the indices
+    of both variants (with and without the noise store), over logits
+    uniform on none, some and all rows, with -inf entries and all -inf
+    (index 0, as jnp.argmax), the key as host words and folded from a
+    frame-id tensor; the indices also the numpy replay's (held to jax.random
+    on the CPU). Shapes: the GD and relocalization shapes, a short tail,
+    one column, one more than the CTA's 128 threads and than its two-column
+    step, at and past the staged logits' limit (12000)."""
     from gdslam_tpu_torch.core import prng
     r = np.random.default_rng(rows + n)
-    for k, share in enumerate((0.0, 0.07, 1.0)):
+    for k, share in enumerate((0.0, 0.07, 1.0, 1.0)):
         valid = torch.from_numpy(r.uniform(size=n) < share).to(card)
         lg = draw_kernel.uniform_logits(valid)
         if k == 1:
             lg[: n // 3] = -float("inf")
+        if k == 3:
+            lg[:] = -float("inf")
         fold = torch.full((1,), 1000 + k, dtype=torch.int64, device=card)
         key = prng.fold_in(prng.prng_key(7), 1000 + k)
         nk, npl = torch.empty(rows, n, device=card), torch.empty(rows, n, device=card)
@@ -1156,7 +1172,10 @@ def test_categorical_draw_kernel_equals_plain(card, rows, n):
         assert torch.equal(nk.view(torch.int32), npl.view(torch.int32))
         assert torch.equal(got, want)
         assert torch.equal(draw_kernel.categorical_draw(key, lg, rows), want)
+        assert torch.equal(draw_kernel.categorical_draw(prng.prng_key(7), lg, rows, fold), want)
         assert torch.equal(got.cpu(), prng.categorical_rows(key, lg, rows).cpu())
+        if k == 3:
+            assert not want.any()
 
 
 def test_roi_align_prologue_in_the_kernel(card):

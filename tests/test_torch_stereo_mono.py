@@ -33,6 +33,7 @@ from gdslam_tpu_torch.frontend import frame as tframe
 from gdslam_tpu_torch.frontend import initializer as tinit
 from gdslam_tpu_torch.io import synthetic as tsyn
 from gdslam_tpu_torch.ops import stereo as tstereo
+from gdslam_tpu_torch.ops import stereo_cases
 from gdslam_tpu_torch.system import tracking as ttracking
 from test_torch_solvers import _jax_draw
 
@@ -179,6 +180,59 @@ def test_extraction_and_stereo_match_at_an_odd_size():
     assert (d_j > 0).sum() > 100
     np.testing.assert_array_equal(ur_t, ur_j)
     np.testing.assert_array_equal(d_t, d_j)
+
+
+def _gated_pairs(t: dict, scale: float = 1.2) -> torch.Tensor:
+    """[N, M] bool: the pairs that stereo_match_plain's gates accept (the
+    row band, the disparity range, the level gap, both valid), in its ops."""
+    band = tstereo.band_table(scale, "cpu")[t["left_level"].long().clamp(
+        0, tstereo.BAND_LEVELS - 1)]
+    row_ok = torch.abs(t["left_uv"][:, None, 1] - t["right_uv"][None, :, 1]) <= band[:, None]
+    disp = t["left_uv"][:, None, 0] - t["right_uv"][None, :, 0]
+    b_over = torch.full((), stereo_cases.BF / stereo_cases.MIN_Z, dtype=torch.float32)
+    lvl_ok = torch.abs(t["left_level"][:, None] - t["right_level"][None, :]) <= 1
+    return (row_ok & (disp >= -1.0) & (disp <= b_over) & lvl_ok & t["left_valid"][:, None]
+            & t["right_valid"][None, :])
+
+
+@pytest.mark.parametrize("case", ["random", "random_no_images", *stereo_cases.CASES])
+def test_band_walk_covers_every_gated_pair(case):
+    """The stereo kernel's row buckets and band walk, by their plain twins:
+    every valid right keypoint sits in the bucket of its own row (clamped),
+    and for every pair that stereo_match_plain's gates accept, the right
+    keypoint lies in the run of records the kernel walks for the left one,
+    order[offsets[lo]:offsets[hi + 1]]. So the walk, which re-applies the
+    exact gates, skips only pairs that fail them. On KITTI-sized seeded
+    keypoints (the table at the image's 376 rows, and at the 4096 rows the
+    kernel takes with no images) and on each edge case."""
+    d = (stereo_cases.stereo_inputs(7, 2000, 2000) if case.startswith("random")
+         else stereo_cases.stereo_edge_inputs(case))
+    t = {k: _t(v) for k, v in d.items()}
+    rows = tstereo.bucket_rows(0 if case == "random_no_images" else stereo_cases.H)
+    order, off = tstereo.row_buckets_plain(t["right_uv"], t["right_valid"], rows)
+    K = int(off[-1])
+    assert K == int(t["right_valid"].sum()) and (order[K:] == -1).all()
+    assert (off[1:] >= off[:-1]).all() and int(off[0]) == 0
+    b = torch.floor(t["right_uv"][:, 1]).nan_to_num(0.0).clamp(0, rows - 1).long()
+    bucket_of_pos = torch.repeat_interleave(torch.arange(rows), off[1:] - off[:-1])
+    assert torch.equal(b[order[:K]], bucket_of_pos)
+    pos = torch.full((t["right_uv"].shape[0],), -1, dtype=torch.int64)
+    pos[order[:K]] = torch.arange(K)
+    lo, hi = tstereo.band_segments_plain(t["left_uv"], t["left_level"], rows)
+    gated = _gated_pairs(t)
+    i, j = torch.nonzero(gated, as_tuple=True)
+    assert len(i) > 300, case
+    assert (pos[j] >= off[lo[i]]).all() and (pos[j] < off[hi[i] + 1]).all(), case
+    walked = (off[hi + 1] - off[lo]).sum() / gated.numel()
+    if case == "random":
+        assert walked < 0.05                    # the band's buckets, not all M
+    if case.startswith("band_edge"):
+        # left keypoint i's twin (right 2i) on its band's farthest row
+        # passes; the decoy a step past it (right 2i + 1) fails
+        N, M = t["left_uv"].shape[0], t["right_uv"].shape[0]
+        lefts = torch.arange(min(N - 1, (M - 2) // 2))
+        twins = 2 * lefts
+        assert gated[lefts, twins].all() and not gated[lefts, twins + 1].any()
 
 
 def test_build_frame_stereo_matches_jax():
