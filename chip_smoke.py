@@ -152,6 +152,20 @@ then prints one JSON line per phase:
            recent half of the map, compute_transform and correct held to the
            JAX test's gates (the Sim3 scale within 5% of 1.2 x the natural
            pair scale, >= 50% of the cross-zone drift removed);
+  batch    many sequences on one card (parallel/batch_eval.py, BASELINE
+           config 5) through batched_track_step at the SlamConfig() width
+           (kmax 64, pmax 8192), slot b from frame 3b: B = 1 (8 slots each
+           alone), 4 and 8 on 20 static frames (every slot initialized and
+           never lost, each slot's ATE <= 0.1 m, every slot of B = 4 and 8
+           bitwise its B = 1 run: the state, the stats and host mirrors of
+           every step; seconds per step, sequences x frames per second, the
+           host's waits per step, the card's idle share over a step); slot 0
+           of B = 4 blacked out at frames 3-4 (lost at frame 4, relocalized
+           within 0.1 m of the clean run, the other slots bitwise the clean
+           run); B = 4 GD slots on 12 dynamic frames (the ring full, nothing
+           lost, each slot bitwise its B = 1 run); match_top2 and the draw
+           launched on the path and exact against their plain twins on its
+           call shapes;
   stages   per-stage times on the slice's final state (the tracking
            programs, the keyframe program and its parts, the RANSACs), and
            the kernel timed against its bounds and the launch floor on the
@@ -169,7 +183,7 @@ then prints one JSON line per phase:
            inpaint (the 20-frame DB), LightTrack (both searches) and the whole
            pipelined frame's device work, which must not wait for the card:
            ms through the host, device busy and device operations per call;
-           a profiler window over 5 whole geometry frames;
+           a profiler window over 3 whole geometry frames;
   profile  torch.profiler windows over whole frames (pipelined and not, and
            GD frames), over one pose solve and over one local BA: device
            busy share, device operations, host operators;
@@ -183,8 +197,9 @@ then prints one JSON line per phase:
            initialize too).
 
 Then the seconds each phase took (phase_seconds), the card's name and power
-limit as nvidia-smi gives them, the kernels line and, last, the ok line. Without a card, or when any phase fails, it
-exits non-zero and prints no ok line.
+limit as nvidia-smi gives them, the kernels line and, last, the ok line.
+Every JSON line is also written whole to chiprun_out/chip_smoke.jsonl. Without
+a card, or when any phase fails, it exits non-zero and prints no ok line.
 
 --ab-source names an earlier version of the kernel's source (one
 match_top2_launch with the first version's 17 arguments). It is built
@@ -259,9 +274,9 @@ GEOM_WARMUP_KEYFRAMES = 8
 GEOM_WINDOW = 30
 GEOM_TAIL = 10
 GEOM_PROFILE_FRAMES = 10
-PROFILED_FRAMES = 5            # whole GD and geometry frames under one profiler window (of the
-                               # 10 rendered for each): its event processing is most of the
-                               # profile phases' time
+PROFILED_FRAMES = 3            # whole plain, GD and geometry frames under one profiler window
+                               # (5 until PR 13): its event processing is most of the profile
+                               # phases' time
 GEOM_STAGED_FRAMES = 20
 GD_INPAINT_FRAMES = 20
 GEOM_JAX_QUALITY = dict(ate_m=0.0423, mask_recall=1.0, mask_iou=0.715)
@@ -271,10 +286,15 @@ CLI_EPOCH = 1305031790.0       # TUM epoch seconds: timestamps must stay float64
 
 PHASE_SECONDS: dict = {}           # each phase line: seconds since the line before it
 _LAST_LINE = [time.perf_counter()]
+LINES_FILE = ROOT / "chiprun_out" / "chip_smoke.jsonl"   # every line, whole
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    LINES_FILE.parent.mkdir(exist_ok=True)
+    with open(LINES_FILE, "a") as f:
+        f.write(line + "\n")
     now = time.perf_counter()
     if "phase" in obj:
         PHASE_SECONDS[obj["phase"]] = now - _LAST_LINE[0]
@@ -2276,6 +2296,7 @@ def phase_profile(torch, slam, slam_pipe, frames, t_first: int, gn_call, ba_call
 # JAX package fires one; LOOP_JAX_* are its numbers there and at full size.
 LOOP_PERIOD = 120
 LOOP_FRAMES = 180
+LOOP_FULL_FRAMES = 140         # the 480x640 run, cut from 180 (LOOP_JAX_FULL's) for the time limit
 LOOP_DRIFT_AT = 100
 LOOP_XI_DRIFT = (0.20, 0.05, 0.0, 0.01, 0.08, 0.0)
 LOOP_MIN_SPAN = 10             # cur - cand of a genuine revisit
@@ -2486,7 +2507,7 @@ def phase_loop(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, d
     return slam, res, out, probe.first
 
 
-def phase_loop_reloc(torch, mk, slam, frame, kdb, loop_closing, TrackState, label):
+def phase_loop_reloc(torch, mk, slam, frame, idx: int, kdb, loop_closing, TrackState, label):
     """A forced loss on the loop run's final state: the last pose 1 m off
     and no velocity, so the next frame fails both motion-model searches and
     must relocalize through the BoW database (reloc_candidates) and the
@@ -2517,7 +2538,7 @@ def phase_loop_reloc(torch, mk, slam, frame, kdb, loop_closing, TrackState, labe
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        T = tr.process(frame.gray, frame.depth, torch.ones_like(frame.gray), LOOP_FRAMES / 30.0)
+        T = tr.process(frame.gray, frame.depth, torch.ones_like(frame.gray), idx / 30.0)
         torch.cuda.synchronize()
     finally:
         kdb.reloc_candidates, loop_closing._bow_guided_matches = real_rc, real_bow
@@ -2532,11 +2553,11 @@ def phase_loop_reloc(torch, mk, slam, frame, kdb, loop_closing, TrackState, labe
     refs = refs[(refs >= 0) & (refs < n_kf)]       # not the frame's own keyframe, if it became one
     k = int(np.bincount(refs).argmax())
     kf_frame = round(tr.kf_timestamps[k] * 30.0)
-    expected = gt_cw(LOOP_FRAMES) @ np.linalg.inv(gt_cw(kf_frame)) @ \
+    expected = gt_cw(idx) @ np.linalg.inv(gt_cw(kf_frame)) @ \
         tr.arena.kf_pose[k].cpu().numpy()
     err_m, err_deg = pose_error_to(T, expected)
-    gt_m, gt_deg = pose_error_to(T, gt_cw(LOOP_FRAMES))
-    res = dict(phase=label, frame=LOOP_FRAMES, state=tr.state.name, n_inliers=tr.n_inliers,
+    gt_m, gt_deg = pose_error_to(T, gt_cw(idx))
+    res = dict(phase=label, frame=idx, state=tr.state.name, n_inliers=tr.n_inliers,
                region_keyframe=k, region_keyframe_frame=kf_frame, err_m=err_m, err_deg=err_deg,
                err_to_renderer_m=gt_m, err_to_renderer_deg=gt_deg, frame_ms=frame_ms,
                calls=dict(counts), match_top2_launches=mk.match_top2.launches)
@@ -4266,6 +4287,316 @@ def phase_mono_loop(torch, mk, cfg, dev, mods) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------------
+# batch: many sequences tracked at once (parallel/batch_eval.py)
+# ----------------------------------------------------------------------------
+
+BATCH_SIZES = (1, 4, 8)
+BATCH_FRAMES = 20
+BATCH_STRIDE = 3               # slot b tracks frames 3b, 3b + 1, ... (tests/test_multichip.py)
+BATCH_BLACKOUT = (3, 4)        # slot 0 of the relocalization run sees zeros at these frames
+BATCH_RELOC_SLOTS = 4
+BATCH_GD_SLOTS = 4
+BATCH_GD_FRAMES = 12           # 7 past the ring's warm-up of 5
+BATCH_GUARD_M = 0.1            # each slot's ATE; the relocalized pose against the clean run
+
+
+def batch_frames(torch, synthetic, cam, dev, n_slots: int, n_frames: int, dynamic: bool):
+    """[B, T, H, W] grays and depths on the card, slot b from the renderer's
+    frame BATCH_STRIDE * b, and each slot's [T] ground-truth T_wc (numpy)."""
+    fr = [synthetic.render_frame(i, cam, with_dynamic=dynamic, device=dev)
+          for i in range(BATCH_STRIDE * (n_slots - 1) + n_frames)]
+    rows = [[BATCH_STRIDE * b + t for t in range(n_frames)] for b in range(n_slots)]
+    grays = torch.stack([torch.stack([fr[i].gray for i in r]) for r in rows])
+    depths = torch.stack([torch.stack([fr[i].depth for i in r]) for r in rows])
+    return grays, depths, [np.stack([fr[i].T_wc.cpu().numpy() for i in r]) for r in rows]
+
+
+def batch_run(torch, be, cfg, grays, depths, use_gd: bool = False) -> dict:
+    """batched_track_step over [B, T] frames from init_states, as a user runs
+    it (kmax 64, pmax 8192, the module's defaults), timed with one
+    synchronise at the end: the final states and, per step, the poses, the
+    host mirrors, the slots' stats [B, 4] and mean_inliers."""
+    B, T, H, W = grays.shape
+    step = be.batched_track_step(cfg, H, W, device=grays.device)
+    st = be.init_states(B, cfg, use_gd=use_gd, device=grays.device)
+    out = dict(poses=[], hosts=[], stats=[], means=[], step=step)
+    with spy(be, "track_slots", lambda a, k, r: out["stats"].append(r[1])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(T):
+            st, mean = step(st, grays[:, t], depths[:, t])
+            out["poses"].append(st.last_T_cw)
+            out["hosts"].append(st.host)
+            out["means"].append(mean)
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+    out["state"] = st
+    return out
+
+
+def slot_diff(torch, a, b) -> list:
+    """The fields where two slots' states differ, bit for bit (every tensor,
+    the host mirror)."""
+    diff = []
+
+    def walk(x, y, path):
+        if x is None or y is None:
+            if x is not y:
+                diff.append(path)
+        elif isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                    x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)):
+                diff.append(path)
+        else:
+            for f in x._fields:
+                walk(getattr(x, f), getattr(y, f), f"{path}/{f}")
+
+    walk(a._replace(host=None), b._replace(host=None), "")
+    if a.host != b.host:
+        diff.append("host")
+    return diff
+
+
+def run_vs_solo(torch, be, run: dict, b: int, solo: dict) -> list:
+    """slot_diff of slot b of `run` against its own B = 1 run, plus the
+    stats and host mirrors of every step."""
+    diff = slot_diff(torch, be.unstack(run["state"])[b], be.unstack(solo["state"])[0])
+    if not torch.equal(torch.stack(run["stats"])[:, b], torch.stack(solo["stats"])[:, 0]):
+        diff.append("stats")
+    if [h[b] for h in run["hosts"]] != [h[0] for h in solo["hosts"]]:
+        diff.append("host mirrors")
+    return diff
+
+
+def slot_ates(torch, metrics, run: dict, T_wc: list) -> list:
+    """Each slot's ATE RMSE (m) against the renderer, the poses taken
+    relative to the slot's first frame (the tracker's world)."""
+    poses = torch.stack(run["poses"]).cpu().numpy()          # [T, B, 4, 4] T_cw
+    out = []
+    for b in range(poses.shape[1]):
+        est = np.stack([np.linalg.inv(T)[:3, 3] for T in poses[:, b]])
+        T0inv = np.linalg.inv(T_wc[b][0])
+        gt = np.stack([(T0inv @ T)[:3, 3] for T in T_wc[b][:len(est)]])
+        out.append(metrics.ate_rmse(est, gt))
+    return out
+
+
+def device_window(torch, fn) -> dict:
+    """fn() under torch.profiler with the card's activity only: host ms, the
+    union of kernel and copy intervals (device busy), the idle share and the
+    device operations. Without the host operators a window of ~76k launches
+    is parsed in seconds (profile_window's took ~45 s on a B = 8 step)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:           # no device events parsed without the host's: the full window
+        full = profile_window(torch, fn, 1)
+        return dict(step_wall_ms_profiled=full["wall_ms"], device_busy_ms=full["device_busy_ms"],
+                    device_idle_share=full["device_idle_share"], device_ops=full["device_ops"],
+                    window="host and device")
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += 0.0 if cur_e is None else cur_e - cur_s
+    return dict(step_wall_ms_profiled=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                device_idle_share=1.0 - busy / wall_us, device_ops=len(spans), window="device")
+
+
+def waits_and_idle(torch, run: dict, grays, depths, profiled: bool) -> dict:
+    """One more step on a run's final states (the frame after its last):
+    the host's waits for the card (sync_sites) and, if `profiled`, in a
+    second step the card's idle share (device_window)."""
+    step, st = run["step"], run["state"]
+    T = len(run["poses"])
+    sites = sync_sites(torch, lambda: step(st, grays[:, T], depths[:, T]))
+    out = dict(waits_per_step=sum(sites.values()), wait_sites=sites)
+    if profiled:
+        out.update(device_window(torch, lambda: step(st, grays[:, T], depths[:, T])))
+    return out
+
+
+def check_batch_draws(torch, dkw, calls: dict) -> list:
+    """categorical_draw on one recorded call of each (rows, logits) shape of
+    the batch path, bitwise against its plain twin (indices and noise), its
+    ms through the wrapper and its bound."""
+    out = []
+    for (rows, n), (key, lg, fold, count) in sorted(calls.items()):
+        nk, npl = (torch.empty(rows, n, device=lg.device) for _ in range(2))
+        a = dkw.categorical_draw(key, lg, rows, fold, noise=nk)
+        b = dkw.categorical_draw_plain(key, lg, rows, fold, noise=npl)
+        torch.cuda.synchronize()
+        out.append(dict(shape=[rows, n], calls=count, index_mismatches=int((a != b).sum()),
+                        noise_bits_differing=int((nk.view(torch.int32) !=
+                                                  npl.view(torch.int32)).sum()),
+                        ms=cuda_ms(torch, lambda: dkw.categorical_draw(key, lg, rows, fold),
+                                   reps=100),
+                        plain_ms=cuda_ms(torch, lambda: dkw.categorical_draw_plain(
+                            key, lg, rows, fold), reps=10, windows=3),
+                        **draw_bound(rows, n)))
+    return out
+
+
+def phase_batch(torch, mk, cfg, dev, mods) -> dict:
+    """Many sequences on one card (parallel/batch_eval.py, BASELINE config
+    5): `batched_track_step` at SlamConfig()'s width (480 x 640, 1500
+    features, 8 levels; kmax 64, pmax 8192), slot b from frame 3b.
+    Static: B = 1 (each of 8 slots alone), 4 and 8, 20 frames: every slot
+    initialized and never lost, ATE <= 0.1 m, each slot of B = 4 and 8
+    bitwise its B = 1 run (the state, the stats and host mirrors of every
+    step); seconds per step, sequences x frames per second, the host's waits
+    per step and the card's idle share. Relocalization: the B = 4 run with
+    slot 0 blacked out at frames 3-4: lost at frame 4, recovered by the end
+    within 0.1 m of the clean run, the other slots bitwise the clean run.
+    GD: B = 4 on the dynamic scene, 12 frames: the ring full, nothing lost,
+    each slot bitwise its B = 1 run. The launch counts are set to 0 before
+    these runs and read after them; then the path's match_top2 calls (the
+    local-map searches of one more B = 8 step, relocalization's all-pairs
+    calls, the GD ratio match) and its draws (relocalization's PnP, the GD
+    pose RANSAC) are held exactly against their plain twins."""
+    be, synthetic, metrics, tracking, geomask, matcher, dkw = mods
+    cam, T = cfg.camera, BATCH_FRAMES
+    t0 = time.perf_counter()
+    grays, depths, T_wc = batch_frames(torch, synthetic, cam, dev, max(BATCH_SIZES), T + 1,
+                                       False)
+    dg, dd, _ = batch_frames(torch, synthetic, cam, dev, BATCH_GD_SLOTS, BATCH_GD_FRAMES, True)
+    pg, pd = grays[:BATCH_RELOC_SLOTS, :T].clone(), depths[:BATCH_RELOC_SLOTS, :T].clone()
+    pg[0, BATCH_BLACKOUT[0]:BATCH_BLACKOUT[1] + 1] = 0.0
+    pd[0, BATCH_BLACKOUT[0]:BATCH_BLACKOUT[1] + 1] = 0.0
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+
+    draw_calls = {}
+
+    def record_draw(a, k, out):
+        key, lg, rows = a[:3]
+        fold = a[3] if len(a) > 3 else k.get("fold")
+        shape = (rows, lg.shape[0])
+        first = draw_calls.get(shape, (key, lg, fold, 0))
+        draw_calls[shape] = first[:3] + (first[3] + 1,)
+
+    t_runs = time.perf_counter()
+    reset_launch_counts(mk)
+    solo = [batch_run(torch, be, cfg, grays[b:b + 1, :T], depths[b:b + 1, :T])
+            for b in range(max(BATCH_SIZES))]
+    runs = {1: solo[0]}
+    for B in BATCH_SIZES[1:]:
+        runs[B] = batch_run(torch, be, cfg, grays[:B, :T], depths[:B, :T])
+    static_launches = dict(match_top2=mk.match_top2.launches, categorical_draw=draw_launches())
+    with spy(dkw, "categorical_draw", record_draw):
+        reloc, reloc_sites = None, {}
+
+        def run_reloc():
+            nonlocal reloc
+            reloc = batch_run(torch, be, cfg, pg, pd)
+
+        # the relocalization run under the sync debug mode: its waits by site
+        reloc_top2 = record_top2_calls(
+            tracking, lambda: reloc_sites.update(sync_sites(torch, run_reloc)))
+        gd_solo = [batch_run(torch, be, cfg, dg[b:b + 1], dd[b:b + 1], use_gd=True)
+                   for b in range(BATCH_GD_SLOTS)]
+        gd = None
+
+        def run_gd():
+            nonlocal gd
+            gd = batch_run(torch, be, cfg, dg, dd, use_gd=True)
+
+        gd_top2 = record_top2_calls(geomask, run_gd)
+    launches = dict(match_top2=mk.match_top2.launches, categorical_draw=draw_launches())
+    seconds = dict(render=render_s, runs=time.perf_counter() - t_runs)
+    t_checks = time.perf_counter()
+
+    res = dict(phase="batch", frames=T, sizes=list(BATCH_SIZES), kmax=64, pmax=8192,
+               seconds=seconds, launches=launches, launches_static=static_launches)
+    b1_fps = None
+    for B, run in runs.items():
+        secs = (statistics.median(r["seconds"] for r in solo) if B == 1 else run["seconds"])
+        fps = B * T / secs
+        b1_fps = b1_fps or fps
+        res[f"B{B}"] = dict(
+            seconds_per_step=secs / T, seq_frames_per_s=fps, against_b1=fps / b1_fps,
+            ate_m=slot_ates(torch, metrics, run, T_wc),
+            keyframes=[h.n_kf for h in run["hosts"][-1]],
+            map_points=run["state"].arena.n_pt.tolist(),
+            mean_inliers_last=float(run["means"][-1]),
+            all_initialized=all(h.initialized for h in run["hosts"][-1]),
+            ever_lost=any(h.lost for hs in run["hosts"] for h in hs),
+            bitwise_vs_b1={b: run_vs_solo(torch, be, run, b, solo[b]) for b in range(B)}
+            if B > 1 else None,
+            **waits_and_idle(torch, run, grays[:B], depths[:B], B == max(BATCH_SIZES)))
+    res["B1"]["seconds_per_step_each_slot"] = [r["seconds"] / T for r in solo]
+    lost0 = [h[0].lost for h in reloc["hosts"]]
+    clean = runs[BATCH_RELOC_SLOTS]
+    T_r, T_c = (r["state"].last_T_cw[0].cpu().numpy() for r in (reloc, clean))
+    res["reloc"] = dict(
+        slot0_lost_by_frame=lost0, err_vs_clean_m=float(np.linalg.norm(T_r[:3, 3] - T_c[:3, 3])),
+        neighbours_vs_clean={b: slot_diff(torch, be.unstack(reloc["state"])[b],
+                                          be.unstack(clean["state"])[b])
+                             for b in range(1, BATCH_RELOC_SLOTS)},
+        waits_per_step=sum(reloc_sites.values()) / T, wait_sites=reloc_sites,
+        seconds_per_step_sync_debug=reloc["seconds"] / T, reloc_top2_calls=len(reloc_top2))
+    res["gd"] = dict(
+        frames=BATCH_GD_FRAMES, ring_counts=[h.gd_count for h in gd["hosts"][-1]],
+        ring_count_tensors=gd["state"].gd.count.tolist(),
+        ever_lost=any(h.lost for hs in gd["hosts"] for h in hs),
+        all_initialized=all(h.initialized for h in gd["hosts"][-1]),
+        keyframes=[h.n_kf for h in gd["hosts"][-1]],
+        seconds_per_step=gd["seconds"] / BATCH_GD_FRAMES,
+        bitwise_vs_b1={b: run_vs_solo(torch, be, gd, b, gd_solo[b])
+                       for b in range(BATCH_GD_SLOTS)})
+
+    # the kernels on the path's call shapes, after the counted runs
+    seconds["checks_waits_idle"] = time.perf_counter() - t_checks
+    t_kernels = time.perf_counter()
+    big = runs[max(BATCH_SIZES)]
+    track_top2 = record_top2_calls(
+        matcher, lambda: big["step"](big["state"], grays[:, T], depths[:, T]))
+    sites = (top2_call_sites(torch, mk, track_top2, "batch_track") +
+             top2_call_sites(torch, mk, reloc_top2, "batch_reloc_all_pairs") +
+             top2_call_sites(torch, mk, gd_top2, "batch_gd_ratio"))
+    res["match_top2_call_sites"] = sites
+    res["draws"] = check_batch_draws(torch, dkw, draw_calls)
+    seconds["kernels"] = time.perf_counter() - t_kernels
+    res["card"] = nvidia_smi_line()
+    emit(res)
+
+    bad = []
+    for B, run in runs.items():
+        r = res[f"B{B}"]
+        if not r["all_initialized"] or r["ever_lost"] or max(r["ate_m"]) > BATCH_GUARD_M:
+            bad.append(f"B={B}: initialized {r['all_initialized']}, lost {r['ever_lost']}, "
+                       f"ATE {r['ate_m']}")
+        if B > 1 and any(r["bitwise_vs_b1"].values()):
+            bad.append(f"B={B}: slots differ from their B = 1 runs: {r['bitwise_vs_b1']}")
+    rr = res["reloc"]
+    if not (lost0[BATCH_BLACKOUT[1]] and not lost0[-1] and
+            rr["err_vs_clean_m"] < BATCH_GUARD_M) or any(rr["neighbours_vs_clean"].values()):
+        bad.append(f"reloc: {rr}")
+    g = res["gd"]
+    if g["ring_counts"] != [BATCH_GD_FRAMES] * BATCH_GD_SLOTS or \
+            g["ring_count_tensors"] != g["ring_counts"] or g["ever_lost"] or \
+            not g["all_initialized"] or any(g["bitwise_vs_b1"].values()):
+        bad.append(f"gd: {g}")
+    if min(launches.values()) < 1 or not (reloc_top2 and gd_top2 and track_top2):
+        bad.append(f"a kernel of the path was not launched: {launches}")
+    if any(c["max_abs_err"] for c in sites) or \
+            any(d["index_mismatches"] or d["noise_bits_differing"] for d in res["draws"]):
+        bad.append("a kernel differs from its plain twin on the batch path's calls")
+    if bad:
+        fail("batch: " + "; ".join(bad))
+    return res
+
+
 def same_arrays(a: dict, b: dict) -> dict:
     """{key: bitwise equal} over two dicts of arrays and numbers."""
     return {k: bool(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))) for k in a}
@@ -4412,17 +4743,19 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
     # a forced loss relocalized on its map, then twice at the JAX test's
     # size, where the reference closes a loop
     t0 = time.perf_counter()
-    lframes = loop_frames(torch, synthetic, cfg, dev, LOOP_FRAMES + 1)
+    lframes = loop_frames(torch, synthetic, cfg, dev, LOOP_FULL_FRAMES + 1)
     scfg = dataclasses.replace(cfg, camera=dataclasses.replace(
         cfg.camera, fx=320.0, fy=320.0, cx=160.0, cy=120.0, width=320, height=240,
         bf=320.0 * 0.08), orb=dataclasses.replace(cfg.orb, n_features=512, n_levels=4))
     sframes = loop_frames(torch, synthetic, scfg, dev, LOOP_FRAMES)
     loop_render_s = time.perf_counter() - t0
     loop_mods = (loop_closing, pose_graph, gba, matcher, tracking)
-    loop_slam, lres, _, _ = phase_loop(torch, mk, cfg, lframes[:LOOP_FRAMES], System,
+    loop_slam, lres, _, _ = phase_loop(torch, mk, cfg, lframes[:LOOP_FULL_FRAMES], System,
                                        TrackState, synthetic, metrics, dev, loop_mods, "loop",
-                                       expect_loop=False, reference=LOOP_JAX_FULL)
-    lres_reloc = phase_loop_reloc(torch, mk, loop_slam, lframes[LOOP_FRAMES], kdb, loop_closing,
+                                       expect_loop=False,
+                                       reference=dict(LOOP_JAX_FULL, frames=LOOP_FRAMES))
+    lres_reloc = phase_loop_reloc(torch, mk, loop_slam, lframes[LOOP_FULL_FRAMES],
+                                  LOOP_FULL_FRAMES, kdb, loop_closing,
                                   TrackState, "loop_reloc")
     small = [phase_loop(torch, mk, scfg, sframes, System, TrackState, synthetic, metrics, dev,
                         loop_mods, label, expect_loop=True, kmax=64, pmax=32768,
@@ -4451,6 +4784,12 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         tracking, initializer, slam_mod, png, synthetic, metrics, mono_tum))
     mlres = phase_mono_loop(torch, mk, cfg, dev, (tracking.Tracking, loop_closing.LoopCloser, voc,
                                                   synthetic))
+
+    # many sequences at once on the card (parallel/batch_eval.py)
+    from gdslam_tpu_torch.ops import draw_kernel
+    from gdslam_tpu_torch.parallel import batch_eval
+    bres = phase_batch(torch, mk, cfg, dev, (batch_eval, synthetic, metrics, tracking, geomask,
+                                             matcher, draw_kernel))
 
     # determinism: every pair of runs bitwise identical
     geo_db, im, depth_i, mask_i, T_i = geostres.pop("inpaint_inputs")
@@ -4494,7 +4833,8 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
     geo_st["ms"]["whole_geom_frame_staged_with_inpaint"] = geostres["frame_ms_median"]
     geo_st["ms"]["whole_gd_inpaint_frame"] = gdires["frame_ms_median"]
     emit(geo_st)
-    emit(phase_profile(torch, slam, slam_pipe, frames[n_frames + 1:], n_frames + 1, gn_call,
+    emit(phase_profile(torch, slam, slam_pipe, frames[n_frames + 1:n_frames + 1 + PROFILED_FRAMES],
+                       n_frames + 1, gn_call,
                        ba_call, gd_slam, raw[n_gd:n_gd + PROFILED_FRAMES], n_gd))
 
     local_map = path_calls[1]
@@ -4513,7 +4853,8 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
                    seg=segres["launches"]["match_top2"],
                    stereo=stres["launches"]["match_top2"],
                    mono=mores["launches"]["match_top2"],
-                   mono_loop=mlres["match_top2_launches"])
+                   mono_loop=mlres["match_top2_launches"],
+                   batch=bres["launches"]["match_top2"])
     if min(by_path.values()) < 1:
         fail(f"a path launched no kernel: {by_path}")
     seg_sites = segres["kernels"]["score_th_0.7"]
@@ -4586,9 +4927,12 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
                                  gd_staged=sgres["categorical_draw_launches"],
                                  reloc=rres["categorical_draw_launches"],
                                  mono=mores["launches"]["categorical_draw"],
-                                 loop_small=small[0][1]["categorical_draw_launches"]),
+                                 loop_small=small[0][1]["categorical_draw_launches"],
+                                 batch=bres["launches"]["categorical_draw"]),
         "max_abs_err": max(c["index_mismatches"] + c["noise_bits_differing"]
-                           for c in drawres["checks"]),
+                           for c in drawres["checks"] + bres["draws"]),
+        "batch_shapes": [{k: c[k] for k in ("shape", "calls", "ms", "plain_ms", "bound_ms",
+                                            "bound_by")} for c in bres["draws"]],
         "ms": dt["ms"], "plain_ms": dt["plain_ms"], "bound_ms": dt["bound_ms"],
         "bound_by": dt["bound_by"], "library_ms": None, "library_note": DRAW_NO_LIBRARY,
         "device_ms": dt["device_ms"], "multinomial_ms": dt["multinomial_ms"],
@@ -4599,7 +4943,7 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "redesigned": "a CTA a row over 4 warps, two hash chains a thread, the "
                       "noise store in its own variant"})
     top2_sites = path_calls + loop_calls + stres["match_top2_call_sites"] + \
-        mores["bootstrap_match"]["call_sites"]
+        mores["bootstrap_match"]["call_sites"] + bres["match_top2_call_sites"]
     emit(dict(phase="phase_seconds", seconds=dict(PHASE_SECONDS),
               total_s=time.perf_counter() - T_START))
     print(nvidia_smi_line(), flush=True)
@@ -4643,6 +4987,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
+    LINES_FILE.unlink(missing_ok=True)
 
     from gdslam_tpu_torch import SlamConfig
     return run(torch, "cuda", SlamConfig(), ab_source=opts.ab_source)

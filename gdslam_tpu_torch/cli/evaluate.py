@@ -22,8 +22,8 @@ Modes (BASELINE.md configs):
 --vocab default (or a vocabulary .npz) turns on loop closing and BoW
 relocalization. --segmenter runs the live Mask R-CNN (models/maskrcnn.py) on
 every mask-cache miss (MaskNet.cc:86-93): WEIGHTS is a save_variables .npz of
-either package, 'flax' alone seeded random weights; a Keras .h5 is not
-ported (ROADMAP.md section 1, item 12).
+either package or the reference's Keras mask_rcnn_coco.h5 (converted on
+load), 'flax' alone seeded random weights.
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ def main(argv=None) -> int:
     ap.add_argument("--vocab", default="none",
                     help="'default', a vocabulary .npz, or 'none' (no loop closing)")
     ap.add_argument("--segmenter", default=None,
-                    help="live segmenter spec: flax[:weights.npz] "
+                    help="live segmenter spec: flax[:weights.npz|mask_rcnn_coco.h5] "
                          "(runs on every mask-cache miss, MaskNet.cc:86-93)")
     ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument("--rpe-delta", type=int, default=30,

@@ -21,8 +21,8 @@ Usage (positional, mirroring rgbd_tum.cc:30-33):
   MaskNet.cc:86-93); WEIGHTS is a save_variables .npz of either package
   ('flax' alone: seeded random weights). Fresh masks are written back to
   MASKS_DIR (unless 'no_save'); with the segmenter and no OUTPUT_DIR the
-  geometry path tracks. A Keras .h5 is not ported (ROADMAP.md section 1,
-  item 12)
+  geometry path tracks. WEIGHTS may also be the reference's Keras
+  mask_rcnn_coco.h5, converted on load (models/maskrcnn.convert_keras_h5)
 - --device: where the system and the segmenter run, the card unless 'cpu'
   is given
 

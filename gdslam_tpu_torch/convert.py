@@ -20,6 +20,7 @@ from gdslam_tpu_torch.config import (CameraConfig, GeoMaskConfig, GeometryConfig
 from gdslam_tpu_torch.frontend.extractor import Features
 from gdslam_tpu_torch.frontend.frame import Frame
 from gdslam_tpu_torch.masking.geometry import GeometryDB
+from gdslam_tpu_torch.parallel.batch_eval import GdRing, SeqState, mirrors
 from gdslam_tpu_torch.system.tracking import FrameState
 
 
@@ -102,3 +103,36 @@ def vocabulary_from_numpy(centers, k: int, levels: int, device="cuda") -> Vocabu
     """Vocabulary from its centres [n_nodes, 32] uint8 and its shape."""
     return Vocabulary(centers=_to_torch(np.asarray(centers, np.uint8), device), k=int(k),
                       levels=int(levels))
+
+
+def seq_state_from_numpy(d: dict, device="cuda") -> SeqState:
+    """SeqState (one slot, or [B]-leading) from a dict of its fields: the
+    arena, last_frame and gd (GdRing, its feats nested too) as dicts of
+    their fields, gd None without a ring; the host mirror is taken from the
+    arrays, so the first step reads nothing from the card for it."""
+    nested = {"arena": MapArena, "last_frame": Frame}
+    st = {}
+    for k in SeqState._fields[:-2]:
+        st[k] = (nested[k](**{f: _to_torch(d[k][f], device) for f in nested[k]._fields})
+                 if k in nested else _to_torch(d[k], device))
+    g, gd = d.get("gd"), None
+    if g is not None:
+        gd = GdRing(gray=_to_torch(g["gray"], device), depth=_to_torch(g["depth"], device),
+                    feats=features_from_numpy(g["feats"], device),
+                    count=_to_torch(g["count"], device))
+    host = mirrors(d["initialized"], d["lost"], d["has_velocity"], d["arena"]["n_kf"],
+                   d["frame_idx"], d["ref_kf"], d["frames_since_kf"],
+                   g["count"] if g is not None else np.zeros_like(d["frame_idx"]))
+    return SeqState(**st, gd=gd, host=host)
+
+
+def seq_state_to_numpy(state: SeqState) -> dict:
+    """The dict seq_state_from_numpy takes (the host mirror left out)."""
+    d = {k: getattr(state, k).cpu().numpy() for k in SeqState._fields[2:-2]}
+    d["arena"] = arena_to_numpy(state.arena)
+    d["last_frame"] = {k: getattr(state.last_frame, k).cpu().numpy() for k in Frame._fields}
+    g = state.gd
+    d["gd"] = None if g is None else dict(gray=g.gray.cpu().numpy(), depth=g.depth.cpu().numpy(),
+                                          feats=features_to_numpy(g.feats),
+                                          count=g.count.cpu().numpy())
+    return d

@@ -22,8 +22,9 @@ and `train_sampled` (clipped SGD with momentum), with optax's update rules
 written out. The model trains in eval mode: the BatchNorm statistics stay
 frozen, their scale and bias train, as flax trains them. ROIAlign's gradient
 is a CUDA kernel (`detect_kernels.roi_align_backward`); the rest of the
-backward is PyTorch's. The Keras `.h5` route is not ported (ROADMAP.md
-section 1, item 12b).
+backward is PyTorch's. The reference's Keras weights (`mask_rcnn_coco.h5`)
+convert to the same {flax path: array} form (`convert_keras_h5`, numpy and
+h5py, imported only there).
 """
 
 from __future__ import annotations
@@ -641,6 +642,169 @@ def load_meta(path: str) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# Keras h5 weights (the reference's mask_rcnn_coco.h5, matterport layout)
+# ----------------------------------------------------------------------------
+
+# ResNet50 stage layout: (stage number, block letters) -> Bottleneck_i order.
+_RESNET_STAGES = ((2, "abc"), (3, "abcd"), (4, "abcdef"), (5, "abc"))
+
+
+def _h5_weight(f, layer: str, suffix: str) -> np.ndarray:
+    """A weight array of a Keras-format h5: the group `layer` holds datasets
+    whose names end with `<suffix>:0`, possibly nested one level (e.g.
+    f['conv1']['conv1']['kernel:0']). A layer of a Keras sub-model is saved
+    inside the sub-model's group (matterport's f['rpn_model']
+    ['rpn_conv_shared']['kernel:0']); it is found there when it is not at
+    the top."""
+
+    def search(group):
+        for k in group:
+            item = group[k]
+            if hasattr(item, "shape"):
+                if k.endswith(suffix + ":0") or k == suffix:
+                    return np.asarray(item)
+            elif (hit := search(item)) is not None:
+                return hit
+        return None
+
+    if layer in f:
+        group = f[layer]
+    else:
+        group = next((f[g][layer] for g in f if not hasattr(f[g], "shape") and layer in f[g]),
+                     None)
+        if group is None:
+            raise KeyError(f"h5 layer '{layer}' not found")
+    got = search(group)
+    if got is None:
+        raise KeyError(f"weight '{suffix}:0' not found under layer '{layer}'")
+    return got
+
+
+def _fold_bn(f, bn_layer: str, conv_bias=None):
+    """Keras BN weights -> (scale, bias, mean, var); a preceding conv bias is
+    folded into the running mean (the model's convs have no bias)."""
+    gamma = _h5_weight(f, bn_layer, "gamma")
+    beta = _h5_weight(f, bn_layer, "beta")
+    mean = _h5_weight(f, bn_layer, "moving_mean")
+    var = _h5_weight(f, bn_layer, "moving_variance")
+    if conv_bias is not None:
+        mean = mean - conv_bias
+    return gamma, beta, mean, var
+
+
+def _fold_bn_into_dense(kernel, bias, f, bn_layer: str, eps: float = 1e-3):
+    """Inference-mode BN folded into the dense or conv weights before it:
+    y = gamma * (W x + b - mean) / sqrt(var + eps) + beta = W' x + b'."""
+    gamma, beta, mean, var = _fold_bn(f, bn_layer)
+    s = gamma / np.sqrt(var + eps)
+    return kernel * s, (bias - mean) * s + beta
+
+
+def convert_keras_h5(h5_path: str, image_hw=(480, 640)) -> dict:
+    """The reference's `mask_rcnn_coco.h5` (matterport Keras layout, which
+    MaskRCNN.py:15-61 loads by name) as {flax path: array}, the variables
+    maskrcnn_from_numpy maps onto a MaskRCNN() of the default shape (the
+    ResNet50 backbone). Every leaf comes from the file; its shape is held
+    to the model's.
+
+    Layout: conv1 / bn_conv1 stem; res{S}{b}_branch{1,2a,2b,2c} and their bn
+    layers (conv biases folded into the BN means); fpn_c{2..5}p{2..5} and
+    fpn_p{2..5}; rpn_model (rpn_conv_shared, rpn_class_raw with 2 logits an
+    anchor folded to 1 as fg - bg, rpn_bbox_pred); mrcnn_class_conv1/2 with
+    their BN folded into the dense weights (eps 1e-3), mrcnn_class_logits,
+    mrcnn_bbox_fc; mrcnn_mask_conv1..4 with BN folded, mrcnn_mask_deconv
+    (Keras [kh, kw, out, in] with scatter semantics: flipped on both spatial
+    axes and swapped to flax's [kh, kw, in, out]) and mrcnn_mask."""
+    import h5py  # only needed when a Keras weight file is given
+
+    tmpl = variables_to_numpy(MaskRCNN(image_hw=image_hw))
+    out = {}
+
+    def put(path: str, a) -> None:
+        a = np.asarray(a, np.float32)
+        if a.shape != tmpl[path].shape:
+            raise ValueError(f"{path}: the h5 gives {a.shape}, the model wants "
+                             f"{tmpl[path].shape}")
+        out[path] = a
+
+    with h5py.File(h5_path, "r") as f:
+        root = f["model_weights"] if "model_weights" in f else f
+
+        def conv_bn(scope: str, conv_key: str, bn_key: str, conv_layer: str, bn_layer: str):
+            try:
+                b = _h5_weight(root, conv_layer, "bias")
+            except KeyError:
+                b = None
+            put(f"params/{scope}/{conv_key}/kernel", _h5_weight(root, conv_layer, "kernel"))
+            g, beta, mean, var = _fold_bn(root, bn_layer, conv_bias=b)
+            put(f"params/{scope}/{bn_key}/scale", g)
+            put(f"params/{scope}/{bn_key}/bias", beta)
+            put(f"batch_stats/{scope}/{bn_key}/mean", mean)
+            put(f"batch_stats/{scope}/{bn_key}/var", var)
+
+        def conv(scope: str, key: str, layer: str, deconv: bool = False):
+            k = _h5_weight(root, layer, "kernel").astype(np.float32)
+            if deconv:
+                # Keras Conv2DTranspose is the scatter form; the model's
+                # transposed conv is flax's fractionally strided forward conv
+                k = np.transpose(k[::-1, ::-1], (0, 1, 3, 2))
+            put(f"params/{scope}/{key}/kernel", k)
+            put(f"params/{scope}/{key}/bias", _h5_weight(root, layer, "bias"))
+
+        conv_bn("backbone", "Conv_0", "BatchNorm_0", "conv1", "bn_conv1")
+        blk = 0
+        for stage, letters in _RESNET_STAGES:
+            for j, letter in enumerate(letters):
+                name, scope = f"{stage}{letter}", f"backbone/Bottleneck_{blk}"
+                for ci, branch in enumerate(("2a", "2b", "2c")):
+                    conv_bn(scope, f"Conv_{ci}", f"BatchNorm_{ci}", f"res{name}_branch{branch}",
+                            f"bn{name}_branch{branch}")
+                if j == 0:      # the projection shortcut
+                    conv_bn(scope, "Conv_3", "BatchNorm_3", f"res{name}_branch1",
+                            f"bn{name}_branch1")
+                blk += 1
+        # FPN lateral 1x1 then output 3x3 convs, in the model's call order
+        for key, layer in (("Conv_1", "fpn_c5p5"), ("Conv_2", "fpn_c4p4"),
+                           ("Conv_3", "fpn_c3p3"), ("Conv_4", "fpn_c2p2"),
+                           ("Conv_5", "fpn_p2"), ("Conv_6", "fpn_p3"),
+                           ("Conv_7", "fpn_p4"), ("Conv_8", "fpn_p5")):
+            conv("backbone", key, layer)
+
+        conv("rpn", "Conv_0", "rpn_conv_shared")
+        kc = _h5_weight(root, "rpn_class_raw", "kernel").astype(np.float32)
+        bc = _h5_weight(root, "rpn_class_raw", "bias").astype(np.float32)
+        put("params/rpn/Conv_1/kernel", kc[..., 1::2] - kc[..., 0::2])
+        put("params/rpn/Conv_1/bias", bc[1::2] - bc[0::2])
+        conv("rpn", "Conv_2", "rpn_bbox_pred")
+
+        # box head: matterport's 7x7-valid and 1x1 convs are dense layers over
+        # the flattened ROI, their BN folded in
+        for i in (1, 2):
+            k = _h5_weight(root, f"mrcnn_class_conv{i}", "kernel").astype(np.float32)
+            b = _h5_weight(root, f"mrcnn_class_conv{i}", "bias").astype(np.float32)
+            k, b = _fold_bn_into_dense(k.reshape(-1, k.shape[-1]), b, root, f"mrcnn_class_bn{i}")
+            put(f"params/box_head/Dense_{i - 1}/kernel", k)
+            put(f"params/box_head/Dense_{i - 1}/bias", b)
+        for key, layer in (("Dense_2", "mrcnn_class_logits"), ("Dense_3", "mrcnn_bbox_fc")):
+            conv("box_head", key, layer)
+
+        for i in range(4):
+            k = _h5_weight(root, f"mrcnn_mask_conv{i + 1}", "kernel").astype(np.float32)
+            b = _h5_weight(root, f"mrcnn_mask_conv{i + 1}", "bias").astype(np.float32)
+            k, b = _fold_bn_into_dense(k, b, root, f"mrcnn_mask_bn{i + 1}")
+            put(f"params/mask_head/Conv_{i}/kernel", k)
+            put(f"params/mask_head/Conv_{i}/bias", b)
+        conv("mask_head", "ConvTranspose_0", "mrcnn_mask_deconv", deconv=True)
+        conv("mask_head", "Conv_4", "mrcnn_mask")
+
+    missing = sorted(set(tmpl) - set(out))
+    if missing:
+        raise ValueError(f"the h5 conversion leaves {len(missing)} variables unset: "
+                         f"{missing[:4]}")
+    return out
+
+
+# ----------------------------------------------------------------------------
 # Training: frozen-BN calibration and the fits
 # ----------------------------------------------------------------------------
 
@@ -871,7 +1035,9 @@ def build_segmenter(spec: str, image_hw=(480, 640), device="cuda") -> TorchSegme
       'flax'            seeded random weights (architecture smoke only; warns)
       'flax:W.npz'      variables of save_variables (either package's), with
                         the model shape from its meta
-      'flax:W.h5'       the reference's Keras weights: not ported (raises)
+      'flax:W.h5'       the reference's Keras mask_rcnn_coco.h5, converted by
+                        convert_keras_h5 (ResNet50; a frame of 384 rows or more
+                        is molded to half size, as the JAX package does)
     """
     if not spec.startswith("flax"):
         raise ValueError(f"unknown segmenter spec '{spec}'")
@@ -879,15 +1045,14 @@ def build_segmenter(spec: str, image_hw=(480, 640), device="cuda") -> TorchSegme
     variables, infer_hw, blocks = None, None, (3, 4, 6, 3)
     if weights:
         if weights.endswith(".h5"):
-            raise NotImplementedError(
-                "--segmenter flax:W.h5: converting the reference's Keras mask_rcnn_coco.h5 is "
-                "not ported to gdslam_tpu_torch yet; see ROADMAP.md section 1, item 12 (a "
-                "save_variables .npz works)")
-        variables = load_variables(weights)
-        meta = load_meta(weights)
-        blocks = tuple(meta.get("blocks", blocks))
-        if "infer_hw" in meta:
-            infer_hw = tuple(meta["infer_hw"])
+            infer_hw = default_infer_hw(image_hw)
+            variables = convert_keras_h5(weights, image_hw=infer_hw)
+        else:
+            variables = load_variables(weights)
+            meta = load_meta(weights)
+            blocks = tuple(meta.get("blocks", blocks))
+            if "infer_hw" in meta:
+                infer_hw = tuple(meta["infer_hw"])
     else:
         warnings.warn("--segmenter flax without weights: the net is "
                       "randomly initialized and its masks are meaningless; "

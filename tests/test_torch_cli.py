@@ -424,9 +424,10 @@ def test_evaluate_geometry_matches_jax(tum_seq, tmp_path, monkeypatch, capsys):
 
 
 def test_clis_refuse_what_is_not_ported(tum_seq, tmp_path, monkeypatch):
-    """A Keras .h5 for the live segmenter raises, naming its ROADMAP item
-    (the segmenter itself is ported: tests/test_torch_segmenter.py runs
-    both drivers with `--segmenter flax:W.npz`); a vocabulary is ported
+    """A Keras .h5 for the live segmenter that is not there fails to open
+    (the segmenter and the .h5 route are ported: tests/test_torch_segmenter.py
+    and tests/test_torch_maskrcnn_h5.py run both drivers with `--segmenter
+    flax:W.npz` and `flax:W.h5`); a vocabulary is ported
     (loop closing and BoW relocalization): `--vocab default` runs
     evaluate's plain mode to the end, and a vocabulary file that is not
     there fails to load."""
@@ -439,9 +440,9 @@ def test_clis_refuse_what_is_not_ported(tum_seq, tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError):
         rgbd_tum.main([str(tmp_path / "missing.npz"), settings, seq_dir, assoc,
                        "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(FileNotFoundError):
         rgbd_tum.main(["none", settings, seq_dir, assoc, "--segmenter", "flax:W.h5",
                        "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(FileNotFoundError):
         evaluate.main([seq_dir, assoc, gt, "--segmenter", "flax:W.h5", "--device", "cpu"])
     assert rgbd_tum.main(["none"]) == 1

@@ -164,16 +164,6 @@ def test_entry_points_default_to_the_card():
             tslam.System(tconfig.SlamConfig())
 
 
-def test_not_ported_entry_points_raise():
-    """What is still to port raises NotImplementedError naming ROADMAP.md:
-    the reference's Keras .h5 weights for the live segmenter (item 12b).
-    Every System entry point is ported (the stereo and monocular sensors
-    too: see test_ported_entry_points_no_longer_raise)."""
-    from gdslam_tpu_torch.models import maskrcnn
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        maskrcnn.build_segmenter("flax:W.h5", image_hw=(120, 160), device="cpu")
-
-
 def test_ported_entry_points_no_longer_raise(tmp_path):
     """The entry points of this slice construct and run: the defaults are the
     JAX package's (local BA and triangulation on), a pipelined tracker is

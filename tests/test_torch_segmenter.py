@@ -226,14 +226,15 @@ def test_evaluate_runs_the_live_segmenter(seq, tmp_path, monkeypatch, capsys):
 
 def test_segmenter_specs():
     """'flax' builds the ResNet50 model on seeded random weights and warns;
-    'flax:W.h5' raises naming its ROADMAP item; other specs are refused. A
-    large frame is molded to half size."""
+    'flax:W.h5' goes to the Keras converter (a file that is not there fails
+    to open; tests/test_torch_maskrcnn_h5.py converts one); other specs are
+    refused. A large frame is molded to half size."""
     with pytest.warns(UserWarning, match="randomly initialized"):
         seg = tm.build_segmenter("flax", image_hw=HW, device="cpu")
     assert seg.model.blocks == (3, 4, 6, 3) and seg.infer_hw == HW
     out = seg(np.zeros(HW + (3,), np.float32))
     assert out.shape == HW and out.dtype == np.float32
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(FileNotFoundError):
         tm.build_segmenter("flax:mask_rcnn_coco.h5", device="cpu")
     with pytest.raises(ValueError, match="unknown segmenter"):
         tm.build_segmenter("detectron", device="cpu")
