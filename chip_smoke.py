@@ -11,7 +11,8 @@ then prints one JSON line per phase:
   device   the card (torch and nvidia-smi);
   build    the nvcc builds of every csrc/*.cu (match_top2, nms_fixed,
            roi_align, roi_align_backward, paste_masks, stereo_match,
-           categorical_draw), one nvcc per source started together, timed,
+           categorical_draw, orb_extract), one nvcc per source started
+           together, timed,
            what ptxas reports for each, and the draw kernel's SASS opcodes;
   kernel   match_top2 (CUDA) against match_top2_plain (PyTorch) on the card,
            exactly, with the kernel choosing its path and with each path
@@ -29,6 +30,21 @@ then prints one JSON line per phase:
            (core/prng.py, held to jax.random on the CPU); its ms through the
            wrapper, on the device, the plain twin's, torch.multinomial's (the
            call it replaced), the numpy replay's host ms and the bound;
+  orb      the ORB front end's four kernels (csrc/orb_extract.cu:
+           orb_fast_cells, orb_quota_select, gaussian_blur7, orb_describe)
+           bitwise against their plain twins, each on the inputs the kernel
+           before it made, and extract bitwise against the twins' whole
+           route, on ops/orb_cases.py's frames (the defaults' static and GD
+           dynamic frames, the stereo cell's left image at 2000 features,
+           the 120x160 rig whose top levels pad, flat, saturated, integer
+           noise, a checkerboard); orb_describe's atan2f and bins on the
+           frame's moment pairs, pairs near the axes and angles next to every
+           bin edge; each kernel's ms through its wrapper, from a CUDA graph,
+           its twin's, its bound and (the blur) one F.conv2d's; extract's ms
+           through the host, device ms, ATen operators and device kernels,
+           the twins' route (the parent's) beside it, old, new, new, old;
+           extract must not wait for the card and dispatch at most 40
+           operators;
   slice    60 rendered 480x640 frames through System.track_rgbd at the
            SlamConfig() defaults (kmax=256, pmax=65536; epipolar
            triangulation and local BA on, as the tracker is constructed):
@@ -166,8 +182,10 @@ then prints one JSON line per phase:
            lost, each slot bitwise its B = 1 run); match_top2 and the draw
            launched on the path and exact against their plain twins on its
            call shapes;
-  stages   per-stage times on the slice's final state (the tracking
-           programs, the keyframe program and its parts, the RANSACs), and
+  stages   per-stage times on the slice's final state (extract, the
+           tracking programs, the keyframe program and its parts, the
+           RANSACs; extract, track_frame_core and keyframe_program must not
+           wait for the card), and
            the kernel timed against its bounds and the launch floor on the
            inputs the tracker gives it at its four call sites and at
            relocalization's all-pairs call;
@@ -197,7 +215,9 @@ then prints one JSON line per phase:
            initialize too).
 
 Then the seconds each phase took (phase_seconds), the card's name and power
-limit as nvidia-smi gives them, the kernels line and, last, the ok line.
+limit as nvidia-smi gives them, the kernels line (each kernel's launches by
+path: every path must launch match_top2 and the four front-end kernels)
+and, last, the ok line.
 Every JSON line is also written whole to chiprun_out/chip_smoke.jsonl. Without
 a card, or when any phase fails, it exits non-zero and prints no ok line.
 
@@ -924,6 +944,348 @@ def draw_ab(torch, dkw, old, lg, rows, fold) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------------
+# the ORB front end: four kernels (csrc/orb_extract.cu) against their twins
+# ----------------------------------------------------------------------------
+
+ORB_KERNELS = ("orb_fast_cells", "orb_quota_select", "gaussian_blur7", "orb_describe")
+ORB_REPLACES = {"orb_fast_cells": "gdslam_tpu/ops/fast.py:59",
+                "orb_quota_select": "gdslam_tpu/frontend/extractor.py:118",
+                "gaussian_blur7": "gdslam_tpu/ops/image.py:32",
+                "orb_describe": "gdslam_tpu/ops/orb.py:100"}
+ORB_REPLACES_NOTE = {
+    "orb_fast_cells": "fast_strength and nms3x3 (fast.py:59, :98), the per-cell fallback and "
+                      "_level_candidates (frontend/extractor.py:50, :97)",
+    "orb_quota_select": "lax.top_k of each level and its zero padding (extractor.py:118-123)",
+    "gaussian_blur7": "gaussian_blur(canvas, 7, 2.0) (extractor.py:91)",
+    "orb_describe": "extract_patches x2, ic_angle_from_patches, the bins, brief_from_patches and "
+                    "pack_bits (orb.py:63, :100, :140, :168)"}
+ORB_NO_LIBRARY = {
+    "orb_fast_cells": "no PyTorch call computes FAST-9/16 strength, a strict 3x3 NMS and a "
+                      "per-cell top two",
+    "orb_quota_select": "no single PyTorch call: torch.topk orders ties its own way, and the "
+                        "stable sort, the padding and the gathers are calls of their own per "
+                        "level",
+    "orb_describe": "no PyTorch call computes an intensity-centroid angle or rBRIEF tests"}
+# The functions' own operations, each one instruction on the FP32 pipes
+# (F32_OPS_PER_S counts an FMA as two, so the instruction rate is half of it).
+# FAST, per level pixel: 32 differences, 4 x 16 mins of the arc doubling per
+# sign (128), the max over 16 arcs per sign (30), the max of the two signs,
+# the border select, two thresholds (4), two 3x3 NMS (18), the fallback, the
+# edge select and ~2 comparisons of the cell's top two: 219. The blur, per
+# canvas pixel: 14 products and 12 sums. The descriptor, per keypoint: the
+# 961 pixels of the disc's square weighted (x3: mask, x, y), 2 x 60 sums,
+# the atan2 (~40) and 256 comparisons of 512 taps.
+FAST_OPS_PER_PIXEL = 219
+BLUR_OPS_PER_PIXEL = 26
+DESC_OPS_PER_KEYPOINT = 3 * 961 + 120 + 40 + 256
+F32_INSTR_PER_S = F32_OPS_PER_S / 2
+ORB_ORDER = ("old", "new", "new", "old")
+
+
+def orb_launches() -> dict:
+    from gdslam_tpu_torch.ops import orb_kernel
+    return {w.__name__: w.launches for w in orb_kernel.WRAPPERS}
+
+
+ORB_BY_PATH: dict = {}         # path -> {kernel: launches}, read where match_top2's are
+
+
+def record_orb(label: str) -> dict:
+    ORB_BY_PATH[label] = orb_launches()
+    return ORB_BY_PATH[label]
+
+
+def c_launch(torch, fn) -> tuple:
+    """The last C launch behind one wrapper call, to repeat without the
+    wrapper: (function, its arguments up to the device, the call's result,
+    kept alive while the launch is repeated)."""
+    from gdslam_tpu_torch.ops import cuda_build
+    seen, real = [], cuda_build.launch
+
+    def spy(name, device, cfn, *a):
+        seen.append((cfn, a))
+        return real(name, device, cfn, *a)
+
+    cuda_build.launch = spy
+    try:
+        keep = fn()
+    finally:
+        cuda_build.launch = real
+    return seen[-1][0], seen[-1][1], keep
+
+
+def aten_ops(torch, fn) -> int:
+    """The non-view ATen operators one call of fn dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not getattr(func, "is_view", False):
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def extract_plain(torch, gray, orb, cam):
+    """The parent's extract on any device: the pyramid, then the four plain
+    twins (the parent's code but for the IC moments' order)."""
+    from gdslam_tpu_torch.frontend.extractor import Features
+    from gdslam_tpu_torch.ops import image, orb as orb_ops, orb_kernel as ok
+    canvas, shapes = image.build_pyramid(gray, cam.height, cam.width, orb.n_levels,
+                                         orb.scale_factor)
+    blurred = image.gaussian_blur(canvas, 7, 2.0)
+    quotas = orb_ops.feature_quotas(orb.n_features, orb.n_levels, orb.scale_factor)
+    cand = ok.fast_cells_plain(canvas, shapes, orb.ini_th_fast, orb.min_th_fast)
+    resp, uv_lv, uv, level, valid = ok.quota_select_plain(*cand, shapes, quotas,
+                                                          orb.scale_factor)
+    angle, desc = ok.describe_plain(canvas, blurred, uv_lv, level)
+    return Features(uv=uv, response=resp, angle=angle, level=level, desc=desc, valid=valid)
+
+
+def differing(torch, got, want) -> int:
+    """Elements of got not bitwise equal to want (floats compared as bits,
+    so -0 against +0 and NaNs count)."""
+    got, want = (torch.as_tensor(got), torch.as_tensor(want))
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return max(got.numel(), want.numel(), 1)
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return int((got != want).sum())
+
+
+def orb_cases(torch, cfg, dev) -> list:
+    """(label, gray [H, W] f32 on dev, OrbConfig, CameraConfig) of every
+    case of ops/orb_cases.py: the defaults on a static and a GD dynamic
+    frame, the stereo cell's left image, the 120x160 rig (padded rows) and
+    the degenerate frames (flat, saturated, integer noise, a checkerboard)."""
+    from gdslam_tpu_torch.ops import orb_cases as oc
+    return [(name, *oc.orb_input(name, dev, cfg)) for name in oc.CASES]
+
+
+def orb_compare(torch, gray, orb, cam) -> tuple[dict, dict]:
+    """Each kernel against its twin on the same inputs (the kernels' chain:
+    each twin gets what the kernel before it made), then extract against the
+    twins' whole route; ({kernel: differing elements}, facts of the case)."""
+    from gdslam_tpu_torch.frontend import extractor
+    from gdslam_tpu_torch.ops import image, orb as orb_ops, orb_kernel as ok
+    canvas, shapes = image.build_pyramid(gray, cam.height, cam.width, orb.n_levels,
+                                         orb.scale_factor)
+    quotas = orb_ops.feature_quotas(orb.n_features, orb.n_levels, orb.scale_factor)
+    blurred = ok.gaussian_blur7(canvas)
+    cand = ok.orb_fast_cells(canvas, shapes, orb.ini_th_fast, orb.min_th_fast)
+    sel = ok.orb_quota_select(*cand, shapes, quotas, orb.scale_factor)
+    desc = ok.orb_describe(canvas, blurred, sel[1], sel[3])
+    want = (image.gaussian_blur(canvas, 7, 2.0),
+            ok.fast_cells_plain(canvas, shapes, orb.ini_th_fast, orb.min_th_fast),
+            ok.quota_select_plain(*cand, shapes, quotas, orb.scale_factor),
+            ok.describe_plain(canvas, blurred, sel[1], sel[3]))
+    got = ((blurred,), cand, sel, desc)
+    diffs = {name: sum(differing(torch, g, w) for g, w in
+                       zip(gs, ws if isinstance(ws, tuple) else (ws,)))
+             for name, gs, ws in zip(("gaussian_blur7", "orb_fast_cells", "orb_quota_select",
+                                      "orb_describe"), got, want)}
+    fk, fp = extractor.extract(gray, orb, cam.height, cam.width), extract_plain(torch, gray, orb,
+                                                                              cam)
+    diffs["extract"] = sum(differing(torch, getattr(fk, f), getattr(fp, f)) for f in fk._fields)
+    torch.cuda.synchronize()
+    n = ok.n_candidates(shapes)
+    facts = dict(shape=[cam.height, cam.width], n_features=orb.n_features, levels=orb.n_levels,
+                 candidates=sum(n), valid=int(fk.valid.sum()),
+                 padded_rows=sum(max(k - c, 0) for k, c in zip(quotas, n)),
+                 zero_response_rows=int((fk.response == 0).sum()))
+    return diffs, facts
+
+
+def angle_checks(torch, dev, gray, orb, cam) -> dict:
+    """orb_describe's atan2f and bins on given values against torch.atan2 and
+    angle_bins on the card (and the bins on the CPU): the frame's 1500
+    moment pairs (its twin's), pairs on and near the axes, at (0, 0) with
+    every sign of zero, and angles within 4 ulps of every bin edge."""
+    from gdslam_tpu_torch.frontend import extractor
+    from gdslam_tpu_torch.ops import image, orb as orb_ops, orb_cases as oc, orb_kernel as ok
+    canvas, shapes = image.build_pyramid(gray, cam.height, cam.width, orb.n_levels,
+                                         orb.scale_factor)
+    f = extractor.extract(gray, orb, cam.height, cam.width)
+    quotas = orb_ops.feature_quotas(orb.n_features, orb.n_levels, orb.scale_factor)
+    sel = ok.orb_quota_select(*ok.orb_fast_cells(canvas, shapes, orb.ini_th_fast,
+                                                 orb.min_th_fast), shapes, quotas,
+                              orb.scale_factor)
+    m10, m01 = ok.ic_moments(orb_ops.extract_patches(canvas, sel[1], level=sel[3]))
+    pairs = oc.axis_moment_pairs()
+    a10 = torch.cat([m10, torch.from_numpy(pairs[:, 0]).to(dev)])
+    a01 = torch.cat([m01, torch.from_numpy(pairs[:, 1]).to(dev)])
+    edges = oc.bin_edge_angles(ok.RCP_BIN)
+    ang_in = torch.from_numpy(np.resize(edges.reshape(-1), a10.shape[0])).to(dev)
+    got_a, got_b = ok.angle_bins_on_card(a10, a01, ang_in)
+    want_a, want_b = torch.atan2(a01, a10), ok.angle_bins(ang_in).to(torch.int32)
+    cpu_b = ok.angle_bins(ang_in.cpu()).to(torch.int32)
+    torch.cuda.synchronize()
+    edge_bins = ok.angle_bins(torch.from_numpy(edges))
+    return dict(frame_pairs=int(m10.shape[0]), extra_pairs=len(pairs),
+                atan2_differing=differing(torch, got_a, want_a),
+                frame_angles_differing=differing(torch, got_a[:m10.shape[0]], f.angle),
+                edge_angles=edges.size,
+                bins_differing=differing(torch, got_b, want_b),
+                bins_differing_cpu=differing(torch, got_b.cpu(), cpu_b),
+                edges_straddled=int((edge_bins[:, 0] != edge_bins[:, -1]).sum()))
+
+
+def orb_bound(torch, name, canvas, shapes, C, N, sel=None, desc_bins=None) -> dict:
+    """The least time the card could take for one call: the larger of the
+    function's bytes (each input read once, each output written once) over
+    3.35 TB/s and its operations over the FP32 instruction rate. The
+    descriptor reads the pixels its keypoints' discs and taps cover, counted
+    from this call's keypoints."""
+    from gdslam_tpu_torch.ops import orb as orb_ops, orb_kernel as ok
+    L, H, W = canvas.shape
+    area = sum(h * w for h, w in shapes)
+    if name == "orb_fast_cells":
+        nbytes, ops = 4 * area + 12 * C, FAST_OPS_PER_PIXEL * area
+    elif name == "orb_quota_select":
+        counts = [c for c in ok.n_candidates(shapes) if c > 1]
+        nbytes = 12 * C + N * (4 + 8 + 8 + 4 + 1)
+        ops = sum(c * int(np.ceil(np.log2(c))) for c in counts)   # a comparison sort's
+    elif name == "gaussian_blur7":
+        nbytes, ops = 8 * L * H * W, BLUR_OPS_PER_PIXEL * L * H * W
+    else:
+        dev = canvas.device
+        u = torch.round(sel[1][:, 0]).long()
+        v = torch.round(sel[1][:, 1]).long()
+        lv = sel[3].long()
+        ys, xs = np.mgrid[-15:16, -15:16]
+        disc = torch.from_numpy(np.stack([ys[ys ** 2 + xs ** 2 <= 225],
+                                          xs[ys ** 2 + xs ** 2 <= 225]])).to(dev)
+        taps = orb_ops._tables_on(dev)[3][desc_bins]                   # [N, 512]
+        tap_dy, tap_dx = taps // 37 - 18, taps % 37 - 18
+
+        def covered(dy, dx):
+            r, c = v[:, None] + dy, u[:, None] + dx
+            ok_ = (r >= 0) & (r < H) & (c >= 0) & (c < W)
+            idx = (lv[:, None] * H + r.clamp(0, H - 1)) * W + c.clamp(0, W - 1)
+            return int(torch.unique(idx[ok_]).numel())
+
+        touched = covered(disc[0][None], disc[1][None]) + covered(tap_dy, tap_dx)
+        nbytes, ops = 4 * touched + N * (12 + 4 + 32), DESC_OPS_PER_KEYPOINT * N
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_INSTR_PER_S * 1e3
+    return dict(bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
+                bytes=nbytes, operations=ops)
+
+
+def orb_timing(torch, gray, orb, cam) -> tuple[dict, dict]:
+    """Each kernel at the case's shapes: ms through its wrapper, on the
+    device alone (its C launch replayed from a CUDA graph), its twin's ms, its
+    bound, and for the blur one F.conv2d with the kernel's 7x7 outer product
+    (not bitwise; TF32 off) as library_ms. Then extract on the same frame,
+    the twins' route (the parent's) and the kernels' in the order old, new,
+    new, old: ms through the host, device ms from a graph, ATen operators
+    and device kernels per call."""
+    from gdslam_tpu_torch.frontend import extractor
+    from gdslam_tpu_torch.ops import image, orb as orb_ops, orb_kernel as ok
+    F = torch.nn.functional
+    canvas, shapes = image.build_pyramid(gray, cam.height, cam.width, orb.n_levels,
+                                         orb.scale_factor)
+    quotas = orb_ops.feature_quotas(orb.n_features, orb.n_levels, orb.scale_factor)
+    blurred = ok.gaussian_blur7(canvas)
+    cand = ok.orb_fast_cells(canvas, shapes, orb.ini_th_fast, orb.min_th_fast)
+    sel = ok.orb_quota_select(*cand, shapes, quotas, orb.scale_factor)
+    angle = ok.orb_describe(canvas, blurred, sel[1], sel[3])[0]
+    C, N = cand[0].shape[0], sel[0].shape[0]
+    calls = {
+        "gaussian_blur7": (lambda: ok.gaussian_blur7(canvas),
+                           lambda: image.gaussian_blur(canvas, 7, 2.0)),
+        "orb_fast_cells": (lambda: ok.orb_fast_cells(canvas, shapes, orb.ini_th_fast,
+                                                     orb.min_th_fast),
+                           lambda: ok.fast_cells_plain(canvas, shapes, orb.ini_th_fast,
+                                                       orb.min_th_fast)),
+        "orb_quota_select": (lambda: ok.orb_quota_select(*cand, shapes, quotas,
+                                                         orb.scale_factor),
+                             lambda: ok.quota_select_plain(*cand, shapes, quotas,
+                                                           orb.scale_factor)),
+        "orb_describe": (lambda: ok.orb_describe(canvas, blurred, sel[1], sel[3]),
+                         lambda: ok.describe_plain(canvas, blurred, sel[1], sel[3]))}
+    out = {}
+    for name, (kern, plain) in calls.items():
+        fn, a, keep = c_launch(torch, kern)
+        t = dict(shape=list(canvas.shape), candidates=C, keypoints=N,
+                 ms=cuda_ms(torch, kern, reps=100), device_ms=graph_ms(torch, fn, a),
+                 plain_ms=cuda_ms(torch, plain, reps=5, windows=3),
+                 launches_per_call=one_launch(torch, getattr(ok, name), kern),
+                 **orb_bound(torch, name, canvas, shapes, C, N, sel,
+                             ok.angle_bins(angle) if name == "orb_describe" else None))
+        del keep
+        if name == "gaussian_blur7":
+            k1 = torch.tensor(ok.BLUR_TAPS, device=canvas.device)
+            k2 = (k1[:, None] * k1[None, :])[None, None]
+            padded = F.pad(canvas[:, None], (3, 3, 3, 3), mode="reflect")
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                conv = lambda: F.conv2d(padded, k2)             # noqa: E731
+                t["library_ms"] = cuda_ms(torch, conv, reps=50)
+                t["library_device_ms"] = graph_call_ms(torch, conv)
+                t["library_max_abs_err"] = float((conv()[:, 0] - blurred).abs().max())
+            t["library_note"] = "one F.conv2d with the 7x7 outer product of the taps on the " \
+                                "reflect-padded canvas (the pad not timed), TF32 off; not bitwise"
+        else:
+            t["library_ms"], t["library_note"] = None, ORB_NO_LIBRARY[name]
+        out[name] = t
+    routes = dict(old=lambda: extract_plain(torch, gray, orb, cam),
+                  new=lambda: extractor.extract(gray, orb, cam.height, cam.width))
+    ms = [cuda_ms(torch, routes[r], reps=10, windows=3) for r in ORB_ORDER]
+    wall = [wall_ms(torch, routes[r]) for r in ORB_ORDER]
+    ext = dict(order=list(ORB_ORDER), ms=ms, wall_ms=wall)
+    for r, fn in routes.items():
+        ext[f"{r}_device_ms"] = graph_call_ms(torch, fn)
+        ext[f"{r}_aten_ops"] = aten_ops(torch, fn)
+        try:
+            ext[f"{r}_device_kernels"] = graph_kernels(torch, fn)
+        except RuntimeError as e:            # a route that cannot be captured
+            ext[f"{r}_device_kernels"] = f"not captured: {str(e)[:120]}"
+    ext["new_sync_sites"] = sync_sites(torch, routes["new"])
+    return out, ext
+
+
+def phase_orb(torch, cfg, dev) -> dict:
+    """The ORB front end's four kernels bitwise against their plain twins on
+    every case of orb_cases, extract against the twins' whole route, the
+    atan2 and bin checks, then each kernel timed and bounded at the
+    defaults and extract's ms, device ms, operators and kernels, the twins'
+    route (the parent's) beside the kernels'. Fails on any differing bit, a
+    degenerate frame with a valid row, a call that is not one launch, more
+    than 40 operators or a wait for the card in extract."""
+    cases, bad = {}, []
+    inputs = orb_cases(torch, cfg, dev)
+    for label, gray, orb, cam in inputs:
+        diffs, facts = orb_compare(torch, gray, orb, cam)
+        cases[label] = dict(differing=diffs, **facts)
+        if any(diffs.values()):
+            bad.append(label)
+    angles = angle_checks(torch, dev, *inputs[0][1:])
+    timing, ext = orb_timing(torch, *inputs[0][1:])
+    res = dict(phase="orb", cases=cases, angles=angles, kernels=timing, extract=ext,
+               card=nvidia_smi_line())
+    emit(res)
+    if bad:
+        fail(f"orb: a kernel differs from its plain twin on {bad}")
+    if any(cases[c]["valid"] for c in ("flat", "saturated")) or \
+            cases["rig"]["padded_rows"] < 1:
+        fail("orb: a flat or saturated frame kept a keypoint, or the rig padded no row")
+    if angles["atan2_differing"] or angles["bins_differing"] or \
+            angles["bins_differing_cpu"] or angles["frame_angles_differing"] or \
+            angles["edges_straddled"] != 30:
+        fail(f"orb: atan2 or the bins differ: {angles}")
+    if not all(t["launches_per_call"]["ok"] for t in timing.values()):
+        fail("orb: a wrapper call is not one launch")
+    if ext["new_aten_ops"] > 40 or ext["new_sync_sites"]:
+        fail(f"orb: extract dispatches {ext['new_aten_ops']} operators or waits for the card "
+             f"at {ext['new_sync_sites']}")
+    return res
+
+
 def phase_kernel(torch, mk, frames, dev, old=None) -> tuple[dict, int]:
     cases = {
         "random_1500x1500": random_args(torch, 1500, 1500, 1, dev),
@@ -1029,13 +1391,14 @@ def sync_sites(torch, fn) -> dict:
             torch.cuda.set_sync_debug_mode("default")
     return dict(collections.Counter(
         f"{Path(w.filename).name}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message)).most_common(12))
+        if "synchroniz" in str(w.message) and "prototype" not in str(w.message)).most_common(12))
 
 
 def reset_launch_counts(mk) -> None:
-    from gdslam_tpu_torch.ops import draw_kernel
+    from gdslam_tpu_torch.ops import draw_kernel, orb_kernel
     mk.match_top2.launches = mk.match_top2.cuda_launches = mk.kp_grid.launches = 0
     draw_kernel.categorical_draw.launches = 0
+    orb_kernel.reset_launch_counts()
 
 
 def draw_launches() -> int:
@@ -1098,6 +1461,7 @@ def phase_slice(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, 
         if T.shape != (4, 4) or not np.isfinite(T).all():
             fail(f"frame {i}: pose is not a finite 4x4")
     launches, cuda_launches = mk.match_top2.launches, mk.match_top2.cuda_launches
+    record_orb(label)
     grids = mk.kp_grid.launches
     traj = tr.camera_trajectory()
     ates = ate_pair(torch, synthetic, metrics, traj, [f.T_wc.cpu().numpy() for f in frames])
@@ -1209,6 +1573,7 @@ def phase_reloc(torch, mk, slam, frames, n_done, cfg, TrackState, solvers, track
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3
     launches, draws = mk.match_top2.launches, draw_launches()
+    record_orb("reloc")
     err_m, err_deg = pose_error(np.asarray(T), fr.T_wc.cpu().numpy(),
                                 frames[0].T_wc.cpu().numpy())
     res = dict(phase="reloc", relocalized=len(calls), state=tr.state.name,
@@ -1454,6 +1819,7 @@ def phase_gd_slice(torch, mk, cfg, frames, raw, System, TrackState, synthetic, m
             torch.cuda.set_sync_debug_mode("default")
     n = tail[-1] + 1
     launches, grids, draws = mk.match_top2.launches, mk.kp_grid.launches, draw_launches()
+    record_orb("gd_slice")
     traj = tr.camera_trajectory()
     recall, iou = mask_quality(masks, frames, tail)
     sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in timed)
@@ -1524,6 +1890,7 @@ def phase_gd_staged(torch, mk, cfg, frames, raw, System, TrackState, synthetic, 
     traj = slam.tracker.camera_trajectory()
     recall, iou = mask_quality(masks[10:], frames, range(10, n))
     steady = sorted(times[10:])
+    record_orb("gd_staged")
     res = dict(phase="gd_staged", frames=n, pipeline=False, dynamic_scene=True,
                all_ok=all(s == TrackState.OK for s in states),
                frame_ms_median=statistics.median(steady), frame_ms_max=steady[-1],
@@ -1735,6 +2102,7 @@ def phase_geom_slice(torch, mk, cfg, frames, System, TrackState, synthetic, metr
     recall, iou = mask_quality(masks, frames, tail)
     sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in timed)
     n_timed = 3 * GEOM_WINDOW
+    record_orb("geom_slice")
     res = dict(phase="geom_slice", frames=n, warmup_frames=warm, timed_frames=n_timed,
                quality_frames=[tail[0], tail[-1]], width=cfg.camera.width,
                height=cfg.camera.height, n_features=cfg.orb.n_features, kmax=256, pmax=65536,
@@ -1794,6 +2162,7 @@ def phase_geom_staged(torch, mk, cfg, frames, System, TrackState, synthetic, met
             shares.append(share)
     traj = slam.tracker.camera_trajectory()
     steady = sorted(times[5:])
+    record_orb("geom_staged")
     res = dict(phase="geom_staged", frames=n, pipeline=False, dynamic_scene=True,
                input="rgb + depth on the card",
                all_ok=all(s == TrackState.OK for s in states),
@@ -1847,6 +2216,7 @@ def phase_gd_inpaint(torch, mk, cfg, frames, System, TrackState, synthetic, metr
     slam.shutdown()
     traj = slam.tracker.camera_trajectory()
     steady = sorted(times[5:])
+    record_orb("gd_inpaint")
     res = dict(phase="gd_inpaint", frames=n, pipeline=True, commit_every=3,
                input="uint8 rgb + uint16 depth from the host", semantic_mask=None,
                all_ok=slam.tracking_state == TrackState.OK
@@ -2089,6 +2459,7 @@ def phase_cli(torch, mk, cfg, frames, metrics, dev, seg_weights: Path) -> dict:
         if rc != 0 or not (rec["associated"] >= CLI_FRAMES - 4 and rec["ate_rmse_m"] < gate
                            and rec["rpe_rmse_m"] < 0.5 and "mask_iou" in rec):
             fail(f"cli: evaluate --mode {mode}: {rec} (ATE gate {gate} m)")
+    record_orb("cli")
     res = dict(phase="cli", frames=CLI_FRAMES, width=cfg.camera.width,
                height=cfg.camera.height, write_s=write_s,
                native_loader=native_loader.available(),
@@ -2168,11 +2539,13 @@ def phase_stages(torch, mk, slam, frame, cfg, modules, ransacs, old=None):
         return lambda: tracking.keyframe_program(arena, fr, T2, assoc2, 99.0, cfg, use_tri,
                                                  use_ba, kf_id=kf_id)
 
-    # the tracking programs and the keyframe program wait for the card nowhere
+    # extract, the tracking programs and the keyframe program wait for the card nowhere
     # (the keyframe program when it is given the cursor)
-    for name, fn in (("track_frame_core", lambda: tracking.track_frame_core(
-            arena, last, vel, True, fr, cfg, tr.ref_kf)), ("keyframe_program",
-                                                           full_keyframe(True, True))):
+    for name, fn in (("extract", lambda: extractor.extract(frame.gray, cfg.orb, cam.height,
+                                                          cam.width)),
+                     ("track_frame_core", lambda: tracking.track_frame_core(
+                         arena, last, vel, True, fr, cfg, tr.ref_kf)),
+                     ("keyframe_program", full_keyframe(True, True))):
         sites = sync_sites(torch, fn)
         if sites:
             fail(f"{name} synchronises with the card at {sites}")
@@ -2472,6 +2845,7 @@ def phase_loop(torch, mk, cfg, frames, System, TrackState, synthetic, metrics, d
     kf_pose = tr.arena.kf_pose[:n_kf].cpu().numpy()
     ms = probe.medians()
     kf_ms, lc_ms = probe.ms["_do_keyframe"], probe.ms["process_keyframe"]
+    record_orb(label)
     res = dict(phase=label, frames=len(frames), width=cfg.camera.width,
                height=cfg.camera.height, n_features=cfg.orb.n_features, kmax=kmax,
                pmax=pmax, vocabulary="default", drift_at=LOOP_DRIFT_AT, jax_cpu=reference,
@@ -2557,6 +2931,7 @@ def phase_loop_reloc(torch, mk, slam, frame, idx: int, kdb, loop_closing, TrackS
         tr.arena.kf_pose[k].cpu().numpy()
     err_m, err_deg = pose_error_to(T, expected)
     gt_m, gt_deg = pose_error_to(T, gt_cw(idx))
+    record_orb(label)
     res = dict(phase=label, frame=idx, state=tr.state.name, n_inliers=tr.n_inliers,
                region_keyframe=k, region_keyframe_frame=kf_frame, err_m=err_m, err_deg=err_deg,
                err_to_renderer_m=gt_m, err_to_renderer_deg=gt_deg, frame_ms=frame_ms,
@@ -2980,6 +3355,7 @@ def phase_seg(torch, mk, cfg, frames, System, synthetic, metrics, dev, weights: 
         seg_ms.append((t1 - t0) * 1e3)
         cover.append(float(dyn.mean()))
     slam.shutdown()
+    record_orb("seg")
     launches = dict(nms_fixed=dk.nms_fixed.launches, roi_align=dk.roi_align.launches,
                     paste_masks=dk.paste_masks.launches, match_top2=mk.match_top2.launches)
     if min(launches.values()) < 1:
@@ -3584,6 +3960,7 @@ def phase_seg_toy(torch, mk, cfg, dev, metrics) -> dict:
             recalls.append(float((est & gt).sum() / gt.sum()))
             ious.append(float((est & gt).sum() / (est | gt).sum()))
     ate, rows = trajectory_file_ate(base / "run" / "CameraTrajectory.txt", gts, metrics)
+    record_orb("seg_toy")
     res = dict(phase="seg_toy", image_hw=list(TOY_HW), blocks=[1, 1, 1, 1], pre_nms=256,
                post_nms=32, max_det=8, fit_images=int(data["images"].shape[0]),
                steps=TOY_STEPS, lr=TOY_LR, fit_s=fit_s, final_loss_mean=float(np.mean(final)),
@@ -3924,6 +4301,7 @@ def phase_stereo(torch, mk, cfg, dev, mods, old=None) -> tuple[dict, dict]:
         return stereo_kitti_run(torch, mk, mods, argv, base / label)
 
     depths, slam, calls, text, run_s = run("run")
+    record_orb("stereo")
     launches = dict(stereo_match=stereo.stereo_match.launches,
                     match_top2=mk.match_top2.launches)
     ate, n_rows = kitti_rows_ate(base / "run" / "CameraTrajectory.txt", gts, metrics)
@@ -4087,6 +4465,7 @@ def phase_mono(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
 
     inits, boots, slam, text, run_s = run("run")
     launches = dict(match_top2=mk.match_top2.launches, categorical_draw=draw_launches())
+    record_orb("mono")
     tr = slam.tracker
     ok_calls = [i for i, (_, _, o) in enumerate(inits) if bool(o.ok)]
     boot = ok_calls[0] if ok_calls else None
@@ -4196,6 +4575,7 @@ def phase_mono_loop(torch, mk, cfg, dev, mods) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = mk.match_top2.launches
+    record_orb("mono_loop")
     res = dict(phase="mono_loop", frames=MONO_LOOP_FRAMES, width=320, height=240,
                n_features=512, run_s=run_s, state=tr.state.name, keyframes=tr.n_kf_host,
                loops_fired=len(lc.loops), match_top2_launches=launches)
@@ -4513,6 +4893,7 @@ def phase_batch(torch, mk, cfg, dev, mods) -> dict:
 
         gd_top2 = record_top2_calls(geomask, run_gd)
     launches = dict(match_top2=mk.match_top2.launches, categorical_draw=draw_launches())
+    record_orb("batch")
     seconds = dict(render=render_s, runs=time.perf_counter() - t_runs)
     t_checks = time.perf_counter()
 
@@ -4673,6 +5054,7 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
     kres, err = phase_kernel(torch, mk, kframes, dev, old)
     emit(kres)
     drawres = phase_draw(torch, dev)
+    orbres = phase_orb(torch, cfg, dev)
 
     slice_args = (cfg, frames[:n_frames], System, TrackState, synthetic, metrics, dev, keyframes)
     slam, sres = phase_slice(torch, mk, *slice_args, modules=(mapping, ba))
@@ -4942,6 +5324,23 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
             "shape", "ms", "device_ms", "plain_ms", "bound_ms")},
         "redesigned": "a CTA a row over 4 warps, two hash chains a thread, the "
                       "noise store in its own variant"})
+    orb_lines = []
+    for name in ORB_KERNELS:
+        t = orbres["kernels"][name]
+        by = {path: counts[name] for path, counts in ORB_BY_PATH.items()}
+        orb_lines.append({
+            "name": name, "route": "cuda", "source": "gdslam_tpu_torch/csrc/orb_extract.cu",
+            "replaces": ORB_REPLACES[name],
+            "replaces_note": ORB_REPLACES_NOTE[name] + "; XLA-fused in the JAX package's "
+                             "extract, no Pallas",
+            "launches": by["gd_slice"], "launches_by_path": by,
+            "max_abs_err": float(max(c["differing"][name] for c in orbres["cases"].values())),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_note": t["library_note"], "device_ms": t["device_ms"],
+            "shape": t["shape"], "exact_on": list(orbres["cases"])})
+    if min(n for line in orb_lines for n in line["launches_by_path"].values()) < 1:
+        fail(f"a path launched no front-end kernel: {ORB_BY_PATH}")
     top2_sites = path_calls + loop_calls + stres["match_top2_call_sites"] + \
         mores["bootstrap_match"]["call_sites"] + bres["match_top2_call_sites"]
     emit(dict(phase="phase_seconds", seconds=dict(PHASE_SECONDS),
@@ -4968,7 +5367,7 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "shape": [local_map["M"], local_map["N"]], "role": local_map["role"],
         "call_sites": [{k: c[k] for k in ("role", "M", "N", "path", "ms", "device_ms",
                                           "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
-                       for c in top2_sites]}, *detect_lines]})
+                       for c in top2_sites]}, *detect_lines, *orb_lines]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("match_top2", "nms_fixed", "roi_align", "roi_align_backward", "paste_masks",
-           "stereo_match", "categorical_draw")
+           "stereo_match", "categorical_draw", "orb_extract")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

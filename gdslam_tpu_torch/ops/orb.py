@@ -66,10 +66,11 @@ def _np_bin_taps() -> np.ndarray:
 _BIN_TAPS = _np_bin_taps()
 
 
-def extract_patches(img: torch.Tensor, uv: torch.Tensor,
-                    size: int = PATCH_EXT) -> torch.Tensor:
-    """[K, size, size] patches centered at round(uv), out-of-image = 0."""
-    H, W = img.shape
+def extract_patches(img: torch.Tensor, uv: torch.Tensor, size: int = PATCH_EXT,
+                    level: torch.Tensor | None = None) -> torch.Tensor:
+    """[K, size, size] patches centered at round(uv), out-of-image = 0. img:
+    [H, W], or a canvas [L, H, W] with each keypoint's level [K] in it."""
+    H, W = img.shape[-2:]
     half = size // 2
     off = torch.arange(-half, half + 1, device=img.device)
     u = torch.round(uv[:, 0]).to(torch.int64)
@@ -79,6 +80,8 @@ def extract_patches(img: torch.Tensor, uv: torch.Tensor,
     inside = ((rows >= 0) & (rows < H))[:, :, None] & \
         ((cols >= 0) & (cols < W))[:, None, :]
     flat = rows.clamp(0, H - 1)[:, :, None] * W + cols.clamp(0, W - 1)[:, None, :]
+    if level is not None:
+        flat = flat + (level.to(torch.int64) * (H * W))[:, None, None]
     vals = img.reshape(-1)[flat]
     return torch.where(inside, vals, torch.zeros((), dtype=img.dtype, device=img.device))
 
@@ -89,35 +92,6 @@ def _tables_on(device: torch.device):
     `device`, uploaded once (a host array sent to the card is a blocking
     copy, which waits for the card on every use). Read-only."""
     return tuple(torch.from_numpy(t).to(device) for t in (_IC_MASK, _IC_X, _IC_Y, _BIN_TAPS))
-
-
-def ic_angle_from_patches(patches: torch.Tensor) -> torch.Tensor:
-    """Orientation from [K, 37, 37] patches (31x31 circular interior)."""
-    dev = patches.device
-    inner = patches[:, 3:3 + PATCH, 3:3 + PATCH].float()
-    mask, xs, ys, _ = _tables_on(dev)
-    w = inner * mask
-    m10 = torch.sum(w * xs, dim=(1, 2))
-    m01 = torch.sum(w * ys, dim=(1, 2))
-    return torch.atan2(m01, m10)
-
-
-def angle_bins(angle: torch.Tensor) -> torch.Tensor:
-    """Rotation bin per keypoint: round(angle / 12 deg) mod 30 (half to
-    even, as jnp.round)."""
-    return torch.remainder(torch.round(angle / (2 * np.pi / N_ANGLE_BINS)).to(torch.int64),
-                           N_ANGLE_BINS)
-
-
-def brief_from_patches(patches: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
-    """Packed [K, 32] uint8 descriptors from [K, 37, 37] patches + angles:
-    bit i = I(tap 2i) < I(tap 2i+1) with the pattern rotated into the
-    keypoint's bin."""
-    K = patches.shape[0]
-    flat = patches.reshape(K, -1).float()
-    taps = _tables_on(patches.device)[3][angle_bins(angle)]             # [K, 512]
-    V = torch.gather(flat, 1, taps)
-    return pack_bits(V[:, 0::2] < V[:, 1::2])
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,9 @@ from gdslam_tpu_torch.masking import geomask, geometry
 from gdslam_tpu_torch.models import maskrcnn
 from gdslam_tpu_torch.ops import detect_cases, detect_kernels, match_kernel
 from gdslam_tpu_torch.ops import draw_kernel, stereo_cases
+from gdslam_tpu_torch.ops import image as image_ops
+from gdslam_tpu_torch.ops import orb as orb_ops
+from gdslam_tpu_torch.ops import orb_cases, orb_kernel
 from gdslam_tpu_torch.ops.stereo_cases import stereo_inputs
 from gdslam_tpu_torch.system import slam as slam_mod
 from gdslam_tpu_torch.system import tracking
@@ -1212,3 +1215,175 @@ def test_paste_kernel_tile_lists_on_adversarial_boxes(card, seed):
         got = detect_kernels.paste_masks(det, (H, W), dyn)
         assert detect_kernels.paste_masks.launches == before + 1
         assert torch.equal(got, detect_kernels.paste_masks_plain(det, (H, W), dyn))
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same(got, want) -> bool:
+    """Bitwise equal (floats as their bits: -0 against +0 and NaNs count)."""
+    return got.shape == want.shape and got.dtype == want.dtype and \
+        torch.equal(_bits(got), _bits(want))
+
+
+def _orb_levels(gray, orb, cam):
+    canvas, shapes = image_ops.build_pyramid(gray, cam.height, cam.width, orb.n_levels,
+                                             orb.scale_factor)
+    return canvas, shapes, orb_ops.feature_quotas(orb.n_features, orb.n_levels,
+                                                  orb.scale_factor)
+
+
+@pytest.mark.parametrize("case", orb_cases.CASES)
+def test_orb_kernels_equal_plain(card, case):
+    """The front end's four kernels bitwise their plain twins on the card,
+    each on the inputs the kernel before it made: the defaults' static and
+    GD dynamic frames, the stereo cell's left image (2000 features, 3542
+    candidates at level 0), the 120x160 rig (levels 1-3 padded: candidate
+    0's uv, response 0), flat and saturated frames (every row invalid),
+    integer noise and a checkerboard (tied strengths); then extract bitwise
+    the twins' whole route, one launch of each kernel a call."""
+    gray, orb, cam = orb_cases.orb_input(case, card)
+    canvas, shapes, quotas = _orb_levels(gray, orb, cam)
+    blurred = orb_kernel.gaussian_blur7(canvas)
+    assert _same(blurred, image_ops.gaussian_blur(canvas, 7, 2.0))
+    cand = orb_kernel.orb_fast_cells(canvas, shapes, orb.ini_th_fast, orb.min_th_fast)
+    for g, w in zip(cand, orb_kernel.fast_cells_plain(canvas, shapes, orb.ini_th_fast,
+                                                      orb.min_th_fast)):
+        assert _same(g, w)
+    sel = orb_kernel.orb_quota_select(*cand, shapes, quotas, orb.scale_factor)
+    for g, w in zip(sel, orb_kernel.quota_select_plain(*cand, shapes, quotas, orb.scale_factor)):
+        assert _same(g, w)
+    for g, w in zip(orb_kernel.orb_describe(canvas, blurred, sel[1], sel[3]),
+                    orb_kernel.describe_plain(canvas, blurred, sel[1], sel[3])):
+        assert _same(g, w)
+    before = [w.launches for w in orb_kernel.WRAPPERS]
+    f = extractor.extract(gray, orb, cam.height, cam.width)
+    assert [w.launches - b for w, b in zip(orb_kernel.WRAPPERS, before)] == [1, 1, 1, 1]
+    pad = sum(max(k - c, 0) for k, c in zip(quotas, orb_kernel.n_candidates(shapes)))
+    resp, uv_lv, uv, level, valid = orb_kernel.quota_select_plain(
+        *orb_kernel.fast_cells_plain(canvas, shapes, orb.ini_th_fast, orb.min_th_fast),
+        shapes, quotas, orb.scale_factor)
+    angle, desc = orb_kernel.describe_plain(canvas, image_ops.gaussian_blur(canvas, 7, 2.0),
+                                            uv_lv, level)
+    for name, want in zip(f._fields, (uv, resp, angle, level, desc, valid)):
+        assert _same(getattr(f, name), want), name
+    if case in ("flat", "saturated"):
+        assert not f.valid.any() and not f.response.any()
+    if case == "rig":
+        assert pad > 0 and int((f.response == 0).sum()) >= pad
+    else:
+        assert pad == 0
+
+
+def test_orb_atan2_and_bins_on_card(card):
+    """orb_describe's own atan2f and rotation bins (one device function with
+    the kernel's) against torch.atan2 and angle_bins on the card and the
+    bins on the CPU: the rendered frame's 1500 moment pairs, pairs on and
+    near the axes and at (0, 0) with every sign of zero, and angles within
+    4 ulps of each of the 30 bin edges (each edge straddled)."""
+    gray, orb, cam = orb_cases.orb_input("rendered", card)
+    canvas, shapes, quotas = _orb_levels(gray, orb, cam)
+    sel = orb_kernel.orb_quota_select(
+        *orb_kernel.orb_fast_cells(canvas, shapes, orb.ini_th_fast, orb.min_th_fast),
+        shapes, quotas, orb.scale_factor)
+    m10, m01 = orb_kernel.ic_moments(orb_ops.extract_patches(canvas, sel[1], level=sel[3]))
+    pairs = torch.from_numpy(orb_cases.axis_moment_pairs()).to(card)
+    a10, a01 = torch.cat([m10, pairs[:, 0]]), torch.cat([m01, pairs[:, 1]])
+    edges = orb_cases.bin_edge_angles(orb_kernel.RCP_BIN)
+    ang = torch.from_numpy(np.resize(edges.reshape(-1), a10.shape[0])).to(card)
+    got_a, got_b = orb_kernel.angle_bins_on_card(a10, a01, ang)
+    assert _same(got_a, torch.atan2(a01, a10))
+    assert torch.equal(got_b, orb_kernel.angle_bins(ang).int())
+    assert torch.equal(got_b.cpu(), orb_kernel.angle_bins(ang.cpu()).int())
+    edge_bins = orb_kernel.angle_bins(torch.from_numpy(edges))
+    assert bool((edge_bins[:, 0] != edge_bins[:, -1]).all())
+    f = extractor.extract(gray, orb, cam.height, cam.width)
+    assert _same(f.angle, got_a[:m10.shape[0]])
+
+
+def test_extract_waits_for_nothing(card):
+    """extract on the card under torch's sync debug mode "error" (after a
+    first call has uploaded its tables): no read, no upload; and at most 40
+    ATen operators a call (the pyramid's and the kernels' outputs)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    gray, orb, cam = orb_cases.orb_input("rendered", card)
+    extractor.extract(gray, orb, cam.height, cam.width)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        f = extractor.extract(gray, orb, cam.height, cam.width)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += not getattr(func, "is_view", False)
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        extractor.extract(gray, orb, cam.height, cam.width)
+    assert Count.n <= 40, Count.n
+    assert int(f.valid.sum()) == orb.n_features
+
+
+@pytest.mark.parametrize("name", ["gaussian_blur7", "orb_fast_cells", "orb_quota_select",
+                                  "orb_describe"])
+def test_orb_wrappers_raise_without_the_library(card, monkeypatch, name):
+    """On real CUDA tensors: with the library loader failing each front-end
+    wrapper raises, counts no launch and never takes its plain version."""
+    from gdslam_tpu_torch.ops import cuda_build
+
+    def missing(lib_name, declare):
+        raise RuntimeError(f"{lib_name}: library missing")
+
+    gray, orb, cam = orb_cases.orb_input("rig", card)
+    canvas, shapes, quotas = _orb_levels(gray, orb, cam)
+    cand = orb_kernel.orb_fast_cells(canvas, shapes, orb.ini_th_fast, orb.min_th_fast)
+    sel = orb_kernel.orb_quota_select(*cand, shapes, quotas, orb.scale_factor)
+    monkeypatch.setattr(cuda_build, "load", missing)
+    for plain in ("fast_cells_plain", "quota_select_plain", "describe_plain"):
+        monkeypatch.setattr(orb_kernel, plain,
+                            lambda *a, **k: pytest.fail("fell back to the plain version"))
+    monkeypatch.setattr(image_ops, "gaussian_blur",
+                        lambda *a, **k: pytest.fail("fell back to the plain version"))
+    call = {"gaussian_blur7": lambda: orb_kernel.gaussian_blur7(canvas),
+            "orb_fast_cells": lambda: orb_kernel.orb_fast_cells(canvas, shapes, 20, 7),
+            "orb_quota_select": lambda: orb_kernel.orb_quota_select(*cand, shapes, quotas, 1.2),
+            "orb_describe": lambda: orb_kernel.orb_describe(canvas, canvas, sel[1], sel[3])}[name]
+    wrapper = getattr(orb_kernel, name)
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="library missing"):
+        call()
+    assert wrapper.launches == before
+
+
+def test_stereo_slice_on_card_tracks_like_cpu(card):
+    """8 pairs of the static scene at the 120x160 rig (the right view
+    shifted by the baseline) through System.track_stereo on the card and on
+    the CPU: both OK, ATEs within 5 mm of each other and under 5 cm (the
+    CPU gives 1.03 cm at this size; the JAX stereo test's gate is 10 cm),
+    keyframes within two (the pyramid's products sum in another order on
+    the card, which moves a few descriptor bits and so some matches)."""
+    cam = CameraConfig(fx=160.0, fy=160.0, cx=80.0, cy=60.0, width=160, height=120, bf=12.8)
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=384, n_levels=4))
+    shift = torch.eye(4)
+    shift[0, 3] = cam.bf / cam.fx
+    runs = {}
+    for dev in ("cpu", card):
+        s = System(cfg, kmax=32, pmax=16384, device=dev)
+        gt = []
+        for i in range(8):
+            T = synthetic.gt_pose(i, 30.0, dev)
+            left = synthetic.render(T, cam, False, 30.0, i).gray
+            right = synthetic.render(T @ shift.to(dev), cam, False, 30.0, i).gray
+            s.track_stereo(left, right, i / 30.0)
+            gt.append(T.cpu().numpy())
+        assert s.tracking_state.name == "OK"
+        est = np.stack([T[:3, 3] for _, T in s.tracker.camera_trajectory()])
+        gtp = np.stack([(np.linalg.inv(gt[0]) @ T)[:3, 3] for T in gt])
+        runs[str(dev)] = (s.keyframe_count, metrics.ate_rmse(est, gtp))
+    (kc, ac), (kg, ag) = runs.values()
+    assert abs(kc - kg) <= 2 and abs(ac - ag) < 0.005 and max(ac, ag) < 0.05, runs
