@@ -37,7 +37,8 @@ then prints one JSON line per phase:
            route, on ops/orb_cases.py's frames (the defaults' static and GD
            dynamic frames, the stereo cell's left image at 2000 features,
            the 120x160 rig whose top levels pad, flat, saturated, integer
-           noise, a checkerboard); orb_describe's atan2f and bins on the
+           noise, a checkerboard) and orb_quota_select alone on its edges
+           (ops/orb_cases.QUOTA_CASES); orb_describe's atan2f and bins on the
            frame's moment pairs, pairs near the axes and angles next to every
            bin edge; each kernel's ms through its wrapper, from a CUDA graph,
            its twin's, its bound and (the blur) one F.conv2d's; extract's ms
@@ -155,12 +156,15 @@ then prints one JSON line per phase:
   mono     the monocular tracker with the SlamConfig() defaults at 480 x 640
            on every second frame of the static scene (60 frames), written as
            a TUM monocular layout of RGB PNGs, through cli/mono_tum.py
-           in-process: the bootstrap succeeds (its frame, used_homography),
-           OK at the end, map points made after the bootstrap pair, the
+           in-process: the bootstrap succeeds at the JAX package's frame 2
+           (its used_homography), OK at the end, 11 +- 1 keyframes (the JAX
+           package's), map points made after the bootstrap pair, the
            scale-aligned keyframe ATE at most 1.5 x the JAX package's + 1 cm;
            the bootstrap's all-pairs match_top2 call exact (both paths) and
-           its JAX index rule as on the CPU; initialize's ms, repeat and the
-           SVD batches' ms;
+           its JAX index rule as on the CPU; initialize's ms, repeat, the CPU
+           route's result on the same inputs (the same model choice and good
+           points), its waits for the card (the 8-point systems' copy out and
+           back two of them) and the SVD batches' ms;
   mono_loop
            tests/test_loop_e2e.py::test_mono_scale_drift_corrected on the card
            at its 320x240 rig with the default vocabulary: 170 mono frames
@@ -238,6 +242,7 @@ import copy
 import ctypes
 import dataclasses
 import hashlib
+import inspect
 import json
 import os
 import shutil
@@ -969,14 +974,24 @@ ORB_NO_LIBRARY = {
     "orb_describe": "no PyTorch call computes an intensity-centroid angle or rBRIEF tests"}
 # The functions' own operations, each one instruction on the FP32 pipes
 # (F32_OPS_PER_S counts an FMA as two, so the instruction rate is half of it).
-# FAST, per level pixel: 32 differences, 4 x 16 mins of the arc doubling per
-# sign (128), the max over 16 arcs per sign (30), the max of the two signs,
-# the border select, two thresholds (4), two 3x3 NMS (18), the fallback, the
-# edge select and ~2 comparisons of the cell's top two: 219. The blur, per
-# canvas pixel: 14 products and 12 sums. The descriptor, per keypoint: the
-# 961 pixels of the disc's square weighted (x3: mask, x, y), 2 x 60 sums,
-# the atan2 (~40) and 256 comparisons of 512 taps.
-FAST_OPS_PER_PIXEL = 219
+# FAST, per strength position (the cells and their 1-px halo, 3 px or more
+# inside the level): the compass test (taps 0, 4, 8, 12: 4 differences, 6
+# min / max, 2 comparisons) and the border select, 13; per cell pixel: two
+# thresholds (4), two 3x3 NMS on shared row maxima (14), the fallback, the
+# edge select and ~2 comparisons of the cell's top two, 22; and per sign
+# that passes the compass test at a position (counted on this run's canvas;
+# no other can exceed the thresholds): the 16 arcs' minima by doubling (64),
+# their extreme (15), the centre's difference and the strength's select,
+# 81. Without the compass test every level pixel takes both signs' arcs (the
+# function-level count of the kernel's first design): 32 differences, 128 +
+# 30 min / max, ~29 more: 219. The blur, per canvas pixel: 14 products and
+# 12 sums. The descriptor, per keypoint: the 961 pixels of the disc's square
+# weighted (x3: mask, x, y), 2 x 60 sums, the atan2 (~40) and 256
+# comparisons of 512 taps.
+FAST_OPS_PER_POSITION = 13
+FAST_OPS_PER_CELL_PIXEL = 22
+FAST_ARC_OPS = 81
+FAST_OPS_ALL_ARCS = 219
 BLUR_OPS_PER_PIXEL = 26
 DESC_OPS_PER_KEYPOINT = 3 * 961 + 120 + 40 + 256
 F32_INSTR_PER_S = F32_OPS_PER_S / 2
@@ -1136,17 +1151,55 @@ def angle_checks(torch, dev, gray, orb, cam) -> dict:
                 edges_straddled=int((edge_bins[:, 0] != edge_bins[:, -1]).sum()))
 
 
-def orb_bound(torch, name, canvas, shapes, C, N, sel=None, desc_bins=None) -> dict:
+def fast_compass_passes(torch, canvas, shapes, th: float) -> dict:
+    """On each level, the strength positions a cell reads (its pixels and
+    their 1-px halo, 3 px or more inside the level; fast_strength is 0
+    nearer the edge), the cells' pixels, and the positions whose compass
+    taps (0, 4, 8, 12 of the FAST circle) hold two neighbours both brighter
+    than the centre by more than th (bright), or both darker (dark): the
+    only signs whose strength can exceed th (every 9-arc holds two
+    neighbouring compass taps). Summed over the levels."""
+    n = dict(positions=0, cell_pixels=0, bright=0, dark=0)
+    for lv, (h, w) in enumerate(shapes):
+        ch, cw = h // 16 * 16, w // 16 * 16
+        y1, x1 = min(ch + 1, h - 3), min(cw + 1, w - 3)
+        n["cell_pixels"] += ch * cw
+        if y1 <= 3 or x1 <= 3:
+            continue
+        img = canvas[lv, :h, :w]
+        c = img[3:y1, 3:x1]
+        taps = (img[0:y1 - 3, 3:x1], img[3:y1, 6:x1 + 3], img[6:y1 + 3, 3:x1],
+                img[3:y1, 0:x1 - 3])
+        b = [(t - c) > th for t in taps]
+        d = [(c - t) > th for t in taps]
+        n["positions"] += c.numel()
+        n["bright"] += int(((b[0] | b[2]) & (b[1] | b[3])).sum())
+        n["dark"] += int(((d[0] | d[2]) & (d[1] | d[3])).sum())
+    return n
+
+
+def orb_bound(torch, name, canvas, shapes, C, N, sel=None, desc_bins=None,
+              th: float | None = None) -> dict:
     """The least time the card could take for one call: the larger of the
     function's bytes (each input read once, each output written once) over
     3.35 TB/s and its operations over the FP32 instruction rate. The
     descriptor reads the pixels its keypoints' discs and taps cover, counted
-    from this call's keypoints."""
+    from this call's keypoints; FAST takes a sign's arcs only where that
+    sign's compass taps pass at th, counted on this call's canvas over the
+    positions the cells read (beside it, the bound with both signs' arcs on
+    every level pixel)."""
     from gdslam_tpu_torch.ops import orb as orb_ops, orb_kernel as ok
     L, H, W = canvas.shape
     area = sum(h * w for h, w in shapes)
+    extra = {}
     if name == "orb_fast_cells":
-        nbytes, ops = 4 * area + 12 * C, FAST_OPS_PER_PIXEL * area
+        n = fast_compass_passes(torch, canvas, shapes, th)
+        nbytes = 4 * area + 12 * C
+        ops = FAST_OPS_PER_POSITION * n["positions"] + \
+            FAST_OPS_PER_CELL_PIXEL * n["cell_pixels"] + FAST_ARC_OPS * (n["bright"] + n["dark"])
+        extra = dict(compass=n, level_pixels=area,
+                     bound_all_arcs_ms=max(nbytes / HBM_BYTES_PER_S,
+                                           FAST_OPS_ALL_ARCS * area / F32_INSTR_PER_S) * 1e3)
     elif name == "orb_quota_select":
         counts = [c for c in ok.n_candidates(shapes) if c > 1]
         nbytes = 12 * C + N * (4 + 8 + 8 + 4 + 1)
@@ -1174,17 +1227,83 @@ def orb_bound(torch, name, canvas, shapes, C, N, sel=None, desc_bins=None) -> di
         nbytes, ops = 4 * touched + N * (12 + 4 + 32), DESC_OPS_PER_KEYPOINT * N
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_INSTR_PER_S * 1e3
     return dict(bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
-                bytes=nbytes, operations=ops)
+                bytes=nbytes, operations=ops, **extra)
 
 
-def orb_timing(torch, gray, orb, cam) -> tuple[dict, dict]:
+def host_us(torch, fn, reps: int = 200, windows: int = 5) -> float:
+    """Median over `windows` of host microseconds per call over `reps`
+    calls; nothing waits for the card inside a window."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        per.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per)
+
+
+def quota_wrapper_host(torch, scores, cand_uv, shapes, quotas, scale) -> dict:
+    """Where orb_quota_select's host time goes: host us per call of the
+    whole wrapper and of its parts replayed alone, as the wrapper runs them:
+    the argument checks, the ctypes level tables (heights, widths, quotas,
+    scales), the five output tensors, and the C launch with its arguments
+    ready (ctypes' conversion of 14 arguments, the stream's lookup, the
+    kernel's launch)."""
+    from gdslam_tpu_torch.ops import cuda_build, orb_kernel as ok
+    name, dev = "orb_quota_select", scores.device
+    C, N = scores.shape[0], sum(quotas)
+    fn, a, keep = c_launch(torch, lambda: ok.orb_quota_select(scores, cand_uv, shapes, quotas,
+                                                              scale))
+
+    def checks():
+        counts = ok.n_candidates(shapes)
+        for n, k in zip(counts, quotas):
+            if k > 0 and n == 0:
+                raise ValueError(name)
+        ok._device(name, scores)
+        cuda_build.check(name, "scores", scores, torch.float32, (sum(counts),), dev)
+        cuda_build.check(name, "cand_uv", cand_uv, torch.float32, (C, 2), dev)
+        if not 1 <= len(shapes) <= ok.MAX_LEVELS or len(quotas) != len(shapes) or \
+                min(quotas) < 0:
+            raise ValueError(name)
+        cuda_build.load(ok.LIB, ok._declare)
+
+    def tables():
+        return (ok._ints([h for h, _ in shapes]), ok._ints([w for _, w in shapes]),
+                ok._ints(list(quotas)), ok._floats(ok.level_scales(len(shapes), scale)))
+
+    def outputs():
+        return (torch.empty(N, dtype=torch.float32, device=dev),
+                torch.empty(N, 2, dtype=torch.float32, device=dev),
+                torch.empty(N, 2, dtype=torch.float32, device=dev),
+                torch.empty(N, dtype=torch.int32, device=dev),
+                torch.empty(N, dtype=torch.bool, device=dev))
+
+    out = dict(wrapper=host_us(torch, lambda: ok.orb_quota_select(scores, cand_uv, shapes,
+                                                                  quotas, scale)),
+               checks=host_us(torch, checks), tables=host_us(torch, tables),
+               outputs=host_us(torch, outputs),
+               launch=host_us(torch, lambda: cuda_build.launch(name, dev, fn, *a)))
+    del keep
+    out["rest"] = out["wrapper"] - sum(v for k, v in out.items() if k != "wrapper")
+    return out
+
+
+def orb_timing(torch, gray, orb, cam, old=None) -> tuple[dict, dict]:
     """Each kernel at the case's shapes: ms through its wrapper, on the
     device alone (its C launch replayed from a CUDA graph), its twin's ms, its
     bound, and for the blur one F.conv2d with the kernel's 7x7 outer product
-    (not bitwise; TF32 off) as library_ms. Then extract on the same frame,
-    the twins' route (the parent's) and the kernels' in the order old, new,
-    new, old: ms through the host, device ms from a graph, ATen operators
-    and device kernels per call."""
+    (not bitwise; TF32 off) as library_ms; the quota wrapper's host time by
+    its parts (quota_wrapper_host). With `old` (ParentKernels
+    holding an earlier orb_extract.cu), the parent's orb_fast_cells and
+    orb_quota_select beside the new ones on the same calls (ab_times). Then
+    extract on the same frame, the twins' route (extract before the
+    kernels) and the kernels' in the order old, new, new, old: ms through
+    the host, device ms from a graph, ATen operators and device kernels per
+    call."""
     from gdslam_tpu_torch.frontend import extractor
     from gdslam_tpu_torch.ops import image, orb as orb_ops, orb_kernel as ok
     F = torch.nn.functional
@@ -1217,8 +1336,13 @@ def orb_timing(torch, gray, orb, cam) -> tuple[dict, dict]:
                  plain_ms=cuda_ms(torch, plain, reps=5, windows=3),
                  launches_per_call=one_launch(torch, getattr(ok, name), kern),
                  **orb_bound(torch, name, canvas, shapes, C, N, sel,
-                             ok.angle_bins(angle) if name == "orb_describe" else None))
+                             ok.angle_bins(angle) if name == "orb_describe" else None,
+                             th=min(orb.ini_th_fast, orb.min_th_fast)))
         del keep
+        if old is not None and name in ("orb_fast_cells", "orb_quota_select"):
+            t["ab"] = ab_times(torch, lambda: c_launch(torch, lambda: old.call(kern)),
+                               lambda: c_launch(torch, kern), lambda: old.call(kern), kern,
+                               plain())
         if name == "gaussian_blur7":
             k1 = torch.tensor(ok.BLUR_TAPS, device=canvas.device)
             k2 = (k1[:, None] * k1[None, :])[None, None]
@@ -1232,6 +1356,8 @@ def orb_timing(torch, gray, orb, cam) -> tuple[dict, dict]:
                                 "reflect-padded canvas (the pad not timed), TF32 off; not bitwise"
         else:
             t["library_ms"], t["library_note"] = None, ORB_NO_LIBRARY[name]
+        if name == "orb_quota_select":
+            t["host_us"] = quota_wrapper_host(torch, *cand, shapes, quotas, orb.scale_factor)
         out[name] = t
     routes = dict(old=lambda: extract_plain(torch, gray, orb, cam),
                   new=lambda: extractor.extract(gray, orb, cam.height, cam.width))
@@ -1249,14 +1375,31 @@ def orb_timing(torch, gray, orb, cam) -> tuple[dict, dict]:
     return out, ext
 
 
-def phase_orb(torch, cfg, dev) -> dict:
+def quota_edges(torch, dev) -> dict:
+    """orb_quota_select against its twin on the card on ops/orb_cases.py's
+    quota edges (ties, zeros of both signs, padded rows, 3542 and 32768
+    candidates a level, quotas of n and 0): differing elements a case."""
+    from gdslam_tpu_torch.ops import orb_cases as oc, orb_kernel as ok
+    out = {}
+    for name in oc.QUOTA_CASES:
+        scores, uv, shapes, quotas, scale = oc.quota_input(name)
+        a = (scores.to(dev), uv.to(dev), shapes, quotas, scale)
+        out[name] = sum(differing(torch, g, w) for g, w in
+                        zip(ok.orb_quota_select(*a), ok.quota_select_plain(*a)))
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_orb(torch, cfg, dev, old=None) -> dict:
     """The ORB front end's four kernels bitwise against their plain twins on
-    every case of orb_cases, extract against the twins' whole route, the
-    atan2 and bin checks, then each kernel timed and bounded at the
-    defaults and extract's ms, device ms, operators and kernels, the twins'
-    route (the parent's) beside the kernels'. Fails on any differing bit, a
-    degenerate frame with a valid row, a call that is not one launch, more
-    than 40 operators or a wait for the card in extract."""
+    every case of orb_cases, the quota on its edge cases, extract against the
+    twins' whole route, the atan2 and bin checks, then each kernel timed and
+    bounded at the defaults (with `old`, ParentKernels, the parent's
+    FAST and quota kernels beside the new ones) and extract's ms, device ms,
+    operators and kernels, the twins' route (extract before the kernels)
+    beside the kernels'. Fails on any differing bit, a degenerate frame with
+    a valid row, a call that is not one launch, more than 40 operators or a
+    wait for the card in extract."""
     cases, bad = {}, []
     inputs = orb_cases(torch, cfg, dev)
     for label, gray, orb, cam in inputs:
@@ -1264,10 +1407,14 @@ def phase_orb(torch, cfg, dev) -> dict:
         cases[label] = dict(differing=diffs, **facts)
         if any(diffs.values()):
             bad.append(label)
+    edges = quota_edges(torch, dev)
+    bad += [f"quota:{k}" for k, v in edges.items() if v]
     angles = angle_checks(torch, dev, *inputs[0][1:])
-    timing, ext = orb_timing(torch, *inputs[0][1:])
-    res = dict(phase="orb", cases=cases, angles=angles, kernels=timing, extract=ext,
-               card=nvidia_smi_line())
+    timing, ext = orb_timing(torch, *inputs[0][1:], old=old)
+    res = dict(phase="orb", cases=cases, quota_edges=edges, angles=angles, kernels=timing,
+               extract=ext, card=nvidia_smi_line())
+    if old is not None:
+        res["ptxas_old"] = old.ptxas
     emit(res)
     if bad:
         fail(f"orb: a kernel differs from its plain twin on {bad}")
@@ -1378,10 +1525,11 @@ class MapCounters:
         return out
 
 
-def sync_sites(torch, fn) -> dict:
+def sync_sites(torch, fn, top: int | None = 12) -> dict:
     """Where fn waits for the card, by torch's sync debug mode: {file:line:
     count} of every implicit synchronisation (.tolist(), .cpu(), int() of a
-    device scalar, an upload of a host value)."""
+    device scalar, an upload of a host value), the `top` most frequent
+    (all of them for None)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1391,7 +1539,7 @@ def sync_sites(torch, fn) -> dict:
             torch.cuda.set_sync_debug_mode("default")
     return dict(collections.Counter(
         f"{Path(w.filename).name}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message) and "prototype" not in str(w.message)).most_common(12))
+        if "synchroniz" in str(w.message) and "prototype" not in str(w.message)).most_common(top))
 
 
 def reset_launch_counts(mk) -> None:
@@ -3578,9 +3726,11 @@ def backward_launch(torch, dk, grad, shapes, boxes) -> tuple:
 
 def build_parent_sources(src_dir: Path, sigs: dict) -> tuple[dict, dict]:
     """Build the earlier kernel sources `src_dir` holds, whichever of sigs'
-    names ({name: its C entry point's argument kinds, p/i/f/u}) it has, with
-    the current flags, every nvcc started at once: (ptxas, fns), what ptxas
-    reports for each and its `<name>_launch` entry point loaded by ctypes."""
+    names ({name: its C entry point's argument kinds, p/i/f/u; or, for a
+    library of several entry points with the current signatures, the
+    function that declares them}) it has, with the current flags, every
+    nvcc started at once: (ptxas, fns), what ptxas reports for each and its
+    `<name>_launch` entry point (or the whole library) loaded by ctypes."""
     from gdslam_tpu_torch.ops import cuda_build
     flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     procs = {}
@@ -3603,7 +3753,12 @@ def build_parent_sources(src_dir: Path, sigs: dict) -> tuple[dict, dict]:
         if so.returncode or report.returncode:
             fail(f"ab: the parent's {n} did not build:\n{errs[0]}{errs[1]}")
         ptxas[n] = [ln.strip() for ln in errs[1].splitlines() if "Used" in ln or "spill" in ln]
-        fn = getattr(ctypes.CDLL(str(src_dir / f"lib{n}_old.so")), f"{n}_launch")
+        lib = ctypes.CDLL(str(src_dir / f"lib{n}_old.so"))
+        if callable(sigs[n]):
+            sigs[n](lib)
+            fns[n] = lib
+            continue
+        fn = getattr(lib, f"{n}_launch")
         fn.argtypes = [kinds[c] for c in sigs[n].replace(" ", "")]
         fn.restype = ctypes.c_int
         fns[n] = fn
@@ -3676,23 +3831,32 @@ class OldDetectKernels:
         return keep[0]
 
 
+def _declare_orb(lib) -> None:
+    from gdslam_tpu_torch.ops import orb_kernel
+    orb_kernel._declare(lib)
+
+
 class ParentKernels:
     """Earlier versions of stereo_match.cu and categorical_draw.cu (as of
     commit 6b10eba: one warp per left keypoint striding over every right
     keypoint, lanes 0-10 summing the SADs from device memory; one warp a
-    row, four rows a CTA), whichever `src_dir` holds, built there with the
-    same flags, behind the current wrappers: inside `call`, cuda_build's
-    cache holds them in place of the current libraries, each C entry point
-    taking the arguments its earlier version took (old_args drops the new
-    ones: stereo's bucket rows and scratch). So the wrappers, their counts
-    and every caller run unchanged on the parents' kernels. `ptxas` holds
-    what ptxas reports for each."""
+    row, four rows a CTA) and of orb_extract.cu (as of commit f85edee: one
+    CTA per FAST cell, one per level for the quota's bitonic sort),
+    whichever `src_dir` holds, built there with the same flags, behind the
+    current wrappers: inside `call`, cuda_build's cache holds them in place
+    of the current libraries, each C entry point taking the arguments its
+    earlier version took (old_args drops the new ones: stereo's bucket rows
+    and scratch; orb_extract's signatures are unchanged, so its whole
+    library stands in). So the wrappers, their counts and every caller run
+    unchanged on the parents' kernels. `ptxas` holds what ptxas reports for
+    each."""
 
-    SIGS = {"stereo_match": "ppppippppipppiiffppip", "categorical_draw": "piiuupppip"}
+    SIGS = {"stereo_match": "ppppippppipppiiffppip", "categorical_draw": "piiuupppip",
+            "orb_extract": _declare_orb}
     NEW_ARGS = {"stereo_match": (17, 19)}
 
     def __init__(self, torch, src_dir: Path):
-        self.ptxas, self.fns = build_parent_sources(src_dir, self.SIGS)
+        self.ptxas, self.fns = build_parent_sources(src_dir, dict(self.SIGS))
 
     def old_args(self, name: str, a: tuple) -> tuple:
         """A current launch's arguments (device and stream included or not)
@@ -3705,8 +3869,9 @@ class ParentKernels:
         from gdslam_tpu_torch.ops import cuda_build
         saved = {n: cuda_build._libs.get(n) for n in self.fns}
         for n, old in self.fns.items():
-            cuda_build._libs[n] = type("ParentLibrary", (), {
-                f"{n}_launch": staticmethod(lambda *a, n=n, old=old: old(*self.old_args(n, a)))})
+            cuda_build._libs[n] = old if isinstance(old, ctypes.CDLL) else type(
+                "ParentLibrary", (), {f"{n}_launch": staticmethod(
+                    lambda *a, n=n, old=old: old(*self.old_args(n, a)))})
         try:
             return fn()
         finally:
@@ -3748,7 +3913,9 @@ def ab_times(torch, old_launch, new_launch, old_call, new_call, want) -> dict:
            graph_ms(torch, fo, ao)]
     got_old, got_new = old_call(), new_call()
     torch.cuda.synchronize()
-    same = lambda x: bool(torch.equal(x.view(torch.int32), want.view(torch.int32)))
+    tup = lambda x: x if isinstance(x, tuple) else (x,)           # noqa: E731
+    same = lambda x: all(differing(torch, g, w) == 0              # noqa: E731
+                         for g, w in zip(tup(x), tup(want)))
     out = dict(old_device_ms=[dev[0], dev[3]], new_device_ms=[dev[1], dev[2]],
                old_wrapper_device_ms=graph_call_ms(torch, old_call),
                new_wrapper_device_ms=graph_call_ms(torch, new_call),
@@ -4004,6 +4171,12 @@ STEREO_RELATIVE = (1.5, 0.005)
 MONO_RELATIVE = (1.5, 0.01)
 STEREO_JAX = dict(ate_m=0.008660424214251984, keyframes=8, stereo_points_per_frame=1599.6333)
 MONO_JAX = dict(keyframe_ate_scale_aligned_m=0.29294787229439423, keyframes=11, bootstrap_frame=2)
+MONO_INIT_WAITS = 20               # initialize's waits for the card: cuSOLVER's SVDs and
+#                                    inverses and two uploads, 18, and the 8-point systems'
+#                                    copy to the host and back (cuSOLVER's own solve of
+#                                    them waited twice too)
+MONO_KEYFRAME_SLACK = 1            # keyframes the card may differ by: the pyramid's products
+#                                    sum in another order on the card (ROADMAP section 3)
 # tests/test_loop_e2e.py::test_mono_scale_drift_corrected: its rig (320x240,
 # 512 features, 4 levels), circuit period and run, the injected scale
 MONO_LOOP_PERIOD = 120
@@ -4435,14 +4608,18 @@ def phase_mono(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
     frame of the static scene (60 frames) written as a TUM monocular layout
     of 8-bit RGB PNGs under build/, then cli/mono_tum.py in-process on the
     card, the match_top2 count set to 0 just before and read just after.
-    Guards: the bootstrap succeeds, the state is OK at the end, the map grows
-    past the bootstrap pair (points made by keyframes after it; the JAX gate
-    of tests/test_mapping.py), the scale-aligned keyframe ATE at most
-    MONO_RELATIVE against the JAX package's on the same PNGs. Then the
-    bootstrap's match_top2 call exact against the plain version (each path
-    forced) and its index rule against the plain route on the CPU;
-    initialize's ms on the card, twice bitwise, and torch.linalg.svd on its
-    batch shapes."""
+    Guards: the bootstrap succeeds at the JAX package's frame (2), the state
+    is OK at the end, the keyframes number the JAX package's 11 within
+    MONO_KEYFRAME_SLACK, the map grows past the bootstrap pair (points made
+    by keyframes after it; the JAX gate of tests/test_mapping.py), the
+    scale-aligned keyframe ATE at most MONO_RELATIVE against the JAX
+    package's on the same PNGs. Then the bootstrap's match_top2 call exact
+    against the plain version (each path forced) and its index rule against
+    the plain route on the CPU; initialize's ms on the card, twice bitwise,
+    against the CPU route on the same inputs (the same model choice and
+    good points), its waits for the card (MONO_INIT_WAITS, two of them the
+    8-point systems' copy out and back), and torch.linalg.svd on its batch
+    shapes."""
     tracking, initializer, slam_mod, png, synthetic, metrics, mono_tum = mods
     base = Path(tempfile.mkdtemp(prefix="mono_smoke_", dir=ROOT / "build"))
     seq = base / "seq"
@@ -4491,9 +4668,13 @@ def phase_mono(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
         gate = MONO_RELATIVE[0] * MONO_JAX["keyframe_ate_scale_aligned_m"] + MONO_RELATIVE[1]
     res["ate_gate_m"] = gate
     if boot is None or res["state"] != "OK" or n <= 2 or \
-            res["map_points_after_bootstrap_pair"] < 1 or (gate is not None and ate > gate):
+            res["map_points_after_bootstrap_pair"] < 1 or (gate is not None and ate > gate) or \
+            res["bootstrap_frame"] != MONO_JAX["bootstrap_frame"] or \
+            abs(n - MONO_JAX["keyframes"]) > MONO_KEYFRAME_SLACK:
         emit(res)
-        fail(f"mono: bootstrap {res['bootstrap_frame']}, state {res['state']}, {n} keyframes, "
+        fail(f"mono: bootstrap {res['bootstrap_frame']} (the JAX package's "
+             f"{MONO_JAX['bootstrap_frame']}), state {res['state']}, {n} keyframes (the JAX "
+             f"package's {MONO_JAX['keyframes']} +- {MONO_KEYFRAME_SLACK}), "
              f"{res['map_points_after_bootstrap_pair']} points after the pair, ATE {ate} m "
              f"(gate {gate} m)")
     if launches["match_top2"] < 1 or launches["categorical_draw"] < 2 * len(inits):
@@ -4525,7 +4706,17 @@ def phase_mono(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
 
     again = [init() for _ in range(2)]
     torch.cuda.synchronize()
-    res["initialize"] = dict(
+    waits = sync_sites(torch, init, top=None)
+    src, first = inspect.getsourcelines(initializer._null_vectors)
+    copy_site = f"initializer.py:{first + next(i for i, ln in enumerate(src) if '.cpu()' in ln)}"
+    host = initializer.initialize(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in a),
+                                  **k)
+    cpu_route = dict(ok=bool(host.ok), used_homography_equal=bool(
+        host.used_homography) == bool(o.used_homography),
+        good_equal=bool(torch.equal(host.is_good, o.is_good.cpu())),
+        T_21_max_abs_diff=float((host.T_21 - o.T_21.cpu()).abs().max()))
+    res["initialize"] = dict(cpu_route=cpu_route, host_sync_sites=waits,
+        host_syncs=sum(waits.values()),
         ms=wall_ms(torch, init, reps=5, warmup=1),
         repeat_bitwise=all(bool(torch.equal(getattr(again[0], f), getattr(x, f)))
                            for x in (again[1], o) for f in o._fields),
@@ -4534,6 +4725,13 @@ def phase_mono(torch, mk, cfg, dev, mods) -> tuple[dict, dict]:
             for b, r, c in ((200, 8, 9), (200, 3, 3), (4 * a[0].shape[0], 4, 4))})
     res["card"] = nvidia_smi_line()
     emit(res)
+    if not (cpu_route["used_homography_equal"] and cpu_route["good_equal"]):
+        fail(f"mono: the bootstrap's initialize on the card differs from the CPU route's: "
+             f"{cpu_route}")
+    if waits.get(copy_site) != 2 or sum(waits.values()) != MONO_INIT_WAITS:
+        fail(f"mono: initialize waits for the card {sum(waits.values())} times, at {waits}; "
+             f"{MONO_INIT_WAITS} expected, two of them the 8-point systems' copy out and "
+             f"back at {copy_site}")
     second = run("again")
     same = dict(keyframe_trajectory=(base / "run" / "KeyFrameTrajectory.txt").read_bytes() ==
                 (base / "again" / "KeyFrameTrajectory.txt").read_bytes(),

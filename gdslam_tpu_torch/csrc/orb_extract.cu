@@ -17,31 +17,62 @@
 // left (h_l, w_l), the rest is zero. At 480 x 640 with 8 levels the levels
 // hold 3632 cells of 16 x 16 px, 7264 candidates, 1500 keypoints.
 //
-// (1) orb_fast_cells: one CTA of 256 threads per (level, 16 x 16 cell), all
-// levels in one launch. The cell and a 4-px halo (24 x 24, indices taken
-// modulo the level's own (h, w), as torch.roll wraps) are staged in shared
-// memory; the FAST-9/16 strength (the max over the 16 circular 9-arcs of
-// the min of tap - centre, and of centre - tap; 0 within 3 px of the
-// level's border) on the cell and a 1-px halo, thresholded at th_hi and
-// th_lo with `>`; a strict 3x3 non-maximum suppression of each on the cell;
-// has_hi = any suppressed high score in the cell (before the edge mask); the
-// high map where has_hi, else the low one; 0 within EDGE = 16 px of the
-// level's border; then the cell's top two (a block argmax twice, larger
-// score first, the lower in-cell index y * 16 + x among ties: the order of
-// a stable descending sort). An all-zero cell gives (0, index 0) and (0,
-// index 1). Bound: ~200 min / max / compare operations a pixel over the
-// ~1.0 M level pixels (~6 us on the FP32 pipes), 4 bytes a pixel read.
+// (1) orb_fast_cells: one CTA of 256 threads per strip of 4 x 2 cells of a
+// level, all levels in one launch (482 CTAs at the defaults). It computes
+// the FAST-9/16 strength (the max over the 16 circular 9-arcs of the min of
+// tap - centre, and of centre - tap; 0 within 3 px of the level's border)
+// of the strip and a 1-px halo, thresholded at th_hi and th_lo (both >= 0)
+// with `>`; a strict 3x3 non-maximum suppression of each on the cells;
+// has_hi = any suppressed high score in the cell (before the edge mask);
+// the high map where has_hi, else the low one; 0 within EDGE = 16 px of the
+// level's border; then the cell's top two (larger score first, the lower
+// in-cell index y * 16 + x among ties: the order of a stable descending
+// sort). An all-zero cell gives (0, index 0) and (0, index 1).
+//   The twin rolls each level as torch.roll does, but no wrapped value can
+// matter: a strength is taken only 3 px or more inside the level, where
+// every tap lies inside it, and the NMS of a position next to the border
+// reads only strengths that are 0 there. So the strip and a 4-px halo are
+// staged with zeros past the level, a warp a row, every load issued before
+// any store. A sign of the strength can exceed th only if two neighbouring
+// compass taps (0, 4, 8, 12; every 9-arc holds two) differ from the centre
+// that way by more than th, so a first pass tests that on every position
+// at min(th_hi, th_lo) and lists the ~1/4 that pass, by sign, in shared
+// memory (a lane's entries in a row, its offset by a shuffle scan, one
+// atomic a list a warp); the strengths are computed on the lists only, and
+// only for the signs that pass (the others are 0 under both thresholds).
+// Rounding is monotone, so min_j fl(t_j - c) = fl(min_j t_j - c): a sign's
+// arcs are taken on the taps (runs of 2, 4, 8, the ninth tap, a tree: 79
+// min / max) and the centre subtracted once. One map holds the strengths
+// above min(th_hi, th_lo); with f(v) = v > th ? v : 0 the NMS of f(v) keeps
+// a pixel exactly where v > max(its 8 neighbours, th), so a warp takes a
+// cell and each lane suppresses 8 rows of one column at both thresholds
+// from a sliding 3-row window; a vote gives has_hi, and the top two come
+// from the lanes' own top two and four warp reductions (the largest value,
+// as unsigned bits; the least index holding it; again without it). Three
+// block barriers. Bound: ~45 operations a level pixel (the compass test,
+// the thresholds, two NMS, the selects and the top two) and ~163 (the arcs
+// of both signs) a listed one, over the ~1.0 M level pixels, 4 bytes a
+// pixel read. It is bound by issue, most of its instructions on the
+// half-rate ALU pipe (compare, select, min / max, popcount).
 //
-// (2) orb_quota_select: one CTA of 1024 threads per level. The level's
-// candidates as 64-bit keys (the score's bits in an order-preserving
-// transform over the index's complement, -0 taken as +0) in shared memory,
-// a bitonic sort descending: the order of torch.sort(descending, stable).
-// The first k rows (the level's quota) give the response, the level
-// coordinates, the level-0 uv = uv_lv * scale_l (one f32 product), the level
-// and valid = response > 0; rows past the level's candidates (a small
-// image's top levels) take response 0 and candidate 0's uv, as the twin's
-// zero-padded indices do. Up to MAX_CAND candidates a level (the stereo
-// cell's 1241 x 376 level 0 has 3542): 128 KB of shared memory at most.
+// (2) orb_quota_select: each level's candidates ranked by counting. Keys
+// are 64-bit (the score's bits in an order-preserving transform over the
+// index's complement, -0 taken as +0), all distinct, so a candidate's row
+// is the number of its level's keys above its own: the order of
+// torch.sort(descending, stable). One CTA per (level, 32 candidates), a
+// lane a candidate; its 16 warps split the level's keys, each streaming its
+// part through its own shared-memory buffer (no block barrier, no bound on
+// a level's candidates; every load issued before any store) and counting
+// the keys above each lane's, and a warp stops once every lane's count has
+// reached the quota (such lanes are not kept; it leaves only in a CTA with
+// no kept candidate, rare at the defaults). The counts are summed, and a
+// candidate of row < k (the level's quota) writes its response, level
+// coordinates (loaded at the start), level-0 uv = uv_lv * scale_l (one f32
+// product), level and valid = response > 0; the level's first CTA writes
+// the rows past its candidates (a small image's top levels): response 0
+// and candidate 0's uv, as the twin's zero-padded indices give. Work: the
+// sum over levels of n^2 key comparisons (10.8 M at the defaults) spread
+// over ~230 CTAs.
 //
 // (3) gaussian_blur7: the separable 7-tap blur of the whole canvas, one CTA
 // per 32 x 16 output tile of a level plane, the tile and a 3-px halo
@@ -71,25 +102,28 @@ constexpr int MAX_LEVELS = 16;
 constexpr int CELL = 16;                      // candidate cell (px), two kept a cell
 constexpr int EDGE = 16;                      // extractor.EDGE_MARGIN
 constexpr int HALO = 4;                       // FAST's radius 3 + the NMS's 1
-constexpr int TILE = CELL + 2 * HALO;         // 24: the staged cell
-constexpr int SPAN = CELL + 2;                // 18: the strengths the NMS reads
-constexpr int MAX_CAND = 16384;               // candidates a level: 128 KB of keys
-constexpr int SORT_T = 1024;                  // quota_select's threads
+constexpr int STRIP_W = 4, STRIP_H = 2;       // cells a FAST CTA covers, across and down
+constexpr int FAST_T = 32 * STRIP_W * STRIP_H;        // 256: a warp a cell
+constexpr int PX_H = STRIP_H * CELL + 2 * HALO;       // 40 x 72 staged pixels, rows 73
+constexpr int PX_W = STRIP_W * CELL + 2 * HALO;       // apart: listed positions rows apart
+constexpr int PX_P = PX_W + 1;                        // fall on other banks
+constexpr int SP_H = STRIP_H * CELL + 2;              // 34 x 66 strengths the NMS reads
+constexpr int SP_W = STRIP_W * CELL + 2;
+constexpr int QS_WARPS = 16;                  // quota_select: warps splitting a level's keys
+constexpr int QS_BUF = 256;                   // keys a warp stages at a time
 constexpr int BX = 32, BY = 16, R = 3;        // blur tile and radius
 constexpr int PATCH_HALF = 15;                // the IC disc's radius
 constexpr int EXT = 37;                       // the rBRIEF patch's side
 constexpr int N_BINS = 30;
 constexpr int DESC_WARPS = 4;
 
-// the Bresenham circle of radius 3, clockwise from 12 o'clock (dy, dx)
-__constant__ int c_dy[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
-__constant__ int c_dx[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
-
 struct Levels {
   int n;                                      // levels
   int h[MAX_LEVELS], w[MAX_LEVELS];           // each level's size
   int cell0[MAX_LEVELS + 1];                  // its first cell; cell0[n] = all cells
   int row0[MAX_LEVELS + 1];                   // its first output row; row0[n] = N
+  int strip0[MAX_LEVELS + 1];                 // its first FAST CTA; strip0[n] = the grid
+  int chunk0[MAX_LEVELS + 1];                 // its first quota CTA; chunk0[n] = the grid
   float scale[MAX_LEVELS];                    // float32(scale_factor ** l)
 };
 
@@ -104,124 +138,246 @@ struct DeviceGuard {                          // the launch goes to `device`
   ~DeviceGuard() { if (prev >= 0) cudaSetDevice(prev); }
 };
 
-__device__ __forceinline__ int wrap(int i, int n) {  // i mod n in [0, n)
-  i %= n;
-  return i < 0 ? i + n : i;
-}
-
-// (v, i) beats (bv, bi): larger, or equal with a lower index
-__device__ __forceinline__ bool beats(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
+// the level of CTA b, from a table of first CTAs
+__device__ __forceinline__ int level_of(const int* first, int n, int b) {
+  int lv = 0;
+  while (lv + 1 < n && first[lv + 1] <= b) ++lv;
+  return lv;
 }
 
 // ----------------------------------------------------------------------------
 // (1) FAST cells
 // ----------------------------------------------------------------------------
 
-// FAST-9/16 strength at tile (y, x): max over the 16 circular 9-arcs of the
-// min of the arc's differences, for tap - centre and for centre - tap
-__device__ __forceinline__ float fast_strength(const float (*s)[TILE + 1], int y, int x) {
+// The max over the 16 circular 9-arcs of the arc's least tap (BRIGHT), or
+// the min over them of the arc's greatest: runs of 2, 4, 8, then the ninth
+// tap, then a tree. Rounding is monotone, so this minus the centre (the
+// centre minus it) is the max over arcs of the min of tap - centre (of
+// centre - tap): one sign of the FAST strength.
+template <bool BRIGHT>
+__device__ __forceinline__ float arc_extreme(const float (&t)[16]) {
+  const auto in = [](float a, float b) { return BRIGHT ? fminf(a, b) : fmaxf(a, b); };
+  const auto out = [](float a, float b) { return BRIGHT ? fmaxf(a, b) : fminf(a, b); };
+  float m2[16], m4[16], m9[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) m2[k] = in(t[k], t[(k + 1) & 15]);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) m4[k] = in(m2[k], m2[(k + 2) & 15]);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) m9[k] = in(in(m4[k], m4[(k + 4) & 15]), t[(k + 8) & 15]);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) m9[k] = out(m9[k], m9[k + 8]);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) m9[k] = out(m9[k], m9[k + 4]);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) m9[k] = out(m9[k], m9[k + 2]);
+  return out(m9[0], m9[1]);
+}
+
+// Which signs of FAST can exceed th at staged pixel (y, x): bit 0 bright,
+// bit 1 dark. A sign can only if two neighbouring compass taps (0, 4, 8,
+// 12) both differ from the centre that way by more than th (every 9-arc
+// holds two neighbouring ones): min(max(d0, d8), max(d4, d12)) > th, with
+// d = tap - centre; c - t rounds to -(t - c) exactly, so for the dark sign
+// max(min(d0, d8), min(d4, d12)) < -th.
+__device__ __forceinline__ unsigned compass(const float (*s)[PX_P], int y, int x, float th) {
   const float c = s[y][x];
-  float d[16], e[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const float t = s[y + c_dy[k]][x + c_dx[k]];
-    d[k] = __fsub_rn(t, c);
-    e[k] = __fsub_rn(c, t);
-  }
-  float bd = -INFINITY, be = -INFINITY;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    float md = d[k], me = e[k];
-#pragma unroll
-    for (int j = 1; j < 9; ++j) {
-      md = fminf(md, d[(k + j) & 15]);
-      me = fminf(me, e[(k + j) & 15]);
-    }
-    bd = fmaxf(bd, md);
-    be = fmaxf(be, me);
-  }
-  return fmaxf(bd, be);
+  const float d0 = __fsub_rn(s[y - 3][x], c), d4 = __fsub_rn(s[y][x + 3], c);
+  const float d8 = __fsub_rn(s[y + 3][x], c), d12 = __fsub_rn(s[y][x - 3], c);
+  const float bright = fminf(fmaxf(d0, d8), fmaxf(d4, d12));
+  const float dark = fmaxf(fminf(d0, d8), fminf(d4, d12));
+  return (bright > th ? 1u : 0u) | (dark < -th ? 2u : 0u);
 }
 
-// strict 3x3 non-maximum suppression at (y, x) of the span
-__device__ __forceinline__ float nms3x3(const float (*s)[SPAN + 1], int y, int x) {
-  float m = s[y - 1][x - 1];
-  m = fmaxf(m, s[y - 1][x]);
-  m = fmaxf(m, s[y - 1][x + 1]);
-  m = fmaxf(m, s[y][x - 1]);
-  m = fmaxf(m, s[y][x + 1]);
-  m = fmaxf(m, s[y + 1][x - 1]);
-  m = fmaxf(m, s[y + 1][x]);
-  m = fmaxf(m, s[y + 1][x + 1]);
-  const float v = s[y][x];
-  return v > m ? v : 0.0f;
-}
+constexpr int SP_ITEMS = SP_H * 2;           // warp-rows of the inner 64 span columns
+constexpr int IT = SP_ITEMS / (FAST_T / 32) + 2;      // a warp's: 8 or 9, then columns 0, 65
+constexpr int LIST_B = 1 << 13, LIST_D = 1 << 14;   // a list entry: r << 7 | q, the signs
+static_assert(PX_H % (FAST_T / 32) == 0 && (SP_H * SP_W) % 4 == 0, "the strip's layout");
 
-// the block's best (v, i) by `beats`, on every thread (256 threads)
-__device__ __forceinline__ void block_best(float v, int i, float* s_v, int* s_i, float& bv,
-                                           int& bi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {          // every lane shuffles, then compares
-    const float ov = __shfl_xor_sync(0xFFFFFFFFu, v, s);
-    const int oi = __shfl_xor_sync(0xFFFFFFFFu, i, s);
-    if (beats(ov, oi, v, i)) { v = ov; i = oi; }
-  }
-  if (lane == 0) { s_v[warp] = v; s_i[warp] = i; }
-  __syncthreads();
-  bv = s_v[0];
-  bi = s_i[0];
-#pragma unroll
-  for (int w = 1; w < 8; ++w)
-    if (beats(s_v[w], s_i[w], bv, bi)) { bv = s_v[w]; bi = s_i[w]; }
-  __syncthreads();                            // s_v, s_i free again
-}
-
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(FAST_T, 4)
 fast_cells_kernel(const float* __restrict__ canvas, int H, int W, Levels L, float th_hi,
                   float th_lo, float* __restrict__ scores, float* __restrict__ uv) {
-  __shared__ float s_img[TILE][TILE + 1];
-  __shared__ float s_hi[SPAN][SPAN + 1];
-  __shared__ float s_lo[SPAN][SPAN + 1];
-  __shared__ float s_v[8];
-  __shared__ int s_i[8];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  int lv = 0;
-  while (lv + 1 < L.n && L.cell0[lv + 1] <= b) ++lv;
-  const int h = L.h[lv], w = L.w[lv], wc = w / CELL;
-  const int c = b - L.cell0[lv], cy = c / wc, cx = c % wc;
+  __shared__ float s_px[PX_H][PX_P];
+  __shared__ __align__(16) float s_v[SP_H][SP_W];  // strengths above min(th_hi, th_lo), else 0
+  __shared__ unsigned short s_list[SP_H * SP_W];   // bright entries up from 0, dark down
+  __shared__ int s_nb, s_nd;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lv = level_of(L.strip0, L.n, blockIdx.x);
+  const int h = L.h[lv], w = L.w[lv], hc = h / CELL, wc = w / CELL;
+  const int sw = (wc + STRIP_W - 1) / STRIP_W, s = blockIdx.x - L.strip0[lv];
+  const int cy0 = (s / sw) * STRIP_H, cx0 = (s % sw) * STRIP_W;   // the strip's first cell
+  const int y0 = cy0 * CELL, x0 = cx0 * CELL;
   const float* img = canvas + static_cast<size_t>(lv) * H * W;
-  const int y0 = cy * CELL - HALO, x0 = cx * CELL - HALO;
+  if (tid == 0) s_nb = s_nd = 0;
 
-  for (int i = tid; i < TILE * TILE; i += 256) {
-    const int r = i / TILE, q = i % TILE;
-    s_img[r][q] = img[wrap(y0 + r, h) * W + wrap(x0 + q, w)];
+  // the strip and its halo, a warp a row, every load issued before any
+  // store: zeros past the level (no strength reads them); the map zeroed
+  constexpr int ROWS = PX_H / (FAST_T / 32), COLS = (PX_W + 31) / 32;
+  float px[ROWS][COLS];
+  bool x_in[COLS];
+#pragma unroll
+  for (int cb = 0; cb < COLS; ++cb) {
+    const int x = x0 - HALO + cb * 32 + lane;
+    x_in[cb] = x >= 0 && x < w && cb * 32 + lane < PX_W;
+  }
+  const float* row = img + (y0 - HALO + warp) * W + x0 - HALO + lane;
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr) {
+    const int y = y0 - HALO + rr * (FAST_T / 32) + warp;
+    const bool y_in = y >= 0 && y < h;
+#pragma unroll
+    for (int cb = 0; cb < COLS; ++cb)
+      px[rr][cb] = y_in && x_in[cb] ? row[rr * (FAST_T / 32) * W + cb * 32] : 0.0f;
+  }
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr)
+#pragma unroll
+    for (int cb = 0; cb < COLS; ++cb)
+      if (cb * 32 + lane < PX_W) s_px[rr * (FAST_T / 32) + warp][cb * 32 + lane] = px[rr][cb];
+  float4* zero = reinterpret_cast<float4*>(&s_v[0][0]);
+  for (int i = tid; i < SP_H * SP_W / 4; i += FAST_T) zero[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  // every position the NMS reads: those where a sign may pass are listed,
+  // by sign, one shared-memory atomic a list a warp. Warp w takes the
+  // warp-rows (34 rows x 2 of the inner 64 columns) w, w + 8, ...; warps 0-2
+  // then columns 0 and 65 (68 positions), by lanes
+  const float th_min = fminf(th_hi, th_lo);
+  const int r_lo = max(0, 4 - y0), r_hi = min(min(STRIP_H, hc - cy0) * CELL + 2, h - 2 - y0);
+  const int q_lo = max(0, 4 - x0), q_hi = min(min(STRIP_W, wc - cx0) * CELL + 2, w - 2 - x0);
+  unsigned signs = 0u;                        // 2 bits a slot
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    int r = SP_H, q = 0;                      // no position
+    if (it < IT - 1) {
+      const int item = it * (FAST_T / 32) + warp;
+      if (item < SP_ITEMS) {
+        r = item >> 1;
+        q = 1 + (item & 1) * 32 + lane;
+      }
+    } else if (warp < 3) {
+      const int p = warp * 32 + lane;
+      r = p < 2 * SP_H ? p >> 1 : SP_H;
+      q = (p & 1) ? SP_W - 1 : 0;
+    }
+    if (r >= r_lo && r < r_hi && q >= q_lo && q < q_hi)
+      signs |= compass(s_px, r + 3, q + 3, th_min) << (2 * it);
+  }
+  // the lane's entries go to consecutive places: its offsets in the warp by
+  // a shuffle scan of its counts (bright | dark-only << 16), the warp's by
+  // one atomic a list
+  constexpr unsigned EVEN = 0x55555u;         // bit 2 it: a slot's bright bit
+  const unsigned bright = signs & EVEN, dark_only = (signs >> 1) & EVEN & ~bright;
+  const int mine = __popc(bright) | (__popc(dark_only) << 16);
+  int incl = mine;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  const int total = __shfl_sync(0xFFFFFFFFu, incl, 31);
+  int base_b = 0, base_d = 0;
+  if (lane == 0) {
+    if (total & 0xFFFF) base_b = atomicAdd(&s_nb, total & 0xFFFF);
+    if (total >> 16) base_d = atomicAdd(&s_nd, total >> 16);
+  }
+  base_b = __shfl_sync(0xFFFFFFFFu, base_b, 0) + ((incl - mine) & 0xFFFF);
+  base_d = __shfl_sync(0xFFFFFFFFu, base_d, 0) + ((incl - mine) >> 16);
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const unsigned sg = (signs >> (2 * it)) & 3u;
+    if (sg) {
+      const int item = it * (FAST_T / 32) + warp, p = warp * 32 + lane;
+      const int e = it < IT - 1 ? ((item >> 1) << 7) | (1 + (item & 1) * 32 + lane)
+                                : ((p >> 1) << 7) | ((p & 1) ? SP_W - 1 : 0);
+      if (sg & 1u)
+        s_list[base_b++] = static_cast<unsigned short>(e | LIST_B | ((sg & 2u) ? LIST_D : 0));
+      else
+        s_list[SP_H * SP_W - 1 - base_d++] = static_cast<unsigned short>(e | LIST_D);
+    }
   }
   __syncthreads();
-  for (int i = tid; i < SPAN * SPAN; i += 256) {
-    const int r = i / SPAN, q = i % SPAN;     // tile (r + 3, q + 3)
-    const int py = wrap(y0 + 3 + r, h), px = wrap(x0 + 3 + q, w);
-    float s = 0.0f;
-    if (py >= 3 && py < h - 3 && px >= 3 && px < w - 3) s = fast_strength(s_img, r + 3, q + 3);
-    s_hi[r][q] = s > th_hi ? s : 0.0f;
-    s_lo[r][q] = s > th_lo ? s : 0.0f;
+
+  // the listed positions' strengths above th_min: the bright list first,
+  // then the dark one (only the signs that may pass are taken)
+  const int nb = s_nb, n_list = nb + s_nd;
+  for (int j = tid; j < n_list; j += FAST_T) {
+    const int e = s_list[j < nb ? j : SP_H * SP_W - 1 - (j - nb)];
+    const int r = (e >> 7) & 63, q = e & 127, y = r + 3, x = q + 3;
+    // the Bresenham circle of radius 3, clockwise from 12 o'clock (dy, dx)
+    constexpr int dy[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
+    constexpr int dx[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
+    float t[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) t[k] = s_px[y + dy[k]][x + dx[k]];
+    const float c = s_px[y][x];
+    float v = -INFINITY;
+    if (e & LIST_B) v = __fsub_rn(arc_extreme<true>(t), c);
+    if (e & LIST_D) v = fmaxf(v, __fsub_rn(c, arc_extreme<false>(t)));
+    s_v[r][q] = v > th_min ? v : 0.0f;
   }
   __syncthreads();
-  const int ty = tid >> 4, tx = tid & 15;
-  const float hi = nms3x3(s_hi, ty + 1, tx + 1), lo = nms3x3(s_lo, ty + 1, tx + 1);
-  const bool has_hi = __syncthreads_or(hi > 0.0f);
-  const int y = cy * CELL + ty, x = cx * CELL + tx;
-  const bool ok = y >= EDGE && y < h - EDGE && x >= EDGE && x < w - EDGE;
-  const float v = ok ? (has_hi ? hi : lo) : 0.0f;
 
-  float v1, v2;
-  int i1, i2;
-  block_best(v, tid, s_v, s_i, v1, i1);
-  block_best(tid == i1 ? -INFINITY : v, tid, s_v, s_i, v2, i2);
-  if (tid < 2) {
-    const int j = 2 * b + tid, idx = tid == 0 ? i1 : i2;
-    scores[j] = tid == 0 ? v1 : v2;
+  // a warp a cell: lane (x, half) suppresses rows 8 half .. 8 half + 7 of
+  // column x from a sliding window of three span rows. With f(v) = v > th ?
+  // v : 0 (th >= 0) the strict NMS of f(v) keeps f(m) > f(max of the 8
+  // neighbours) exactly where m > max(neighbours, th)
+  const int cy = cy0 + warp / STRIP_W, cx = cx0 + warp % STRIP_W;
+  if (cy >= hc || cx >= wc) return;           // whole warps
+  const int col = lane & 15, half = lane >> 4;
+  const int r0 = (warp / STRIP_W) * CELL + half * 8;          // span row above the first
+  const int q = (warp % STRIP_W) * CELL + col + 1;            // span column of the pixel
+  float up = fmaxf(fmaxf(s_v[r0][q - 1], s_v[r0][q]), s_v[r0][q + 1]);
+  float l = s_v[r0 + 1][q - 1], m = s_v[r0 + 1][q], rt = s_v[r0 + 1][q + 1];
+  float hn[8], ln[8];
+  bool any_hi = false;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float bl = s_v[r0 + i + 2][q - 1], bm = s_v[r0 + i + 2][q], br = s_v[r0 + i + 2][q + 1];
+    const float nb = fmaxf(fmaxf(up, fmaxf(fmaxf(bl, bm), br)), fmaxf(l, rt));
+    const bool hi = m > fmaxf(nb, th_hi);
+    hn[i] = hi ? m : 0.0f;
+    ln[i] = m > fmaxf(nb, th_lo) ? m : 0.0f;
+    any_hi |= hi;
+    up = fmaxf(fmaxf(l, m), rt);
+    l = bl;
+    m = bm;
+    rt = br;
+  }
+  const bool has_hi = __any_sync(0xFFFFFFFFu, any_hi);
+  const int x = cx * CELL + col;
+  const bool x_ok = x >= EDGE && x < w - EDGE;
+  float v1 = -INFINITY, v2 = -INFINITY;
+  int i1 = 1 << 30, i2 = 1 << 30;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {               // in-cell indices rise with i
+    const int yy = half * 8 + i, y = cy * CELL + yy;
+    const float v = (x_ok && y >= EDGE && y < h - EDGE) ? (has_hi ? hn[i] : ln[i]) : 0.0f;
+    if (v > v1) {
+      v2 = v1; i2 = i1; v1 = v; i1 = yy * CELL + col;
+    } else if (v > v2) {
+      v2 = v; i2 = yy * CELL + col;
+    }
+  }
+  // the cell's top two from the lanes' own: the largest value (every value
+  // is +0 or more, so its bits order as unsigned) and the least index that
+  // holds it; then the same over the lanes' best but for that one
+  const unsigned v1b = __reduce_max_sync(0xFFFFFFFFu, __float_as_uint(v1));
+  const unsigned i1g = __reduce_min_sync(
+      0xFFFFFFFFu, __float_as_uint(v1) == v1b ? static_cast<unsigned>(i1) : 0xFFFFu);
+  const bool first_here = static_cast<unsigned>(i1) == i1g;
+  const float rv = first_here ? v2 : v1;
+  const int ri = first_here ? i2 : i1;
+  const unsigned v2b = __reduce_max_sync(0xFFFFFFFFu, __float_as_uint(rv));
+  const unsigned i2g = __reduce_min_sync(
+      0xFFFFFFFFu, __float_as_uint(rv) == v2b ? static_cast<unsigned>(ri) : 0xFFFFu);
+  v1 = __uint_as_float(v1b);
+  i1 = static_cast<int>(i1g);
+  v2 = __uint_as_float(v2b);
+  i2 = static_cast<int>(i2g);
+  if (lane < 2) {
+    const int j = 2 * (L.cell0[lv] + cy * wc + cx) + lane, idx = lane == 0 ? i1 : i2;
+    scores[j] = lane == 0 ? v1 : v2;
     uv[2 * j] = static_cast<float>(cx * CELL + (idx & 15));
     uv[2 * j + 1] = static_cast<float>(cy * CELL + (idx >> 4));
   }
@@ -232,7 +388,8 @@ fast_cells_kernel(const float* __restrict__ canvas, int H, int W, Levels L, floa
 // ----------------------------------------------------------------------------
 
 // the score's bits, ordered as the floats are (-0 as +0), over the index's
-// complement: a larger key is a larger score, or an equal one of lower index
+// complement: a larger key is a larger score, or an equal one of lower index;
+// every key of a non-NaN score is above 0
 __device__ __forceinline__ unsigned long long sort_key(float s, int i) {
   if (s == 0.0f) s = 0.0f;
   uint32_t u = __float_as_uint(s);
@@ -240,55 +397,84 @@ __device__ __forceinline__ unsigned long long sort_key(float s, int i) {
   return (static_cast<unsigned long long>(u) << 32) | (0xFFFFFFFFu - static_cast<uint32_t>(i));
 }
 
-__device__ __forceinline__ float key_score(unsigned long long key) {
-  uint32_t u = static_cast<uint32_t>(key >> 32);
-  u = (u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u;
-  return __uint_as_float(u);
-}
-
-__global__ void __launch_bounds__(SORT_T)
+__global__ void __launch_bounds__(QS_WARPS * 32)
 quota_select_kernel(const float* __restrict__ scores, const float* __restrict__ cand_uv,
                     Levels L, float* __restrict__ response, float* __restrict__ uv_lv,
                     float* __restrict__ uv, int* __restrict__ level, bool* __restrict__ valid) {
-  extern __shared__ unsigned long long s_key[];
-  const int lv = blockIdx.x, tid = threadIdx.x;
+  __shared__ __align__(16) unsigned long long s_key[QS_WARPS][QS_BUF];
+  __shared__ int s_cnt[QS_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lv = level_of(L.chunk0, L.n, blockIdx.x);
   const int first = 2 * L.cell0[lv], n = 2 * (L.cell0[lv + 1] - L.cell0[lv]);
   const int k = L.row0[lv + 1] - L.row0[lv], row0 = L.row0[lv];
-  if (k == 0) return;
-  int P = 1;
-  while (P < n) P <<= 1;
-  for (int i = tid; i < P; i += SORT_T)       // padding (key 0) sorts after every candidate
-    s_key[i] = i < n ? sort_key(scores[first + i], i) : 0ull;
+  const float* sc = scores + first;
+  const int chunk = blockIdx.x - L.chunk0[lv], c = chunk * 32 + lane;   // this lane's candidate
+  const float s = c < n ? sc[c] : 0.0f;
+  const float2 uv_c = c < n ? reinterpret_cast<const float2*>(cand_uv)[first + c]
+                            : make_float2(0.0f, 0.0f);       // loaded now, used at the end
+  const unsigned long long mine = c < n ? sort_key(s, c) : ~0ull;   // no key is above ~0
+  int cnt = c < n ? 0 : k;
+
+  // this warp's part of the keys, QS_BUF at a time
+  const int part = (n + QS_WARPS - 1) / QS_WARPS;
+  const int j0 = min(n, warp * part), j1 = min(n, j0 + part);
+  unsigned long long* buf = s_key[warp];
+  for (int base = j0; base < j1; base += QS_BUF) {
+    if (__all_sync(0xFFFFFFFFu, cnt >= k)) break;   // no lane of the warp is kept
+    const int m = min(QS_BUF, j1 - base), m8 = (m + 7) & ~7;
+    float v[QS_BUF / 32];                     // every load issued before any store
+#pragma unroll
+    for (int u = 0; u < QS_BUF / 32; ++u)
+      v[u] = lane + 32 * u < m ? sc[base + lane + 32 * u] : 0.0f;
+#pragma unroll
+    for (int u = 0; u < QS_BUF / 32; ++u) {   // padding (key 0) is above no key
+      const int t = lane + 32 * u;
+      if (t < m8) buf[t] = t < m ? sort_key(v[u], base + t) : 0ull;
+    }
+    __syncwarp();
+#pragma unroll 4
+    for (int t = 0; t < m8; t += 8) {
+      const ulonglong2 a = *reinterpret_cast<const ulonglong2*>(buf + t);
+      const ulonglong2 b = *reinterpret_cast<const ulonglong2*>(buf + t + 2);
+      const ulonglong2 d = *reinterpret_cast<const ulonglong2*>(buf + t + 4);
+      const ulonglong2 e = *reinterpret_cast<const ulonglong2*>(buf + t + 6);
+      cnt += (a.x > mine) + (a.y > mine) + (b.x > mine) + (b.y > mine) + (d.x > mine) +
+             (d.y > mine) + (e.x > mine) + (e.y > mine);
+    }
+    __syncwarp();
+  }
+  s_cnt[warp][lane] = cnt;
   __syncthreads();
-  for (int size = 2; size <= P; size <<= 1) {
-    for (int j = size >> 1; j > 0; j >>= 1) {
-      for (int t = tid; t < P / 2; t += SORT_T) {
-        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1)), l = i + j;
-        const unsigned long long a = s_key[i], c = s_key[l];
-        if ((i & size) == 0 ? a < c : a > c) { s_key[i] = c; s_key[l] = a; }   // descending
-      }
-      __syncthreads();
+
+  const float scl = L.scale[lv];
+  if (warp == 0 && c < n) {
+    int rank = 0;
+#pragma unroll
+    for (int q = 0; q < QS_WARPS; ++q) rank += s_cnt[q][lane];
+    if (rank < k) {
+      const float u = uv_c.x, v = uv_c.y;
+      const int o = row0 + rank;
+      response[o] = s;
+      uv_lv[2 * o] = u;
+      uv_lv[2 * o + 1] = v;
+      uv[2 * o] = __fmul_rn(u, scl);
+      uv[2 * o + 1] = __fmul_rn(v, scl);
+      level[o] = lv;
+      valid[o] = s > 0.0f;
     }
   }
-  const int k_eff = k < n ? k : n;
-  const float sc = L.scale[lv];
-  for (int r = tid; r < k; r += SORT_T) {
-    float s = 0.0f;
-    int idx = 0;                              // rows past the candidates: candidate 0
-    if (r < k_eff) {
-      const unsigned long long key = s_key[r];
-      s = key_score(key);
-      idx = static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(key));
+  if (chunk == 0) {                           // rows past the candidates: candidate 0
+    const float u = cand_uv[2 * first], v = cand_uv[2 * first + 1];
+    for (int r = n + threadIdx.x; r < k; r += QS_WARPS * 32) {
+      const int o = row0 + r;
+      response[o] = 0.0f;
+      uv_lv[2 * o] = u;
+      uv_lv[2 * o + 1] = v;
+      uv[2 * o] = __fmul_rn(u, scl);
+      uv[2 * o + 1] = __fmul_rn(v, scl);
+      level[o] = lv;
+      valid[o] = false;
     }
-    const float u = cand_uv[2 * (first + idx)], v = cand_uv[2 * (first + idx) + 1];
-    const int o = row0 + r;
-    response[o] = s;
-    uv_lv[2 * o] = u;
-    uv_lv[2 * o + 1] = v;
-    uv[2 * o] = __fmul_rn(u, sc);
-    uv[2 * o + 1] = __fmul_rn(v, sc);
-    level[o] = lv;
-    valid[o] = s > 0.0f;
   }
 }
 
@@ -411,12 +597,15 @@ Levels make_levels(int n_levels, const int* hs, const int* ws, const int* quotas
                    const float* scales) {
   Levels L{};
   L.n = n_levels;
-  L.cell0[0] = L.row0[0] = 0;
   for (int l = 0; l < n_levels; ++l) {
+    const int hc = hs[l] / CELL, wc = ws[l] / CELL, k = quotas != nullptr ? quotas[l] : 0;
     L.h[l] = hs[l];
     L.w[l] = ws[l];
-    L.cell0[l + 1] = L.cell0[l] + (hs[l] / CELL) * (ws[l] / CELL);
-    L.row0[l + 1] = L.row0[l] + (quotas != nullptr ? quotas[l] : 0);
+    L.cell0[l + 1] = L.cell0[l] + hc * wc;
+    L.row0[l + 1] = L.row0[l] + k;
+    L.strip0[l + 1] = L.strip0[l] +
+                      ((hc + STRIP_H - 1) / STRIP_H) * ((wc + STRIP_W - 1) / STRIP_W);
+    L.chunk0[l + 1] = L.chunk0[l] + (k > 0 ? (2 * hc * wc + 31) / 32 : 0);
     L.scale[l] = scales != nullptr ? scales[l] : 1.0f;
   }
   return L;
@@ -432,15 +621,17 @@ bool levels_ok(int n_levels, const int* hs, const int* ws, int H, int W) {
 }  // namespace
 
 // canvas [L, H, W] f32; hs, ws: host arrays of the n_levels levels' sizes;
-// scores [C] f32 and uv [C, 2] f32 out, C = 2 x the levels' cells.
+// th_hi, th_lo >= 0; scores [C] f32 and uv [C, 2] f32 out, C = 2 x the
+// levels' cells.
 extern "C" int orb_fast_cells_launch(const void* canvas, int H, int W, int n_levels,
                                      const int* hs, const int* ws, float th_hi, float th_lo,
                                      void* scores, void* uv, int device, void* stream) {
-  if (!levels_ok(n_levels, hs, ws, H, W)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!levels_ok(n_levels, hs, ws, H, W) || !(th_hi >= 0.0f) || !(th_lo >= 0.0f))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Levels L = make_levels(n_levels, hs, ws, nullptr, nullptr);
   if (L.cell0[n_levels] == 0) return static_cast<int>(cudaSuccess);
   DeviceGuard guard(device);
-  fast_cells_kernel<<<L.cell0[n_levels], 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  fast_cells_kernel<<<L.strip0[n_levels], FAST_T, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(canvas), H, W, L, th_hi, th_lo, static_cast<float*>(scores),
       static_cast<float*>(uv));
   return static_cast<int>(cudaGetLastError());
@@ -455,23 +646,15 @@ extern "C" int orb_quota_select_launch(const void* scores, const void* cand_uv, 
                                        void* uv, void* level, void* valid, int device,
                                        void* stream) {
   if (n_levels < 1 || n_levels > MAX_LEVELS) return static_cast<int>(cudaErrorInvalidValue);
-  const Levels L = make_levels(n_levels, hs, ws, quotas, scales);
-  int P_max = 1;
-  for (int l = 0; l < n_levels; ++l) {
-    const int n = 2 * (L.cell0[l + 1] - L.cell0[l]);
-    if (n > MAX_CAND || (n == 0 && quotas[l] > 0) || quotas[l] < 0)
+  for (int l = 0; l < n_levels; ++l)
+    if (hs[l] < 1 || ws[l] < 1 || quotas[l] < 0 ||
+        (quotas[l] > 0 && hs[l] / CELL * (ws[l] / CELL) == 0))
       return static_cast<int>(cudaErrorInvalidValue);
-    while (P_max < n) P_max <<= 1;
-  }
+  const Levels L = make_levels(n_levels, hs, ws, quotas, scales);
   if (L.row0[n_levels] == 0) return static_cast<int>(cudaSuccess);
   DeviceGuard guard(device);
-  const size_t smem = static_cast<size_t>(P_max) * sizeof(unsigned long long);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        quota_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  quota_select_kernel<<<n_levels, SORT_T, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+  quota_select_kernel<<<L.chunk0[n_levels], QS_WARPS * 32, 0,
+                        reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(scores), static_cast<const float*>(cand_uv), L,
       static_cast<float*>(response), static_cast<float*>(uv_lv), static_cast<float*>(uv),
       static_cast<int*>(level), static_cast<bool*>(valid));

@@ -10,8 +10,12 @@ points, refined by three rounds of resection (a mono pose Gauss-Newton of
 view 2) and intersection (DLT triangulation), and returned with a unit-norm
 translation (the monocular scale is free).
 
-The hypotheses are batches of small SVDs; nothing is read on the host. The
-RANSAC draws are the JAX package's own, `jax.random.categorical` under
+The hypotheses are batches of small SVDs. Of the card's values only the
+8-point systems are read on the host, whose null vectors are solved there
+for a bootstrap on the card (`_null_vectors`: a degenerate sample's vector
+is the solver's own choice, and the CPU's must win); cuSOLVER's SVDs and
+inverses wait for the card on their own. The RANSAC draws are the JAX
+package's own, `jax.random.categorical` under
 `PRNGKey(seed)` and its fold_in 1, drawn bit for bit by
 `ops/draw_kernel.py` (a CUDA kernel on the card; at
 the bootstrap's narrow baselines the draw decides the map's scale: other
@@ -62,6 +66,23 @@ def _normalize(pts: torch.Tensor, w: torch.Tensor):
     return (pts - mean) * s, T
 
 
+def _null_vectors(A: torch.Tensor) -> torch.Tensor:
+    """The last right singular vector of each [..., 8, 9] system; for a
+    tensor on the card solved on the host, one explicit copy each way.
+
+    A sample drawn with replacement can repeat a row (7 of the 200 on the
+    mono cell's bootstrap); its system then has a 2-D null space, and the
+    vector an SVD returns in it is set by the solver's own rounding. On the
+    card cuSOLVER returned another vector than the CPU's LAPACK for one such
+    sample, which then won the RANSAC: the card bootstrapped from another F
+    and made 32 keyframes where the CPU made 11. Solved on the host, the
+    card takes the CPU route's vectors. Mono only, once a bootstrap attempt
+    (~58 KB)."""
+    if A.device.type == "cpu":
+        return torch.linalg.svd(A)[2][..., -1, :]
+    return torch.linalg.svd(A.cpu())[2][..., -1, :].to(A.device)
+
+
 def _fundamental_8pt(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     """8-point F from [..., 8, 2] correspondences (already conditioned),
     with rank 2 enforced."""
@@ -69,7 +90,7 @@ def _fundamental_8pt(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     A = torch.stack([x2[..., 0] * x1[..., 0], x2[..., 0] * x1[..., 1], x2[..., 0],
                      x2[..., 1] * x1[..., 0], x2[..., 1] * x1[..., 1], x2[..., 1],
                      x1[..., 0], x1[..., 1], one], dim=-1)
-    F = torch.linalg.svd(A)[2][..., -1, :].reshape(A.shape[:-2] + (3, 3))
+    F = _null_vectors(A).reshape(A.shape[:-2] + (3, 3))
     U, S, Vt = torch.linalg.svd(F)
     S = torch.stack([S[..., 0], S[..., 1], torch.zeros_like(S[..., 0])], dim=-1)
     return (U * S[..., None, :]) @ Vt
@@ -136,6 +157,20 @@ def _cheirality(T21: torch.Tensor, P1: torch.Tensor, Km: torch.Tensor, x1, x2, i
     return X, inliers & (z1 > 0) & (z2 > 0) & (torch.abs(z1) < 1e4)
 
 
+def fundamental_hypotheses(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor,
+                           idx_f: torch.Tensor, norm=None):
+    """The fundamental RANSAC's hypotheses from the 8-point samples idx_f
+    [B, 8] of x1 <-> x2 [N, 2] (`norm`: both views' Hartley normalisations,
+    (x1n, T1, x2n, T2), made here if None): Fs [B, 3, 3], their scores [B]
+    and inlier sets [B, N]. The winner is argmax(scores)."""
+    if norm is None:
+        w = valid.float()
+        norm = (*_normalize(x1, w), *_normalize(x2, w))
+    x1n, T1, x2n, T2 = norm
+    Fs = T2.T @ _fundamental_8pt(x1n[idx_f], x2n[idx_f]) @ T1
+    return (Fs, *_score_f(Fs, x1, x2, valid))
+
+
 def initialize(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor, K: tuple,
                n_iters: int = 200, *, seed: int = 0, sample_idx=None) -> InitResult:
     """Two-view bootstrap from matched pixel coords x1 <-> x2 [N, 2].
@@ -161,8 +196,7 @@ def initialize(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor, K: tuple
     w = valid.float()
     x1n, T1 = _normalize(x1, w)
     x2n, T2 = _normalize(x2, w)
-    Fs = T2.T @ _fundamental_8pt(x1n[idx_f], x2n[idx_f]) @ T1
-    sf, inl_f = _score_f(Fs, x1, x2, valid)
+    Fs, sf, inl_f = fundamental_hypotheses(x1, x2, valid, idx_f, (x1n, T1, x2n, T2))
     best_f = torch.argmax(sf).reshape(1)
     F = Fs.index_select(0, best_f)[0]
     inliers = inl_f.index_select(0, best_f)[0]

@@ -15,6 +15,20 @@ numpy seed, so every caller makes the same input.
     noise         seeded integer noise: many equal strengths
     checker       8-px squares: every corner the same strength, ties inside
                   and across cells
+
+and the quota's edges (QUOTA_CASES: candidate scores and uv made from a
+numpy seed, fed to orb_quota_select alone):
+
+    all_equal     the defaults' levels, every score 33: ties everywhere
+    all_zero      the defaults' levels, every score +0: no row valid
+    signed_ties   the defaults' levels, scores from {+0, -0, 7.5, 20.25, 33,
+                  -1, 1e30} and 30% uniform: ties, both zeros, negatives
+    rig_padded    the rig's levels (fewer candidates than the quota above
+                  level 0: padded rows)
+    stereo_level0 the stereo cell's levels: 3542 candidates at level 0
+    one_level_32k one 2048 x 2048 level: 32768 candidates, quota 1000
+    exact_quota   a level whose quota is its 32 candidates, then a level of
+                  quota 0
 """
 
 from __future__ import annotations
@@ -98,3 +112,38 @@ def axis_moment_pairs(seed: int = 11, n: int = 1000) -> np.ndarray:
     near = rng.normal(0, 1, (n, 2)) * np.where(rng.uniform(size=(n, 1)) < 0.5,
                                                [1.0, 1e-6], [1e-6, 1.0])
     return np.concatenate([np.array(axes), near]).astype(np.float32)
+
+
+QUOTA_CASES = ("all_equal", "all_zero", "signed_ties", "rig_padded", "stereo_level0",
+               "one_level_32k", "exact_quota")
+
+
+def quota_input(name: str):
+    """(scores [C] f32, cand_uv [C, 2] f32 on the CPU, shapes, quotas, scale)
+    of quota case `name` (numpy only but for the tensors)."""
+    from gdslam_tpu_torch.ops import image, orb, orb_kernel
+    cfg = SlamConfig()
+
+    def levels(cam, o):
+        shapes = image.pyramid_shapes(cam.height, cam.width, o.n_levels, o.scale_factor)
+        return shapes, orb.feature_quotas(o.n_features, o.n_levels, o.scale_factor), \
+            o.scale_factor
+
+    shapes, quotas, scale = {
+        "rig_padded": lambda: levels(RIG_CAMERA, RIG_ORB),
+        "stereo_level0": lambda: levels(KITTI_CAMERA, KITTI_ORB),
+        "one_level_32k": lambda: ([(2048, 2048)], [1000], 1.2),
+        "exact_quota": lambda: ([(64, 64), (32, 32)], [32, 0], 1.2)}.get(
+            name, lambda: levels(cfg.camera, cfg.orb))()
+    C = sum(orb_kernel.n_candidates(shapes))
+    r = np.random.default_rng(QUOTA_CASES.index(name) + 17)
+    if name == "all_equal":
+        s = np.full(C, 33.0, np.float32)
+    elif name == "all_zero":
+        s = np.zeros(C, np.float32)
+    else:
+        s = r.choice(np.float32([0.0, -0.0, 7.5, 20.25, 33.0, -1.0, 1e30]), C)
+        free = r.uniform(size=C) < 0.3
+        s[free] = r.uniform(0, 100, int(free.sum()))
+    uv = r.uniform(0, 640, (C, 2)).astype(np.float32)
+    return torch.from_numpy(s.astype(np.float32)), torch.from_numpy(uv), shapes, quotas, scale

@@ -50,7 +50,6 @@ LIB = "orb_extract"
 EDGE_MARGIN = 16      # reference detects within minBorder=19-3 (ORBextractor.cc:774)
 CELL = 16             # candidate cell size (px), top-2 kept per cell
 MAX_LEVELS = 16       # the kernels' level table
-MAX_CAND = 16384      # candidates a level orb_quota_select sorts in shared memory
 BLUR_TAPS = tuple(float(v) for v in image_ops.gaussian_kernel_1d(7, 2.0))
 RCP_BIN = float(np.float32(1.0) / np.float32(2 * np.pi / orb_ops.N_ANGLE_BINS))
 
@@ -254,6 +253,8 @@ def orb_fast_cells(canvas: torch.Tensor, shapes, th_hi: float, th_lo: float):
     L, H, W = canvas.shape
     cuda_build.check(name, "canvas", canvas, torch.float32, (L, H, W), canvas.device)
     _check_levels(name, shapes, H, W)
+    if not (th_hi >= 0 and th_lo >= 0):
+        raise ValueError(f"{name}: thresholds {th_hi}, {th_lo}; the kernel takes them >= 0")
     if len(shapes) > L:
         raise ValueError(f"{name}: {len(shapes)} levels on a canvas of {L}")
     lib = cuda_build.load(LIB, _declare)
@@ -269,8 +270,8 @@ def orb_fast_cells(canvas: torch.Tensor, shapes, th_hi: float, th_lo: float):
 
 def orb_quota_select(scores: torch.Tensor, cand_uv: torch.Tensor, shapes, quotas, scale: float):
     """Each level's quota of candidates (quota_select_plain's outputs). One
-    launch on the card, a level per block; at most MAX_CAND candidates a
-    level there."""
+    launch on the card: each candidate's row is the count of its level's
+    candidates ahead of it, counted by CTAs of 32 candidates."""
     name = "orb_quota_select"
     counts = n_candidates(shapes)
     for lv, (n, k) in enumerate(zip(counts, quotas)):
@@ -283,9 +284,6 @@ def orb_quota_select(scores: torch.Tensor, cand_uv: torch.Tensor, shapes, quotas
     cuda_build.check(name, "cand_uv", cand_uv, torch.float32, (C, 2), dev)
     if not 1 <= len(shapes) <= MAX_LEVELS or len(quotas) != len(shapes) or min(quotas) < 0:
         raise ValueError(f"{name}: {len(shapes)} levels and quotas {list(quotas)}")
-    if max(counts) > MAX_CAND:
-        raise ValueError(f"{name}: {max(counts)} candidates in one level; the kernel sorts at "
-                         f"most {MAX_CAND} (a level of about {MAX_CAND // 2 * CELL * CELL} px)")
     lib = cuda_build.load(LIB, _declare)
     response = torch.empty(N, dtype=torch.float32, device=dev)
     uv_lv = torch.empty(N, 2, dtype=torch.float32, device=dev)

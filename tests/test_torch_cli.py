@@ -5,6 +5,8 @@ gdslam_tpu_torch.cli.{rgbd_tum, evaluate} run with --device cpu on a
 of tests/test_cli_e2e.py and, for the geometry mode, to the JAX package's
 evaluate on the same sequence."""
 
+import contextlib
+import io
 import json
 import os
 import struct
@@ -349,26 +351,65 @@ def test_rgbd_tum_modes(tum_seq, tmp_path, monkeypatch, capsys, mode):
         assert (mask == 0).sum() > 100        # the masked sphere
 
 
-def _evaluate(module, seq_dir, mode, capsys, extra=()):
+def _run_evaluate(module, seq_dir, mode, extra=()):
     _, assoc, gt, settings, masks = _paths(seq_dir)
     rc = module.main([seq_dir, assoc, gt, "--mode", mode, "--settings", settings,
                       "--masks", masks, "--rpe-delta", "5", *extra])
     assert rc == 0
+
+
+def _evaluate(module, seq_dir, mode, capsys, extra=()):
+    _run_evaluate(module, seq_dir, mode, extra)
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
+def _eval_extra(seq_dir, mode):
+    return ("--device", "cpu") + (("--ref-masks", _paths(seq_dir)[4]) if mode != "plain"
+                                  else ())
+
+
+@pytest.fixture(scope="module")
+def port_geometry_eval(tum_seq, tmp_path_factory):
+    """The port's `evaluate --mode geometry` on the sequence, run once for
+    the two tests that read it (test_evaluate_modes[geometry] and
+    test_evaluate_geometry_matches_jax; --ref-masks only reads the cached
+    masks after each frame, so the tracking is the run's without it): its
+    JSON record and the System it built."""
+    from gdslam_tpu_torch.cli import evaluate
+    from gdslam_tpu_torch.system import slam as tslam
+    seq_dir, _ = tum_seq
+    made, real, cwd = [], tslam.System, os.getcwd()
+
+    def build(*a, **k):
+        made.append(real(*a, **k))
+        return made[-1]
+
+    out = io.StringIO()
+    os.chdir(tmp_path_factory.mktemp("evaluate_geometry"))
+    tslam.System = build
+    try:
+        with contextlib.redirect_stdout(out):
+            _run_evaluate(evaluate, seq_dir, "geometry", _eval_extra(seq_dir, "geometry"))
+    finally:
+        tslam.System = real
+        os.chdir(cwd)
+    return json.loads(out.getvalue().strip().splitlines()[-1]), made[0]
+
+
 @pytest.mark.parametrize("mode,gate", [("plain", 0.30), ("geometry", 0.08), ("gd", 0.15)])
-def test_evaluate_modes(tum_seq, tmp_path, monkeypatch, capsys, mode, gate):
+def test_evaluate_modes(tum_seq, tmp_path, monkeypatch, capsys, request, mode, gate):
     """evaluate's three modes on the CPU with the JAX CLI tests' gates;
     the last line is the JSON record with the JAX package's fields; in the
     masked modes --ref-masks reports the mask IoU against the cached masks
-    (the refined masks contain the semantic prior: IoU > 0.5)."""
+    (the refined masks contain the semantic prior: IoU > 0.5). The geometry
+    run is the module's (port_geometry_eval)."""
     from gdslam_tpu_torch.cli import evaluate
     seq_dir, _ = tum_seq
     monkeypatch.chdir(tmp_path)
-    extra = ("--device", "cpu") + (("--ref-masks", _paths(seq_dir)[4]) if mode != "plain"
-                                   else ())
-    rec = _evaluate(evaluate, seq_dir, mode, capsys, extra)
+    if mode == "geometry":
+        rec = request.getfixturevalue("port_geometry_eval")[0]
+    else:
+        rec = _evaluate(evaluate, seq_dir, mode, capsys, _eval_extra(seq_dir, mode))
     assert {"mode", "frames", "tracked", "associated", "ate_rmse_m", "rpe_rmse_m",
             "keyframes"} <= set(rec)
     assert rec["mode"] == mode and rec["frames"] == N_FRAMES
@@ -390,10 +431,12 @@ def _capture_systems(monkeypatch, module) -> list:
     return made
 
 
-def test_evaluate_geometry_matches_jax(tum_seq, tmp_path, monkeypatch, capsys):
+def test_evaluate_geometry_matches_jax(tum_seq, port_geometry_eval, tmp_path, monkeypatch,
+                                       capsys):
     """The two packages' `evaluate --mode geometry` on the same sequence
-    (pipelined, the semantic prior from the mask cache): the same frames
-    tracked and associated, the same keyframes. evaluate runs the tracker
+    (pipelined, the semantic prior from the mask cache; the port's run is
+    the module's, port_geometry_eval): the same frames tracked and
+    associated, the same keyframes. evaluate runs the tracker
     pipelined, and the JAX package then pairs a frame committed after a
     keyframe of the same flush with the new keyframe although its pose is
     relative to the old one (ROADMAP.md section 3), which the port does not reproduce. So the JSON lines' ATEs
@@ -401,16 +444,14 @@ def test_evaluate_geometry_matches_jax(tum_seq, tmp_path, monkeypatch, capsys):
     keyframe the trajectories agree to 1e-3 m and their ATEs to 1e-3 m."""
     from gdslam_tpu.cli import evaluate as jevaluate
     from gdslam_tpu.system import slam as jslam
-    from gdslam_tpu_torch.cli import evaluate
-    from gdslam_tpu_torch.system import slam as tslam
     seq_dir, gts = tum_seq
     monkeypatch.chdir(tmp_path)
-    made_j, made_t = _capture_systems(monkeypatch, jslam), _capture_systems(monkeypatch, tslam)
+    made_j = _capture_systems(monkeypatch, jslam)
     rec_j = _evaluate(jevaluate, seq_dir, "geometry", capsys)
-    rec_t = _evaluate(evaluate, seq_dir, "geometry", capsys, ("--device", "cpu"))
+    rec_t, slam_t = port_geometry_eval
     for key in ("frames", "tracked", "associated", "keyframes"):
         assert rec_t[key] == rec_j[key], key
-    tr_j, tr_t = made_j[0].tracker, made_t[0].tracker
+    tr_j, tr_t = made_j[0].tracker, slam_t.tracker
     assert tr_t.kf_timestamps == tr_j.kf_timestamps
     same_ref = np.array([a[1] == b[1] for a, b in zip(tr_t.records, tr_j.records)])
     assert (~same_ref).sum() <= 2 * (len(tr_t.kf_timestamps) - 1)

@@ -6,6 +6,11 @@ package, so it runs where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import collections
+import inspect
+import os
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -1274,6 +1279,95 @@ def test_orb_kernels_equal_plain(card, case):
         assert pad > 0 and int((f.response == 0).sum()) >= pad
     else:
         assert pad == 0
+
+
+@pytest.mark.parametrize("case", orb_cases.QUOTA_CASES)
+def test_orb_quota_select_edges_equal_plain(card, case):
+    """orb_quota_select bitwise its plain twin, on the card and on the CPU,
+    at the quota's edges (ops/orb_cases.py): every score equal, every score
+    +0, ties with both zeros and negatives, levels with fewer candidates
+    than their quota (padded rows), the stereo cell's 3542-candidate level
+    0, one level of 32768 candidates, a quota equal to its level's
+    candidates beside a quota of 0; one launch a call."""
+    scores, uv, shapes, quotas, scale = orb_cases.quota_input(case)
+    want = orb_kernel.quota_select_plain(scores, uv, shapes, quotas, scale)
+    before = orb_kernel.orb_quota_select.launches
+    got = orb_kernel.orb_quota_select(scores.to(card), uv.to(card), shapes, quotas, scale)
+    assert orb_kernel.orb_quota_select.launches == before + 1
+    on_card = orb_kernel.quota_select_plain(scores.to(card), uv.to(card), shapes, quotas, scale)
+    for g, w, c in zip(got, want, on_card):
+        assert _same(g, c) and _same(g.cpu(), w)
+
+
+def test_mono_bootstrap_on_card_takes_the_cpu_f(card):
+    """chip_smoke.py's mono cell's bootstrap (the SlamConfig() defaults,
+    frames 0 and 2 of the static scene rendered on the card as 8-bit RGB,
+    extracted and matched on the CPU) through initialize on the card and on
+    the CPU from the same matches: the same F hypothesis (the fundamental
+    RANSAC's winner under the JAX draws, and its inlier set), the same model
+    choice, the same good points and the pose to 1e-4. Some of the 200
+    8-point samples repeat a row; their null vectors are solved on the host
+    (initializer._null_vectors), where cuSOLVER's pick had won. That solve
+    waits for the card twice (the copy out and the copy back), and
+    initialize waits no more than that over its waits with cuSOLVER's own
+    solve."""
+    from gdslam_tpu_torch.core import prng
+    from gdslam_tpu_torch.frontend import initializer
+    from gdslam_tpu_torch.frontend.frame import build_frame
+    from gdslam_tpu_torch.system.slam import Sensor
+    cfg = SlamConfig()
+    cam = cfg.camera
+    s = System(cfg, Sensor.MONOCULAR, device="cpu")
+    frames = []
+    for i in (0, 2):
+        rgb = synthetic.render_frame(i, cam, with_dynamic=False, device=card).rgb
+        g = s._to_gray(torch.round(rgb).clamp(0, 255).to(torch.uint8).cpu().numpy())
+        frames.append(build_frame(extractor.extract(g, cfg.orb, cam.height, cam.width),
+                                  torch.zeros_like(g), torch.ones_like(g), cam))
+    good, idx = tracking.bootstrap_matches(*frames, cfg.orb.n_levels)
+    x1, x2, K = frames[0].uv, frames[1].uv[idx.long()], (cam.fx, cam.fy, cam.cx, cam.cy)
+    idx_f = draw_kernel.uniform_over(prng.prng_key(0), good, 200 * 8).reshape(200, 8)
+    assert sum(len(set(r)) < 8 for r in idx_f.tolist()) >= 1
+    on = lambda t: t.to(card)                                     # noqa: E731
+    _, sf_c, inl_c = initializer.fundamental_hypotheses(x1, x2, good, idx_f)
+    _, sf_g, inl_g = initializer.fundamental_hypotheses(on(x1), on(x2), on(good), on(idx_f))
+    best = int(torch.argmax(sf_c))
+    assert int(torch.argmax(sf_g)) == best
+    assert torch.equal(inl_g[best].cpu(), inl_c[best])
+    want = initializer.initialize(x1, x2, good, K, seed=0)
+    args = (on(x1), on(x2), on(good), K)
+
+    def waits(run):
+        """{file:line: count} of run()'s waits for the card."""
+        run()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = run()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, collections.Counter(
+            f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message) and "prototype" not in str(w.message))
+
+    got, sites = waits(lambda: initializer.initialize(*args, seed=0))
+    src, first = inspect.getsourcelines(initializer._null_vectors)
+    copy_site = f"initializer.py:{first + next(i for i, ln in enumerate(src) if '.cpu()' in ln)}"
+    real = initializer._null_vectors
+    initializer._null_vectors = lambda A: torch.linalg.svd(A)[2][..., -1, :]  # noqa: E731
+    try:
+        _, card_sites = waits(lambda: initializer.initialize(*args, seed=0))
+    finally:
+        initializer._null_vectors = real
+    print("initialize's waits:", dict(sites), "with cuSOLVER's own solve:", dict(card_sites))
+    assert sites[copy_site] == 2
+    assert sum(sites.values()) <= sum(card_sites.values()) + 2
+    assert bool(want.ok) and bool(got.ok)
+    assert bool(got.used_homography) == bool(want.used_homography)
+    assert torch.equal(got.is_good.cpu(), want.is_good)
+    torch.testing.assert_close(got.T_21.cpu(), want.T_21, atol=1e-4, rtol=0)
 
 
 def test_orb_atan2_and_bins_on_card(card):

@@ -16,6 +16,7 @@ module.
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,6 +51,13 @@ def _cfg(H: int, W: int):
 
 
 SCFG, TCFG = _cfg(120, 160)
+
+
+@functools.lru_cache(maxsize=None)
+def _render(i: int, H: int, W: int):
+    """Frame i of the dynamic scene at H x W (the _cfg camera), rendered once
+    a module: the 120x160 rig, the slice and the GD frames share theirs."""
+    return jsyn.render_frame(i, _cfg(H, W)[0].camera, with_dynamic=True)
 
 
 def _ate(traj, seq) -> float:
@@ -125,10 +133,8 @@ def _rig(H: int, W: int):
     ground-truth poses relative to frame 0 and the sphere masked out), and
     the current frame, frame 38."""
     jcfg, tcfg = _cfg(H, W)
-    cam = jcfg.camera
     db = jgeo.new_db(jcfg.geometry.max_db_size, H, W)
-    frames = [jsyn.render_frame(i, cam, with_dynamic=True) for i in (0, 4, 8, 12, 16, 20, 24,
-                                                                      28, 38)]
+    frames = [_render(i, H, W) for i in (0, 4, 8, 12, 16, 20, 24, 28, 38)]
     T0_inv = np.linalg.inv(np.asarray(frames[0].T_wc))
 
     def T_cw(fr):
@@ -217,7 +223,7 @@ def test_geometry_wrapper_gates_on_the_host_count():
 
 @pytest.fixture(scope="module")
 def seq():
-    return [jsyn.render_frame(i, SCFG.camera, with_dynamic=True) for i in range(N_SLICE)]
+    return [_render(i, 120, 160) for i in range(N_SLICE)]
 
 
 def _jax_geometry_run(seq, pipeline: bool):
@@ -334,7 +340,7 @@ def test_track_rgbd_geom_matches_jax(seq, jax_staged):
 def gd_frames():
     """The CLI's inputs of the GD + inpainting mode: uint8 rgb, uint16 depth
     and the cached semantic mask (the sphere, 1 = static)."""
-    seq = [jsyn.render_frame(i, SCFG.camera, with_dynamic=True) for i in range(N_GD)]
+    seq = [_render(i, 120, 160) for i in range(N_GD)]
     return seq, [(np.asarray(f.rgb).astype(np.uint8), (np.asarray(f.depth) * 5000).astype(
         np.uint16), 1.0 - np.asarray(f.dyn_mask, np.float32)) for f in seq]
 

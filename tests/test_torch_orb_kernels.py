@@ -198,50 +198,62 @@ def _sort_key(s: np.ndarray, i: np.ndarray) -> np.ndarray:
     return (u << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - i.astype(np.uint64))
 
 
-def _bitonic_descending(keys: np.ndarray) -> np.ndarray:
-    """The kernel's network, stage by stage: pairs (i, i + j) with bit j of
-    i clear, descending where bit `size` of i is clear."""
-    s = keys.copy()
-    P = s.shape[0]
-    t = np.arange(P // 2)
-    size = 2
-    while size <= P:
-        j = size >> 1
-        while j > 0:
-            i = ((t & ~(j - 1)) << 1) | (t & (j - 1))
-            a, c = s[i], s[i + j]
-            swap = np.where((i & size) == 0, a < c, a > c)
-            s[i[swap]], s[i[swap] + j] = c[swap], a[swap]
-            j >>= 1
-        size <<= 1
-    return s
+def _rows_by_counting(keys: np.ndarray, k: int, warps: int = 16, buf: int = 256) -> np.ndarray:
+    """The quota kernel's rule, step by step: 32 candidates a CTA (a lane
+    each); its `warps` warps split the level's keys in parts and stream each
+    part `buf` keys at a time, counting the keys above each lane's own, a
+    warp leaving once every lane's count has reached k; the sums are the
+    ranks, and a candidate of rank < k takes row rank. Returns the
+    candidate in each of the min(k, n) rows (-1 where none wrote)."""
+    n = keys.shape[0]
+    part = -(-n // warps)
+    rank = np.zeros(n, np.int64)
+    for c0 in range(0, n, 32):
+        live = np.arange(c0, c0 + 32) < n
+        mine = np.where(live, np.resize(keys[c0:c0 + 32], 32), np.uint64(2 ** 64 - 1))
+        total = np.zeros(32, np.int64)
+        for w in range(warps):
+            j0 = min(n, w * part)
+            j1 = min(n, j0 + part)
+            cnt = np.where(live, 0, k)
+            for base in range(j0, j1, buf):
+                if (cnt >= k).all():
+                    break
+                cnt = cnt + (keys[None, base:min(base + buf, j1)] > mine[:, None]).sum(1)
+            total += cnt
+        rank[c0:c0 + 32] = total[:min(32, n - c0)]
+    rows = np.full(min(k, n), -1, np.int64)
+    kept = np.nonzero(rank < k)[0]
+    rows[rank[kept]] = kept
+    return rows
 
 
 @pytest.mark.parametrize("n", [2, 336, 2400, 3542])
 def test_quota_sort_keys_give_the_stable_order(n):
-    """The quota kernel's keys and sorting network, mirrored in numpy, give
-    torch.sort(descending, stable)'s order (lax.top_k's): scores with many
-    ties, +0 and -0, negatives; padding (key 0) last. n: two candidates,
-    the rig's, the defaults' and the stereo cell's level 0."""
+    """The quota kernel's keys and counting rule, mirrored in numpy
+    (`_rows_by_counting`), give torch.sort(descending, stable)'s order
+    (lax.top_k's) in the first min(k, n) rows, every row written once:
+    scores with many ties, +0 and -0, negatives; quotas of 1 and 7 (where
+    warps leave early), the defaults' level-0 quota, n and past it. n: two
+    candidates, the rig's, the defaults' and the stereo cell's level 0."""
     r = np.random.default_rng(n)
     s = r.choice(np.float32([0.0, -0.0, 7.5, 20.25, 33.0, -1.0, 1e30]), n)
     free = r.uniform(size=n) < 0.3
     s[free] = r.uniform(0, 100, free.sum())
     s = s.astype(np.float32)
-    P = 1 << int(np.ceil(np.log2(n)))
-    keys = np.zeros(P, np.uint64)
-    keys[:n] = _sort_key(s, np.arange(n))
-    got = _bitonic_descending(keys)[:n]
-    idx = (np.uint64(0xFFFFFFFF) - (got & np.uint64(0xFFFFFFFF))).astype(np.int64)
+    keys = _sort_key(s, np.arange(n))
+    assert np.unique(keys).shape[0] == n
     want = torch.sort(torch.from_numpy(s), descending=True, stable=True)[1].numpy()
-    np.testing.assert_array_equal(idx, want)
+    for k in (1, 7, 326, n, n + 10):
+        np.testing.assert_array_equal(_rows_by_counting(keys, k), want[:min(k, n)])
 
 
 def test_orb_wrappers_raise_on_cuda_tensors_without_the_library(monkeypatch):
     """For CUDA tensors each front-end wrapper launches or raises: with no
-    library it raises and counts no launch, a wrong dtype or a level past
-    the kernels' limits is refused, and no wrapper takes its plain twin.
-    Fake CUDA tensors stand in for a card."""
+    library it raises and counts no launch (a level of 32768 candidates
+    too: the quota has no cap a level), a wrong dtype, a level past the
+    kernels' limits, a negative threshold or quota is refused, and no
+    wrapper takes its plain twin. Fake CUDA tensors stand in for a card."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     def missing(name, declare):
@@ -272,8 +284,12 @@ def test_orb_wrappers_raise_on_cuda_tensors_without_the_library(monkeypatch):
             ok.orb_describe(canvas, canvas, uv_n, level.long())
         with pytest.raises(ValueError, match="levels"):
             ok.orb_fast_cells(canvas, [(120, 160)] * 17, 20, 7)
-        big = [(2048, 2048)]
-        with pytest.raises(ValueError, match="at most 16384"):
+        with pytest.raises(ValueError, match="thresholds"):
+            ok.orb_fast_cells(canvas, shapes, 20, -1)
+        big = [(2048, 2048)]                  # 32768 candidates: no cap a level
+        with pytest.raises(RuntimeError, match="orb_extract: library missing"):
             ok.orb_quota_select(torch.empty(32768, **f), torch.empty(32768, 2, **f), big, [1],
                                 1.2)
+        with pytest.raises(ValueError, match="quotas"):
+            ok.orb_quota_select(s, uv, shapes, [100, -1], 1.2)
     assert [w.launches for w in ok.WRAPPERS] == before

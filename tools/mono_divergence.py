@@ -148,8 +148,7 @@ def hypotheses(x1, x2, valid, K, n_iters, torch):
     w = valid.float()
     x1n, T1 = ini._normalize(x1, w)
     x2n, T2 = ini._normalize(x2, w)
-    Fs = T2.T @ ini._fundamental_8pt(x1n[idx_f], x2n[idx_f]) @ T1
-    sf, _ = ini._score_f(Fs, x1, x2, valid)
+    _, sf, _ = ini.fundamental_hypotheses(x1, x2, valid, idx_f, (x1n, T1, x2n, T2))
     Hs = torch.linalg.inv(T2) @ ini._homography_4pt(x1n[idx_h], x2n[idx_h]) @ T1
     sh = ini._score_h(Hs, x1, x2, valid)
     repeat = torch.tensor([len(set(r)) < 8 for r in idx_f.tolist()])

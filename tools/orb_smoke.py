@@ -16,6 +16,17 @@ the frame times side by side:
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     for r in build/parent . . build/parent; do python3 tools/orb_smoke.py --frames $r; done
 
+With --ab-source DIR, the orb phase also builds the earlier
+csrc/orb_extract.cu that DIR holds and times its orb_fast_cells and
+orb_quota_select, behind the current wrappers, beside the current ones on
+the same calls: device ms from CUDA graphs in the order old, new, new, old,
+each wrapper's whole device work, ms through each wrapper, both bitwise
+their twins; ptxas's report of both builds:
+
+    mkdir -p build/old && git show f85edee:gdslam_tpu_torch/csrc/orb_extract.cu \
+        > build/old/orb_extract.cu
+    python3 tools/orb_smoke.py --ab-source build/old
+
 Prints chip_smoke.py's JSON lines for those phases; exits non-zero when a
 phase fails or there is no card.
 """
@@ -64,6 +75,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", metavar="ROOT", type=Path,
                     help="run the slice, gd_slice and stereo phases of the checkout at ROOT")
+    ap.add_argument("--ab-source", metavar="DIR", type=Path,
+                    help="time the earlier FAST and quota kernels in DIR beside the current "
+                         "ones")
     opts = ap.parse_args()
     root = (opts.frames or ROOT).resolve()
     sys.path.insert(0, str(root))
@@ -79,7 +93,8 @@ def main() -> int:
         from gdslam_tpu_torch import SlamConfig
         from gdslam_tpu_torch.ops import match_kernel as mk
         cs.emit(cs.phase_build(mk))
-        cs.phase_orb(torch, SlamConfig(), "cuda")
+        old = cs.ParentKernels(torch, opts.ab_source.resolve()) if opts.ab_source else None
+        cs.phase_orb(torch, SlamConfig(), "cuda", old)
     print(cs.nvidia_smi_line(), flush=True)
     return 0
 
