@@ -37,11 +37,13 @@ then prints one JSON line per phase:
            route, on ops/orb_cases.py's frames (the defaults' static and GD
            dynamic frames, the stereo cell's left image at 2000 features,
            the 120x160 rig whose top levels pad, flat, saturated, integer
-           noise, a checkerboard) and orb_quota_select alone on its edges
-           (ops/orb_cases.QUOTA_CASES); orb_describe's atan2f and bins on the
-           frame's moment pairs, pairs near the axes and angles next to every
-           bin edge; each kernel's ms through its wrapper, from a CUDA graph,
-           its twin's, its bound and (the blur) one F.conv2d's; extract's ms
+           noise, a checkerboard), orb_quota_select alone on its edges
+           (ops/orb_cases.QUOTA_CASES), gaussian_blur7 and orb_describe
+           alone on theirs (BLUR_CASES, DESCRIBE_CASES); orb_describe's
+           atan2f and bins on the frame's moment pairs, pairs near the axes
+           and angles next to every bin edge; each kernel's ms through its
+           wrapper, from a CUDA graph, its twin's, its bound and (the blur)
+           one F.conv2d's; extract's ms
            through the host, device ms, ATen operators and device kernels,
            the twins' route (the parent's) beside it, old, new, new, old;
            extract must not wait for the card and dispatch at most 40
@@ -245,6 +247,7 @@ import hashlib
 import inspect
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -728,6 +731,46 @@ class OldKernel:
 # phases
 # ----------------------------------------------------------------------------
 
+PTXAS: dict = {}               # source -> this build's ptxas lines (phase_build)
+
+
+def ptxas_lines(report: str) -> list:
+    """The lines of a `-Xptxas -v` report that name a kernel or give its
+    registers, spills and stack."""
+    return [ln.strip() for ln in report.splitlines()
+            if "entry function" in ln or "Used" in ln or "spill" in ln]
+
+
+def _demangled_last(mangled: str) -> str:
+    """The last name of an Itanium-mangled nested name (_ZN<len><name>...:
+    a kernel in an anonymous namespace), else the name as it is."""
+    rest, last = mangled[3:] if mangled.startswith("_ZN") else "", mangled
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group()
+        last, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
+    return last
+
+
+def ptxas_kernels(lines) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads, stack}} from
+    ptxas_lines (each kernel's name as its source spells it)."""
+    out, name = {}, None
+    for ln in lines:
+        m = re.search(r"entry function '(\S+)'", ln)
+        if m:
+            name = _demangled_last(m.group(1))
+            out[name] = {}
+        elif name is not None:
+            for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers")):
+                m = re.search(pat, ln)
+                if m:
+                    out[name][key] = int(m.group(1))
+    return out
+
+
 def phase_build(mk) -> dict:
     """Every csrc/*.cu built by ops/cuda_build.py, one nvcc per source, all
     started together; then what ptxas reports for each (also in parallel)."""
@@ -748,7 +791,8 @@ def phase_build(mk) -> dict:
             _, err = proc.communicate(timeout=300)
             if proc.returncode != 0:
                 fail(f"build: ptxas report of {n} failed:\n{err}")
-            ptxas[n] = [ln.strip() for ln in err.splitlines() if "Used" in ln or "spill" in ln]
+            ptxas[n] = ptxas_lines(err)
+    PTXAS.update(ptxas)
     return dict(phase="build", library=str(libs["match_top2"].relative_to(ROOT)),
                 libraries={n: str(v.relative_to(ROOT)) for n, v in libs.items()},
                 seconds=build_s, nvcc_flags=list(cuda_build.NVCC_FLAGS),
@@ -953,6 +997,11 @@ def draw_ab(torch, dkw, old, lg, rows, fold) -> dict:
 # the ORB front end: four kernels (csrc/orb_extract.cu) against their twins
 # ----------------------------------------------------------------------------
 
+TOP2_NO_LIBRARY = ("no single torch call: torch.cdist has no Hamming distance on packed "
+                   "bytes (unpacked to 256 floats a descriptor it reads 32x the bytes and "
+                   "rounds a float distance), and the best two with the lower index among "
+                   "ties, their distances and the radius, level and validity gates are "
+                   "torch.topk, gathers and masks on top")
 ORB_KERNELS = ("orb_fast_cells", "orb_quota_select", "gaussian_blur7", "orb_describe")
 ORB_REPLACES = {"orb_fast_cells": "gdslam_tpu/ops/fast.py:59",
                 "orb_quota_select": "gdslam_tpu/frontend/extractor.py:118",
@@ -984,10 +1033,10 @@ ORB_NO_LIBRARY = {
 # their extreme (15), the centre's difference and the strength's select,
 # 81. Without the compass test every level pixel takes both signs' arcs (the
 # function-level count of the kernel's first design): 32 differences, 128 +
-# 30 min / max, ~29 more: 219. The blur, per canvas pixel: 14 products and
-# 12 sums. The descriptor, per keypoint: the 961 pixels of the disc's square
-# weighted (x3: mask, x, y), 2 x 60 sums, the atan2 (~40) and 256
-# comparisons of 512 taps.
+# 30 min / max, ~29 more: 219. The blur, per pixel it blurs (a level and
+# its 3-px band; the rest is +0): 14 products and 12 sums. The descriptor,
+# per keypoint: the 961 pixels of the disc's square weighted (x3: mask, x,
+# y), 2 x 60 sums, the atan2 (~40) and 256 comparisons of 512 taps.
 FAST_OPS_PER_POSITION = 13
 FAST_OPS_PER_CELL_PIXEL = 22
 FAST_ARC_OPS = 81
@@ -996,6 +1045,7 @@ BLUR_OPS_PER_PIXEL = 26
 DESC_OPS_PER_KEYPOINT = 3 * 961 + 120 + 40 + 256
 F32_INSTR_PER_S = F32_OPS_PER_S / 2
 ORB_ORDER = ("old", "new", "new", "old")
+ORB_AB = ("gaussian_blur7", "orb_describe")     # timed beside the parent's (--ab-source)
 
 
 def orb_launches() -> dict:
@@ -1092,7 +1142,7 @@ def orb_compare(torch, gray, orb, cam) -> tuple[dict, dict]:
     canvas, shapes = image.build_pyramid(gray, cam.height, cam.width, orb.n_levels,
                                          orb.scale_factor)
     quotas = orb_ops.feature_quotas(orb.n_features, orb.n_levels, orb.scale_factor)
-    blurred = ok.gaussian_blur7(canvas)
+    blurred = ok.gaussian_blur7(canvas, shapes)
     cand = ok.orb_fast_cells(canvas, shapes, orb.ini_th_fast, orb.min_th_fast)
     sel = ok.orb_quota_select(*cand, shapes, quotas, orb.scale_factor)
     desc = ok.orb_describe(canvas, blurred, sel[1], sel[3])
@@ -1187,7 +1237,9 @@ def orb_bound(torch, name, canvas, shapes, C, N, sel=None, desc_bins=None,
     from this call's keypoints; FAST takes a sign's arcs only where that
     sign's compass taps pass at th, counted on this call's canvas over the
     positions the cells read (beside it, the bound with both signs' arcs on
-    every level pixel)."""
+    every level pixel). The blur writes the whole canvas, reads each level's
+    own pixels and blurs its live region, the level and its 3-px band (beside
+    it, the bound with every plane read and blurred)."""
     from gdslam_tpu_torch.ops import orb as orb_ops, orb_kernel as ok
     L, H, W = canvas.shape
     area = sum(h * w for h, w in shapes)
@@ -1205,7 +1257,16 @@ def orb_bound(torch, name, canvas, shapes, C, N, sel=None, desc_bins=None,
         nbytes = 12 * C + N * (4 + 8 + 8 + 4 + 1)
         ops = sum(c * int(np.ceil(np.log2(c))) for c in counts)   # a comparison sort's
     elif name == "gaussian_blur7":
-        nbytes, ops = 8 * L * H * W, BLUR_OPS_PER_PIXEL * L * H * W
+        # the whole output written and, each plane +0 past its level, only the
+        # level's own pixels read (its 3-px band is +0 and needs no read) and
+        # the live outputs (h + 3, w + 3) blurred; beside it, every plane read
+        # and blurred (the count before the kernel took the shapes)
+        live = sum(min(H, h + 3) * min(W, w + 3) for h, w in shapes)
+        nbytes, ops = 4 * area + 4 * L * H * W, BLUR_OPS_PER_PIXEL * live
+        extra = dict(level_pixels=area, live_pixels=live, canvas_pixels=L * H * W,
+                     bound_all_planes_ms=max(8 * L * H * W / HBM_BYTES_PER_S,
+                                             BLUR_OPS_PER_PIXEL * L * H * W / F32_INSTR_PER_S)
+                     * 1e3)
     else:
         dev = canvas.device
         u = torch.round(sel[1][:, 0]).long()
@@ -1298,8 +1359,8 @@ def orb_timing(torch, gray, orb, cam, old=None) -> tuple[dict, dict]:
     bound, and for the blur one F.conv2d with the kernel's 7x7 outer product
     (not bitwise; TF32 off) as library_ms; the quota wrapper's host time by
     its parts (quota_wrapper_host). With `old` (ParentKernels
-    holding an earlier orb_extract.cu), the parent's orb_fast_cells and
-    orb_quota_select beside the new ones on the same calls (ab_times). Then
+    holding an earlier orb_extract.cu), the parent's gaussian_blur7 and
+    orb_describe (ORB_AB) beside the new ones on the same calls (ab_times). Then
     extract on the same frame, the twins' route (extract before the
     kernels) and the kernels' in the order old, new, new, old: ms through
     the host, device ms from a graph, ATen operators and device kernels per
@@ -1310,13 +1371,13 @@ def orb_timing(torch, gray, orb, cam, old=None) -> tuple[dict, dict]:
     canvas, shapes = image.build_pyramid(gray, cam.height, cam.width, orb.n_levels,
                                          orb.scale_factor)
     quotas = orb_ops.feature_quotas(orb.n_features, orb.n_levels, orb.scale_factor)
-    blurred = ok.gaussian_blur7(canvas)
+    blurred = ok.gaussian_blur7(canvas, shapes)
     cand = ok.orb_fast_cells(canvas, shapes, orb.ini_th_fast, orb.min_th_fast)
     sel = ok.orb_quota_select(*cand, shapes, quotas, orb.scale_factor)
     angle = ok.orb_describe(canvas, blurred, sel[1], sel[3])[0]
     C, N = cand[0].shape[0], sel[0].shape[0]
     calls = {
-        "gaussian_blur7": (lambda: ok.gaussian_blur7(canvas),
+        "gaussian_blur7": (lambda: ok.gaussian_blur7(canvas, shapes),
                            lambda: image.gaussian_blur(canvas, 7, 2.0)),
         "orb_fast_cells": (lambda: ok.orb_fast_cells(canvas, shapes, orb.ini_th_fast,
                                                      orb.min_th_fast),
@@ -1339,7 +1400,7 @@ def orb_timing(torch, gray, orb, cam, old=None) -> tuple[dict, dict]:
                              ok.angle_bins(angle) if name == "orb_describe" else None,
                              th=min(orb.ini_th_fast, orb.min_th_fast)))
         del keep
-        if old is not None and name in ("orb_fast_cells", "orb_quota_select"):
+        if old is not None and name in ORB_AB:
             t["ab"] = ab_times(torch, lambda: c_launch(torch, lambda: old.call(kern)),
                                lambda: c_launch(torch, kern), lambda: old.call(kern), kern,
                                plain())
@@ -1390,12 +1451,38 @@ def quota_edges(torch, dev) -> dict:
     return out
 
 
+def blur_describe_edges(torch, dev) -> dict:
+    """gaussian_blur7 and orb_describe against their twins on the card on
+    ops/orb_cases.py's edges (BLUR_CASES: one level, H or W = 4, untiled
+    sides, 1 x 1 levels, levels spanning the canvas, bands at its edge, the
+    stereo and rig canvases; DESCRIBE_CASES: patches leaving the canvas on
+    each side, every level, every bin, 0, 1, 3 and 1501 keypoints):
+    differing elements a case (the blur's also against the twin on the
+    CPU)."""
+    from gdslam_tpu_torch.ops import image, orb_cases as oc, orb_kernel as ok
+    blur, desc = {}, {}
+    for name in oc.BLUR_CASES:
+        canvas, shapes = oc.blur_input(name)
+        got = ok.gaussian_blur7(canvas.to(dev), shapes)
+        blur[name] = differing(torch, got, image.gaussian_blur(canvas.to(dev), 7, 2.0)) + \
+            differing(torch, got.cpu(), image.gaussian_blur(canvas, 7, 2.0))
+    for name in oc.DESCRIBE_CASES:
+        a = [t.to(dev) for t in oc.describe_input(name)]
+        got = ok.orb_describe(*a)
+        want = ok.describe_plain(*a) if a[2].shape[0] else (
+            torch.empty(0, device=dev), torch.empty(0, 32, dtype=torch.uint8, device=dev))
+        desc[name] = sum(differing(torch, g, w) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    return dict(blur=blur, describe=desc)
+
+
 def phase_orb(torch, cfg, dev, old=None) -> dict:
     """The ORB front end's four kernels bitwise against their plain twins on
-    every case of orb_cases, the quota on its edge cases, extract against the
-    twins' whole route, the atan2 and bin checks, then each kernel timed and
-    bounded at the defaults (with `old`, ParentKernels, the parent's
-    FAST and quota kernels beside the new ones) and extract's ms, device ms,
+    every case of orb_cases, the quota, the blur and the descriptor on their
+    edge cases, extract against the twins' whole route, the atan2 and bin
+    checks, then each kernel timed and bounded at the defaults (with `old`,
+    ParentKernels, the parent's blur and descriptor kernels beside the new
+    ones, and both builds' ptxas for them) and extract's ms, device ms,
     operators and kernels, the twins' route (extract before the kernels)
     beside the kernels'. Fails on any differing bit, a degenerate frame with
     a valid row, a call that is not one launch, more than 40 operators or a
@@ -1409,11 +1496,17 @@ def phase_orb(torch, cfg, dev, old=None) -> dict:
             bad.append(label)
     edges = quota_edges(torch, dev)
     bad += [f"quota:{k}" for k, v in edges.items() if v]
+    bd_edges = blur_describe_edges(torch, dev)
+    bad += [f"{kind}:{k}" for kind, d in bd_edges.items() for k, v in d.items() if v]
     angles = angle_checks(torch, dev, *inputs[0][1:])
     timing, ext = orb_timing(torch, *inputs[0][1:], old=old)
-    res = dict(phase="orb", cases=cases, quota_edges=edges, angles=angles, kernels=timing,
-               extract=ext, card=nvidia_smi_line())
+    res = dict(phase="orb", cases=cases, quota_edges=edges, blur_describe_edges=bd_edges,
+               angles=angles, kernels=timing, extract=ext, card=nvidia_smi_line())
     if old is not None:
+        mine = ptxas_kernels(PTXAS.get("orb_extract", []))
+        theirs = ptxas_kernels(old.ptxas.get("orb_extract", []))
+        res["ptxas_ab"] = {k: dict(old=theirs.get(k), new=mine.get(k))
+                           for k in ("blur7_kernel", "describe_kernel")}
         res["ptxas_old"] = old.ptxas
     emit(res)
     if bad:
@@ -3727,10 +3820,11 @@ def backward_launch(torch, dk, grad, shapes, boxes) -> tuple:
 def build_parent_sources(src_dir: Path, sigs: dict) -> tuple[dict, dict]:
     """Build the earlier kernel sources `src_dir` holds, whichever of sigs'
     names ({name: its C entry point's argument kinds, p/i/f/u; or, for a
-    library of several entry points with the current signatures, the
-    function that declares them}) it has, with the current flags, every
-    nvcc started at once: (ptxas, fns), what ptxas reports for each and its
-    `<name>_launch` entry point (or the whole library) loaded by ctypes."""
+    library of several entry points, the function that declares them and
+    may return a stand-in for the library}) it has, with the current flags,
+    every nvcc started at once: (ptxas, fns), what ptxas reports for each
+    and its `<name>_launch` entry point (or the whole library) loaded by
+    ctypes."""
     from gdslam_tpu_torch.ops import cuda_build
     flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     procs = {}
@@ -3752,11 +3846,10 @@ def build_parent_sources(src_dir: Path, sigs: dict) -> tuple[dict, dict]:
         errs = [proc.communicate(timeout=600)[1] for proc in (so, report)]
         if so.returncode or report.returncode:
             fail(f"ab: the parent's {n} did not build:\n{errs[0]}{errs[1]}")
-        ptxas[n] = [ln.strip() for ln in errs[1].splitlines() if "Used" in ln or "spill" in ln]
+        ptxas[n] = ptxas_lines(errs[1])
         lib = ctypes.CDLL(str(src_dir / f"lib{n}_old.so"))
         if callable(sigs[n]):
-            sigs[n](lib)
-            fns[n] = lib
+            fns[n] = sigs[n](lib) or lib
             continue
         fn = getattr(lib, f"{n}_launch")
         fn.argtypes = [kinds[c] for c in sigs[n].replace(" ", "")]
@@ -3831,25 +3924,51 @@ class OldDetectKernels:
         return keep[0]
 
 
-def _declare_orb(lib) -> None:
+class _ParentOrb:
+    """An earlier orb_extract library (4a0d7fd or f85edee) behind the current
+    wrappers: its gaussian_blur7_launch takes no level shapes (the current
+    call's arguments 5-7, n_levels, hs and ws, are dropped); its other entry
+    points have the current signatures."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def gaussian_blur7_launch(self, *a):
+        return self.lib.gaussian_blur7_launch(*a[:5], *a[8:])
+
+
+def _declare_orb(lib):
+    """Declare an earlier orb_extract library's entry points: as they are
+    when its gaussian_blur7_launch takes the level shapes (its source, beside
+    the library, names n_levels there), else behind _ParentOrb."""
     from gdslam_tpu_torch.ops import orb_kernel
     orb_kernel._declare(lib)
+    src = (Path(lib._name).parent / "orb_extract.cu").read_text()
+    if re.search(r"gaussian_blur7_launch\([^)]*n_levels", src):
+        return lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gaussian_blur7_launch.argtypes = [p, p, i, i, i, p, i, p]
+    return _ParentOrb(lib)
 
 
 class ParentKernels:
     """Earlier versions of stereo_match.cu and categorical_draw.cu (as of
     commit 6b10eba: one warp per left keypoint striding over every right
     keypoint, lanes 0-10 summing the SADs from device memory; one warp a
-    row, four rows a CTA) and of orb_extract.cu (as of commit f85edee: one
-    CTA per FAST cell, one per level for the quota's bitonic sort),
+    row, four rows a CTA) and of orb_extract.cu (as of commit 4a0d7fd: the
+    blur a CTA per 32 x 16 tile of every plane, both passes from shared
+    memory; the descriptor a warp per keypoint reading device memory),
     whichever `src_dir` holds, built there with the same flags, behind the
     current wrappers: inside `call`, cuda_build's cache holds them in place
     of the current libraries, each C entry point taking the arguments its
     earlier version took (old_args drops the new ones: stereo's bucket rows
-    and scratch; orb_extract's signatures are unchanged, so its whole
-    library stands in). So the wrappers, their counts and every caller run
-    unchanged on the parents' kernels. `ptxas` holds what ptxas reports for
-    each."""
+    and scratch; _ParentOrb the blur's level shapes, the rest of
+    orb_extract's signatures unchanged). So the wrappers, their counts and
+    every caller run unchanged on the parents' kernels. `ptxas` holds what
+    ptxas reports for each."""
 
     SIGS = {"stereo_match": "ppppippppipppiiffppip", "categorical_draw": "piiuupppip",
             "orb_extract": _declare_orb}
@@ -3869,7 +3988,7 @@ class ParentKernels:
         from gdslam_tpu_torch.ops import cuda_build
         saved = {n: cuda_build._libs.get(n) for n in self.fns}
         for n, old in self.fns.items():
-            cuda_build._libs[n] = old if isinstance(old, ctypes.CDLL) else type(
+            cuda_build._libs[n] = old if not callable(old) else type(
                 "ParentLibrary", (), {f"{n}_launch": staticmethod(
                     lambda *a, n=n, old=old: old(*self.old_args(n, a)))})
         try:
@@ -5536,6 +5655,7 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library_note": t["library_note"], "device_ms": t["device_ms"],
+            **{k: t[k] for k in ("bound_all_planes_ms", "bound_all_arcs_ms") if k in t},
             "shape": t["shape"], "exact_on": list(orbres["cases"])})
     if min(n for line in orb_lines for n in line["launches_by_path"].values()) < 1:
         fail(f"a path launched no front-end kernel: {ORB_BY_PATH}")
@@ -5556,7 +5676,7 @@ def run(torch, dev, cfg, n_frames: int = N_FRAMES, keyframes=(3, 5),
         "max_abs_err": max([err] + [c["max_abs_err"] for c in top2_sites]),
         "ms": local_map["ms"], "plain_ms": local_map["plain_ms"],
         "bound_ms": local_map["bound_ms"], "bound_by": local_map["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "library_note": TOP2_NO_LIBRARY,
         "bound_all_pairs_ms": local_map["bound_all_pairs_ms"],
         "launch_floor_ms": stages["launch_floor_ms_2"],
         "cuda_launches_per_call": local_map["cuda_launches_per_call"],

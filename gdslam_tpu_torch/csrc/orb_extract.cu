@@ -74,23 +74,49 @@
 // sum over levels of n^2 key comparisons (10.8 M at the defaults) spread
 // over ~230 CTAs.
 //
-// (3) gaussian_blur7: the separable 7-tap blur of the whole canvas, one CTA
-// per 32 x 16 output tile of a level plane, the tile and a 3-px halo
-// (numpy "reflect" at the canvas's edges) in shared memory; the vertical
-// pass on the tile's 38 columns, then the horizontal pass, each tap added
-// in order, acc = acc + x * k[i], product and sum rounded apart. Both
-// passes' intermediate values are float32 either way, so one kernel is the
-// twin's two passes to the bit. Bound: 8 bytes a pixel (read, write).
+// (3) gaussian_blur7: the separable 7-tap blur of the whole canvas (numpy
+// "reflect" at the canvas's edges), each tap added in order, acc = acc +
+// x * k[i], product and sum rounded apart: the vertical pass, then the
+// horizontal one on its float32 results, so one kernel is the twin's two
+// passes to the bit. Precondition: each plane is +0 outside its level's (h,
+// w), as build_pyramid leaves it. Then an output at y >= h + 3 or x >= w + 3
+// is a sum of +0 products, +0 (a reflected tap there stays past the level),
+// and 61% of the defaults' canvas is such. The canvas is cut into tiles of
+// 32 columns x 64 rows; a tile wholly past (h + 3, w + 3) is dead and writes
+// +0 with 16-byte stores, reading nothing. The live tiles (538 at the
+// defaults) come first in the grid, one wave at 5 CTAs a SM (a plain grid of
+// tiles across, down and planes, the dead ones returning early, took 8.7 us
+// on the device against this order's 7.3-7.5 in tools/orb_smoke.py
+// --ab-source, "NVIDIA H100 80GB HBM3, 700.00 W"). A live tile's
+// 4 warps each take 16 rows: lane c the vertical pass of column x0 - 3 + c
+// (lanes 0-5 also of x0 + 29 + c), its 22 input rows loaded at once (+0
+// past the level, not read), then its 16 outputs from registers into shared
+// memory; after one barrier a thread makes 4 adjacent outputs of a row from
+// 10 shared values and writes them in one 16-byte store where aligned (the
+// stereo canvas is 1241 wide: rows are not 16-byte multiples). Bound: the
+// whole output written and each level's own pixels read (its band is +0),
+// 4.07 us at the defaults; 5.87 with every plane read.
 //
-// (4) orb_describe: one warp per keypoint. Lane r < 31 sums row r of the
-// 31 x 31 disc of the raw level around round(uv_lv) (zeros outside the
-// canvas): (pixel * mask) * dx (and * dy), the 31 columns in order; then
-// every lane adds the 31 row sums in order (shuffles): the twin's order.
-// The angle is atan2f(m01, m10) (the CUDA library's, torch.atan2's); its
-// bin rint(angle * RCP) mod 30 with RCP the float32 reciprocal of the bin
-// width (the product XLA makes of the JAX package's division); lane j then
-// makes descriptor byte j from 8 tests I(tap 2i) < I(tap 2i + 1) of the
-// blurred level at the bin's rotated pattern (zeros outside the canvas).
+// (4) orb_describe: one warp per keypoint, four a CTA. The warp stages the
+// raw 31 x 31 square around round(uv_lv) and the blurred 37 x 37 patch in
+// shared memory: each patch row as the 16-byte chunks that cover it,
+// aligned on the canvas's own addresses (9 and 10 a row), lanes along the
+// flat list of chunks, all 21 a lane loaded before any store; a chunk that
+// meets the canvas's left or right edge is read a float at a time, and a
+// float outside the canvas is +0 (extract_patches' zeros). The chunks' floats
+// are stored one by one into rows 31 and 37 words apart. Lane r < 31 sums
+// row r of the disc: (pixel * mask) * dx (and * dy), the 31 columns in
+// order (an odd row stride: no bank conflict); the row sums go to shared
+// memory and every lane adds them in order, its 62 operands loaded before
+// the adds: the twin's order. The angle is atan2f(m01, m10) (the CUDA
+// library's, torch.atan2's); its bin rint(angle * RCP) mod 30 with RCP the
+// float32 reciprocal of the bin width (the product XLA makes of the JAX
+// package's division). Lane l loads taps 128 i + 4 l .. + 3 of the bin's
+// pattern (coalesced) for i = 0..3, tests I(tap 2k) < I(tap 2k + 1) on the
+// staged blurred patch, and two ballots an i give every lane descriptor
+// bits 64 i .. 64 i + 63; lane j writes byte j. Bound: the pixels its discs
+// and taps cover, read once (0.81 us at the defaults); the kernel is held
+// by the SM's load and store traffic a keypoint, not by device memory.
 
 #include <cuda_runtime.h>
 
@@ -111,11 +137,19 @@ constexpr int SP_H = STRIP_H * CELL + 2;              // 34 x 66 strengths the N
 constexpr int SP_W = STRIP_W * CELL + 2;
 constexpr int QS_WARPS = 16;                  // quota_select: warps splitting a level's keys
 constexpr int QS_BUF = 256;                   // keys a warp stages at a time
-constexpr int BX = 32, BY = 16, R = 3;        // blur tile and radius
+constexpr int R = 3;                          // the blur's radius
+constexpr int BT_W = 32, BT_H = 64;           // a blur tile: columns, rows
+constexpr int BLUR_T = 128;                   // its threads: 4 warps of 16 rows
+constexpr int B_RUN = BT_H / (BLUR_T / 32);   // a warp's output rows
+constexpr int B_IN = B_RUN + 2 * R;           // and its input rows
+constexpr int BV_W = BT_W + 2 * R;            // vertical results a row: 38 columns,
+constexpr int BV_P = BV_W + 1;                // rows 39 words apart (odd: no conflict)
 constexpr int PATCH_HALF = 15;                // the IC disc's radius
+constexpr int RAW = 2 * PATCH_HALF + 1;       // its square's side
 constexpr int EXT = 37;                       // the rBRIEF patch's side
 constexpr int N_BINS = 30;
-constexpr int DESC_WARPS = 4;
+constexpr int N_TAPS = 512;                   // a bin's pattern: 256 pairs
+constexpr int DESC_WARPS = 4;                 // keypoints a CTA
 
 struct Levels {
   int n;                                      // levels
@@ -128,6 +162,15 @@ struct Levels {
 };
 
 struct Taps7 { float k[7]; };
+
+struct BlurPlan {
+  int n, H, W;                                // planes (levels), canvas size
+  int nty_all, ntx_all;                       // tiles of a plane, down and across
+  int h[MAX_LEVELS], w[MAX_LEVELS];           // each level's size
+  int nty[MAX_LEVELS], ntx[MAX_LEVELS];       // its live tiles, down and across
+  int live0[MAX_LEVELS + 1];                  // its first live CTA; live0[n] = all live
+  int dead0[MAX_LEVELS + 1];                  // its first dead CTA, counted after them
+};
 
 struct DeviceGuard {                          // the launch goes to `device`
   int prev = -1;
@@ -488,33 +531,113 @@ __device__ __forceinline__ int reflect(int i, int n) {  // numpy "reflect", clam
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
-__global__ void __launch_bounds__(BX * 8)
-blur7_kernel(const float* __restrict__ in, float* __restrict__ out, int H, int W, Taps7 k) {
-  __shared__ float s_in[BY + 2 * R][BX + 2 * R];
-  __shared__ float s_v[BY][BX + 2 * R];
-  const int tid = threadIdx.x, nt = BX * 8;
-  const size_t plane = static_cast<size_t>(blockIdx.z) * H * W;
-  const int x0 = blockIdx.x * BX, y0 = blockIdx.y * BY;
-  for (int i = tid; i < (BY + 2 * R) * (BX + 2 * R); i += nt) {
-    const int r = i / (BX + 2 * R), q = i % (BX + 2 * R);
-    s_in[r][q] = in[plane + reflect(y0 - R + r, H) * W + reflect(x0 - R + q, W)];
+// outputs x .. x + 3 of a row: one 16-byte store where aligned and inside
+__device__ __forceinline__ void store4(float* row, int x, int W, float4 o) {
+  float* p = row + x;
+  if (x + 3 < W && (reinterpret_cast<uintptr_t>(p) & 15u) == 0) {
+    *reinterpret_cast<float4*>(p) = o;
+  } else {
+    if (x < W) p[0] = o.x;
+    if (x + 1 < W) p[1] = o.y;
+    if (x + 2 < W) p[2] = o.z;
+    if (x + 3 < W) p[3] = o.w;
+  }
+}
+
+__global__ void __launch_bounds__(BLUR_T, 5)
+blur7_kernel(const float* __restrict__ in, float* __restrict__ out, BlurPlan P, Taps7 k) {
+  __shared__ float s_v[BT_H][BV_P];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = P.H, W = P.W;
+  const bool live = static_cast<int>(blockIdx.x) < P.live0[P.n];
+  int lv, ty, tx;
+  if (live) {
+    lv = level_of(P.live0, P.n, blockIdx.x);
+    const int t = blockIdx.x - P.live0[lv];
+    ty = t / P.ntx[lv];
+    tx = t % P.ntx[lv];
+  } else {                                    // the tiles right of the live ones, then below
+    const int b = blockIdx.x - P.live0[P.n];
+    lv = level_of(P.dead0, P.n, b);
+    int t = b - P.dead0[lv];
+    const int right = P.ntx_all - P.ntx[lv];
+    if (t < P.nty_all * right) {
+      ty = t / right;
+      tx = P.ntx[lv] + t % right;
+    } else {
+      t -= P.nty_all * right;
+      ty = P.nty[lv] + t / P.ntx[lv];
+      tx = t % P.ntx[lv];
+    }
+  }
+  const int y0 = ty * BT_H, x0 = tx * BT_W;
+  const size_t plane = static_cast<size_t>(lv) * H * W;
+  const int c4 = tid & 7, rq = tid >> 3;      // outputs 4 c4 .. + 3 of rows rq + 16 i
+  float* dst = out + plane;
+  if (!live) {                                // past (h + 3, w + 3): +0, nothing read
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int i = 0; i < BT_H / 16; ++i) {
+      const int y = y0 + rq + 16 * i;
+      if (y < H) store4(dst + static_cast<size_t>(y) * W, x0 + 4 * c4, W, zero);
+    }
+    return;
+  }
+
+  // the vertical pass: warp w rows 16 w .. 16 w + 15 of the tile; lane c
+  // column x0 - 3 + c, lanes 0-5 also x0 + 29 + c. Every load first; a tap
+  // past the level is +0 (the precondition) and is not read
+  const int h = P.h[lv], w = P.w[lv];
+  const float* img = in + plane;
+  const int r0 = warp * B_RUN;
+  if (y0 + r0 < H) {
+    const int xa = reflect(x0 - R + lane, W), xb = reflect(x0 - R + 32 + lane, W);
+    const bool a_in = xa < w, b_in = lane < 2 * R && xb < w;
+    float pa[B_IN], pb[B_IN];
+#pragma unroll
+    for (int i = 0; i < B_IN; ++i) {
+      const int y = reflect(y0 + r0 - R + i, H);
+      const float* row = img + static_cast<size_t>(y) * W;
+      pa[i] = y < h && a_in ? row[xa] : 0.0f;
+      pb[i] = y < h && b_in ? row[xb] : 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < B_RUN; ++r) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int t = 0; t < 7; ++t) acc = __fadd_rn(acc, __fmul_rn(pa[r + t], k.k[t]));
+      s_v[r0 + r][lane] = acc;
+    }
+    if (lane < 2 * R) {
+#pragma unroll
+      for (int r = 0; r < B_RUN; ++r) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int t = 0; t < 7; ++t) acc = __fadd_rn(acc, __fmul_rn(pb[r + t], k.k[t]));
+        s_v[r0 + r][32 + lane] = acc;
+      }
+    }
   }
   __syncthreads();
-  for (int i = tid; i < BY * (BX + 2 * R); i += nt) {   // vertical: rows r .. r + 6
-    const int r = i / (BX + 2 * R), q = i % (BX + 2 * R);
-    float acc = 0.0f;
+
+  // the horizontal pass: 4 adjacent outputs of a row from 10 vertical results
 #pragma unroll
-    for (int t = 0; t < 7; ++t) acc = __fadd_rn(acc, __fmul_rn(s_in[r + t][q], k.k[t]));
-    s_v[r][q] = acc;
-  }
-  __syncthreads();
-  for (int i = tid; i < BY * BX; i += nt) {             // horizontal: columns q .. q + 6
-    const int r = i / BX, q = i % BX;
-    if (y0 + r >= H || x0 + q >= W) continue;
-    float acc = 0.0f;
+  for (int i = 0; i < BT_H / 16; ++i) {
+    const int r = rq + 16 * i, y = y0 + r;
+    if (y >= H) break;
+    const float* sv = &s_v[r][4 * c4];
+    float v[10];
 #pragma unroll
-    for (int t = 0; t < 7; ++t) acc = __fadd_rn(acc, __fmul_rn(s_v[r][q + t], k.k[t]));
-    out[plane + static_cast<size_t>(y0 + r) * W + x0 + q] = acc;
+    for (int j = 0; j < 10; ++j) v[j] = sv[j];
+    float o[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int t = 0; t < 7; ++t) acc = __fadd_rn(acc, __fmul_rn(v[q + t], k.k[t]));
+      o[q] = acc;
+    }
+    store4(dst + static_cast<size_t>(y) * W, x0 + 4 * c4, W, make_float4(o[0], o[1], o[2], o[3]));
   }
 }
 
@@ -528,57 +651,148 @@ __device__ __forceinline__ int angle_bin(float a, float rcp_bin) {
   return b < 0 ? b + N_BINS : b;
 }
 
-__global__ void __launch_bounds__(DESC_WARPS * 32)
+// Patch staging: each row of a patch read as the 16-byte chunks that cover
+// it (aligned on the plane's own address, so a row may start 0-3 floats
+// into its first chunk); a chunk that crosses the canvas's left or right
+// edge is read a float at a time, and a float outside the canvas is +0.
+template <int LEN>
+struct PatchChunks {
+  static constexpr int PER_ROW = (LEN + 3 + 3) / 4;   // chunks a row, at most
+  static constexpr int N = LEN * PER_ROW;             // of the patch
+  static constexpr int IT = (N + 31) / 32;            // a lane's
+};
+
+// chunk q of a LEN x LEN patch whose top left is (y0, x0) on `img` (H x W;
+// a0 = the plane's address / 4): its floats, and in `at` its patch row << 8
+// | its first patch column + 3 (that column is -3 or more)
+template <int LEN>
+__device__ __forceinline__ float4 load_chunk(const float* img, int H, int W, unsigned a0, int y0,
+                                             int x0, int q, int& at) {
+  const int row = q / PatchChunks<LEN>::PER_ROW;
+  const int k = q - row * PatchChunks<LEN>::PER_ROW, y = y0 + row;
+  const int mis = static_cast<int>((a0 + static_cast<unsigned>(y * W + x0)) & 3u);
+  const int col = 4 * k - mis, x = x0 + col;
+  at = (row << 8) | (col + 3);
+  float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (q >= PatchChunks<LEN>::N || y < 0 || y >= H || x + 3 < 0 || x >= W || col >= LEN) return c;
+  const float* p = img + y * W + x;
+  if (x >= 0 && x + 3 < W) return *reinterpret_cast<const float4*>(p);
+  c.x = x >= 0 && x < W ? p[0] : 0.0f;
+  c.y = x + 1 >= 0 && x + 1 < W ? p[1] : 0.0f;
+  c.z = x + 2 >= 0 && x + 2 < W ? p[2] : 0.0f;
+  c.w = x + 3 >= 0 && x + 3 < W ? p[3] : 0.0f;
+  return c;
+}
+
+// a chunk's floats (load_chunk's `at`) into a LEN-wide patch, those inside it
+template <int LEN>
+__device__ __forceinline__ void store_chunk(float* s, int at, int q, float4 c) {
+  if (q >= PatchChunks<LEN>::N) return;
+  const int col = (at & 255) - 3;
+  float* d = s + (at >> 8) * LEN + col;
+  if (col >= 0 && col < LEN) d[0] = c.x;
+  if (col + 1 >= 0 && col + 1 < LEN) d[1] = c.y;
+  if (col + 2 >= 0 && col + 2 < LEN) d[2] = c.z;
+  if (col + 3 >= 0 && col + 3 < LEN) d[3] = c.w;
+}
+
+// nibble b3 b2 b1 b0 -> bits 6, 4, 2, 0
+__device__ __forceinline__ unsigned spread4(unsigned n) {
+  return (n & 1u) | ((n & 2u) << 1) | ((n & 4u) << 2) | ((n & 8u) << 3);
+}
+
+__global__ void __launch_bounds__(DESC_WARPS * 32, 4)
 describe_kernel(const float* __restrict__ canvas, const float* __restrict__ blurred, int H,
                 int W, const float* __restrict__ uv_lv, const int* __restrict__ level, int N,
                 const int* __restrict__ taps, float rcp_bin, float* __restrict__ angle,
                 uint8_t* __restrict__ desc) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * DESC_WARPS + (threadIdx.x >> 5);
+  __shared__ float s_raw[DESC_WARPS][RAW * RAW];
+  __shared__ float s_blr[DESC_WARPS][EXT * EXT];
+  __shared__ __align__(16) float s_sum[DESC_WARPS][2][32];
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  const int n = blockIdx.x * DESC_WARPS + wib;
   if (n >= N) return;                         // whole warps only
   const int u = static_cast<int>(rintf(uv_lv[2 * n]));
   const int v = static_cast<int>(rintf(uv_lv[2 * n + 1]));
   const size_t plane = static_cast<size_t>(level[n]) * H * W;
   const float* img = canvas + plane;
+  const float* blr = blurred + plane;
+  float* sr = s_raw[wib];
+  float* sb = s_blr[wib];
 
-  float rx = 0.0f, ry = 0.0f;                 // lane r: row dy = r - 15 of the disc
-  if (lane < 2 * PATCH_HALF + 1) {
-    const int dy = lane - PATCH_HALF, row = v + dy;
-    const bool row_in = row >= 0 && row < H;
-    const float fy = static_cast<float>(dy);
+  // stage both patches: every lane's chunks loaded, then stored
+  const unsigned a0 = static_cast<unsigned>(reinterpret_cast<uintptr_t>(img) >> 2);
+  const unsigned b0 = static_cast<unsigned>(reinterpret_cast<uintptr_t>(blr) >> 2);
+  float4 cr[PatchChunks<RAW>::IT], cb[PatchChunks<EXT>::IT];
+  int ar[PatchChunks<RAW>::IT], ab[PatchChunks<EXT>::IT];
 #pragma unroll
-    for (int j = 0; j < 2 * PATCH_HALF + 1; ++j) {
-      const int dx = j - PATCH_HALF, col = u + dx;
-      const float p = (row_in && col >= 0 && col < W) ? img[row * W + col] : 0.0f;
-      const float wgt = __fmul_rn(p, dx * dx + dy * dy <= PATCH_HALF * PATCH_HALF ? 1.0f : 0.0f);
+  for (int it = 0; it < PatchChunks<RAW>::IT; ++it)
+    cr[it] = load_chunk<RAW>(img, H, W, a0, v - PATCH_HALF, u - PATCH_HALF, it * 32 + lane,
+                             ar[it]);
+#pragma unroll
+  for (int it = 0; it < PatchChunks<EXT>::IT; ++it)
+    cb[it] = load_chunk<EXT>(blr, H, W, b0, v - EXT / 2, u - EXT / 2, it * 32 + lane, ab[it]);
+#pragma unroll
+  for (int it = 0; it < PatchChunks<RAW>::IT; ++it)
+    store_chunk<RAW>(sr, ar[it], it * 32 + lane, cr[it]);
+#pragma unroll
+  for (int it = 0; it < PatchChunks<EXT>::IT; ++it)
+    store_chunk<EXT>(sb, ab[it], it * 32 + lane, cb[it]);
+  __syncwarp();
+
+  // lane r < 31: row dy = r - 15 of the disc, its 31 columns in order
+  float rx = 0.0f, ry = 0.0f;
+  if (lane < RAW) {
+    const int dy = lane - PATCH_HALF;
+    const float fy = static_cast<float>(dy);
+    const float* row = sr + lane * RAW;
+#pragma unroll
+    for (int j = 0; j < RAW; ++j) {
+      const int dx = j - PATCH_HALF;
+      const float in_disc = dx * dx + dy * dy <= PATCH_HALF * PATCH_HALF ? 1.0f : 0.0f;
+      const float wgt = __fmul_rn(row[j], in_disc);
       const float px = __fmul_rn(wgt, static_cast<float>(dx)), py = __fmul_rn(wgt, fy);
       rx = j == 0 ? px : __fadd_rn(rx, px);
       ry = j == 0 ? py : __fadd_rn(ry, py);
     }
   }
-  float m10 = __shfl_sync(0xFFFFFFFFu, rx, 0), m01 = __shfl_sync(0xFFFFFFFFu, ry, 0);
+  s_sum[wib][0][lane] = rx;
+  s_sum[wib][1][lane] = ry;
+  __syncwarp();
+  // every lane: the 31 row sums in order, all loaded before the adds
+  float sx[32], sy[32];
 #pragma unroll
-  for (int r = 1; r < 2 * PATCH_HALF + 1; ++r) {
-    m10 = __fadd_rn(m10, __shfl_sync(0xFFFFFFFFu, rx, r));
-    m01 = __fadd_rn(m01, __shfl_sync(0xFFFFFFFFu, ry, r));
+  for (int q = 0; q < 8; ++q) {
+    const float4 a = reinterpret_cast<const float4*>(s_sum[wib][0])[q];
+    const float4 b = reinterpret_cast<const float4*>(s_sum[wib][1])[q];
+    sx[4 * q] = a.x; sx[4 * q + 1] = a.y; sx[4 * q + 2] = a.z; sx[4 * q + 3] = a.w;
+    sy[4 * q] = b.x; sy[4 * q + 1] = b.y; sy[4 * q + 2] = b.z; sy[4 * q + 3] = b.w;
+  }
+  float m10 = sx[0], m01 = sy[0];
+#pragma unroll
+  for (int r = 1; r < RAW; ++r) {
+    m10 = __fadd_rn(m10, sx[r]);
+    m01 = __fadd_rn(m01, sy[r]);
   }
   const float a = atan2f(m01, m10);
   const int bin = angle_bin(a, rcp_bin);
 
-  const float* blr = blurred + plane;
-  const int* tp = taps + bin * 512 + lane * 16;
-  uint32_t byte = 0u;
+  // lane l: taps 128 i + 4 l .. + 3, tests 64 i + 2 l (lo) and + 1 (hi)
+  const int4* tp = reinterpret_cast<const int4*>(taps + bin * N_TAPS);
+  int4 tq[4];
 #pragma unroll
-  for (int bit = 0; bit < 8; ++bit) {         // bit i = 8 lane + bit: tap 2i against 2i + 1
-    float p[2];
+  for (int i = 0; i < 4; ++i) tq[i] = tp[i * 32 + lane];
+  unsigned lo[4], hi[4];
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int f = tp[2 * bit + s];
-      const int row = v + f / EXT - EXT / 2, col = u + f % EXT - EXT / 2;
-      p[s] = (row >= 0 && row < H && col >= 0 && col < W) ? blr[row * W + col] : 0.0f;
-    }
-    byte |= (p[0] < p[1] ? 1u : 0u) << bit;
+  for (int i = 0; i < 4; ++i) {
+    lo[i] = __ballot_sync(0xFFFFFFFFu, sb[tq[i].x] < sb[tq[i].y]);
+    hi[i] = __ballot_sync(0xFFFFFFFFu, sb[tq[i].z] < sb[tq[i].w]);
   }
+  // byte j = bits 8 j .. 8 j + 7 = tests of lanes 4 (j % 8) .. + 3 of i = j / 8
+  const int i = lane >> 3, sh = 4 * (lane & 7);
+  const unsigned l_i = i == 0 ? lo[0] : i == 1 ? lo[1] : i == 2 ? lo[2] : lo[3];
+  const unsigned h_i = i == 0 ? hi[0] : i == 1 ? hi[1] : i == 2 ? hi[2] : hi[3];
+  const unsigned byte = spread4((l_i >> sh) & 15u) | (spread4((h_i >> sh) & 15u) << 1);
   desc[static_cast<size_t>(n) * 32 + lane] = static_cast<uint8_t>(byte);
   if (lane == 0) angle[n] = a;
 }
@@ -661,17 +875,33 @@ extern "C" int orb_quota_select_launch(const void* scores, const void* cand_uv, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// in, out [L, H, W] f32 (H, W >= 4); taps: host array of the 7 weights.
+// in, out [L, H, W] f32 (H, W >= 4), plane l +0 outside its level (hs[l],
+// ws[l]) (n_levels = L, host arrays); taps: host array of the 7 weights.
 extern "C" int gaussian_blur7_launch(const void* in, void* out, int L, int H, int W,
+                                     int n_levels, const int* hs, const int* ws,
                                      const float* taps, int device, void* stream) {
-  if (L < 0 || H < R + 1 || W < R + 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (L == 0) return static_cast<int>(cudaSuccess);
+  if (L < 1 || H < R + 1 || W < R + 1 || n_levels != L || !levels_ok(n_levels, hs, ws, H, W))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BlurPlan P{};
+  P.n = L;
+  P.H = H;
+  P.W = W;
+  P.nty_all = (H + BT_H - 1) / BT_H;
+  P.ntx_all = (W + BT_W - 1) / BT_W;
+  for (int l = 0; l < L; ++l) {
+    P.h[l] = hs[l];
+    P.w[l] = ws[l];
+    const int live_h = hs[l] + R < H ? hs[l] + R : H, live_w = ws[l] + R < W ? ws[l] + R : W;
+    P.nty[l] = (live_h + BT_H - 1) / BT_H;
+    P.ntx[l] = (live_w + BT_W - 1) / BT_W;
+    P.live0[l + 1] = P.live0[l] + P.nty[l] * P.ntx[l];
+    P.dead0[l + 1] = P.dead0[l] + P.nty_all * P.ntx_all - P.nty[l] * P.ntx[l];
+  }
   Taps7 k;
   for (int t = 0; t < 7; ++t) k.k[t] = taps[t];
   DeviceGuard guard(device);
-  const dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY, L);
-  blur7_kernel<<<grid, BX * 8, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out), H, W, k);
+  blur7_kernel<<<P.live0[L] + P.dead0[L], BLUR_T, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(in), static_cast<float*>(out), P, k);
   return static_cast<int>(cudaGetLastError());
 }
 

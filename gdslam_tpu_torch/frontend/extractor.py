@@ -54,7 +54,7 @@ def extract(img: torch.Tensor, cfg: OrbConfig, height: int, width: int) -> Featu
     package measured a >10x ATE loss from bf16)."""
     canvas, shapes = image_ops.build_pyramid(img, height, width, cfg.n_levels,
                                              cfg.scale_factor)
-    blurred = orb_kernel.gaussian_blur7(canvas)
+    blurred = orb_kernel.gaussian_blur7(canvas, shapes)
     quotas = orb_ops.feature_quotas(cfg.n_features, cfg.n_levels, cfg.scale_factor)
     cand_s, cand_uv = orb_kernel.orb_fast_cells(canvas, shapes, cfg.ini_th_fast,
                                                 cfg.min_th_fast)

@@ -4,7 +4,9 @@
 `frontend/extractor.extract` runs, after the pyramid:
 
 - `gaussian_blur7` (twin: `ops/image.gaussian_blur`): the 7-tap sigma-2
-  blur of the whole [L, H, W] canvas, reflect padding at the canvas's edges;
+  blur of the whole [L, H, W] canvas, reflect padding at the canvas's edges
+  (the kernel takes the level shapes: past a level's 3-px band the blur of
+  build_pyramid's +0 padding is +0, written without a read);
 - `orb_fast_cells` (twin `fast_cells_plain`): for every level and 16 x 16 cell,
   FAST-9/16 strength, thresholds 20 and 7, strict 3x3 NMS, the per-cell
   fallback to the low threshold, the edge margin and the cell's top two;
@@ -58,7 +60,7 @@ def _declare(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.orb_fast_cells_launch.argtypes = [p, i, i, i, p, p, f, f, p, p, i, p]
     lib.orb_quota_select_launch.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, i, p]
-    lib.gaussian_blur7_launch.argtypes = [p, p, i, i, i, p, i, p]
+    lib.gaussian_blur7_launch.argtypes = [p, p, i, i, i, i, p, p, p, i, p]
     lib.orb_describe_launch.argtypes = [p, p, i, i, p, p, i, p, f, p, p, i, p]
     lib.orb_angle_bins_launch.argtypes = [p, p, p, i, f, p, p, i, p]
     for fn in (lib.orb_fast_cells_launch, lib.orb_quota_select_launch,
@@ -225,9 +227,13 @@ def describe_plain(canvas: torch.Tensor, blurred: torch.Tensor, uv_lv: torch.Ten
 # the wrappers
 # ----------------------------------------------------------------------------
 
-def gaussian_blur7(canvas: torch.Tensor) -> torch.Tensor:
+def gaussian_blur7(canvas: torch.Tensor, shapes) -> torch.Tensor:
     """The 7-tap sigma-2 Gaussian blur of an [L, H, W] f32 canvas (numpy
-    "reflect" at its edges; H, W >= 4). One launch on the card."""
+    "reflect" at its edges; H, W >= 4) whose plane l holds level l in its top
+    left (h_l, w_l) = shapes[l] and is +0 elsewhere, as build_pyramid leaves
+    it. On the card the kernel rests on that: an output 3 px or more past a
+    level is +0 (a sum of +0 products), written without a read, and a tap
+    past the level is not read. One launch on the card."""
     name = "gaussian_blur7"
     if not _device(name, canvas):
         return image_ops.gaussian_blur(canvas, 7, 2.0)
@@ -235,10 +241,14 @@ def gaussian_blur7(canvas: torch.Tensor) -> torch.Tensor:
     cuda_build.check(name, "canvas", canvas, torch.float32, (L, H, W), canvas.device)
     if H < 4 or W < 4:
         raise ValueError(f"{name}: a {H} x {W} canvas is too small to reflect 3 px")
+    _check_levels(name, shapes, H, W)
+    if len(shapes) != L:
+        raise ValueError(f"{name}: {len(shapes)} level shapes for a canvas of {L} planes")
     lib = cuda_build.load(LIB, _declare)
     out = torch.empty_like(canvas)
     cuda_build.launch(name, canvas.device, lib.gaussian_blur7_launch, canvas.data_ptr(),
-                      out.data_ptr(), L, H, W, _floats(BLUR_TAPS))
+                      out.data_ptr(), L, H, W, L, _ints([h for h, _ in shapes]),
+                      _ints([w for _, w in shapes]), _floats(BLUR_TAPS))
     gaussian_blur7.launches += 1
     return out
 
@@ -311,13 +321,15 @@ def orb_describe(canvas: torch.Tensor, blurred: torch.Tensor, uv_lv: torch.Tenso
     """IC angle [N] f32 and packed rBRIEF [N, 32] uint8 of the keypoints at
     level coordinates uv_lv [N, 2] f32 on levels level [N] int32 of the raw
     and blurred [L, H, W] canvases. One launch on the card, a warp a
-    keypoint."""
+    keypoint (its patches staged in shared memory)."""
     name = "orb_describe"
+    dev, N = canvas.device, uv_lv.shape[0]
+    if N == 0:                          # nothing to launch (the twin takes N >= 1)
+        return (torch.empty(0, dtype=torch.float32, device=dev),
+                torch.empty(0, 32, dtype=torch.uint8, device=dev))
     if not _device(name, canvas):
         return describe_plain(canvas, blurred, uv_lv, level)
-    dev = canvas.device
     L, H, W = canvas.shape
-    N = uv_lv.shape[0]
     cuda_build.check(name, "canvas", canvas, torch.float32, (L, H, W), dev)
     cuda_build.check(name, "blurred", blurred, torch.float32, (L, H, W), dev)
     cuda_build.check(name, "uv_lv", uv_lv, torch.float32, (N, 2), dev)

@@ -1250,7 +1250,7 @@ def test_orb_kernels_equal_plain(card, case):
     the twins' whole route, one launch of each kernel a call."""
     gray, orb, cam = orb_cases.orb_input(case, card)
     canvas, shapes, quotas = _orb_levels(gray, orb, cam)
-    blurred = orb_kernel.gaussian_blur7(canvas)
+    blurred = orb_kernel.gaussian_blur7(canvas, shapes)
     assert _same(blurred, image_ops.gaussian_blur(canvas, 7, 2.0))
     cand = orb_kernel.orb_fast_cells(canvas, shapes, orb.ini_th_fast, orb.min_th_fast)
     for g, w in zip(cand, orb_kernel.fast_cells_plain(canvas, shapes, orb.ini_th_fast,
@@ -1297,6 +1297,42 @@ def test_orb_quota_select_edges_equal_plain(card, case):
     on_card = orb_kernel.quota_select_plain(scores.to(card), uv.to(card), shapes, quotas, scale)
     for g, w, c in zip(got, want, on_card):
         assert _same(g, c) and _same(g.cpu(), w)
+
+
+@pytest.mark.parametrize("case", orb_cases.BLUR_CASES)
+def test_gaussian_blur7_edges_equal_plain(card, case):
+    """gaussian_blur7 bitwise its plain twin, on the card and on the CPU, at
+    the blur's edges (ops/orb_cases.BLUR_CASES; each plane +0 outside its
+    level): one level, H or W = 4, sides no multiple of the tile, a one-tile
+    canvas beside 1 x 1 levels, levels spanning the canvas, 3-px bands that
+    meet its edge, the stereo canvas (rows not 16-byte multiples), the rig;
+    one launch a call."""
+    canvas, shapes = orb_cases.blur_input(case)
+    want = image_ops.gaussian_blur(canvas, 7, 2.0)
+    before = orb_kernel.gaussian_blur7.launches
+    got = orb_kernel.gaussian_blur7(canvas.to(card), shapes)
+    assert orb_kernel.gaussian_blur7.launches == before + 1
+    assert _same(got, image_ops.gaussian_blur(canvas.to(card), 7, 2.0))
+    assert _same(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", orb_cases.DESCRIBE_CASES)
+def test_orb_describe_edges_equal_plain(card, case):
+    """orb_describe bitwise its plain twin on the card at the descriptor's
+    edges (ops/orb_cases.DESCRIBE_CASES): discs and patches that leave the
+    canvas on each side (the defaults' and the stereo cell's), every level,
+    all 30 bins, 1 and 3 keypoints, 1501 (not a multiple of a CTA's four);
+    one launch a call. No keypoint: empty outputs and no launch."""
+    canvas, blurred, uv, level = (t.to(card) for t in orb_cases.describe_input(case))
+    before = orb_kernel.orb_describe.launches
+    got = orb_kernel.orb_describe(canvas, blurred, uv, level)
+    n = uv.shape[0]
+    assert orb_kernel.orb_describe.launches == before + (n > 0)
+    if n == 0:
+        assert got[0].shape == (0,) and got[1].shape == (0, 32)
+        return
+    for g, w in zip(got, orb_kernel.describe_plain(canvas, blurred, uv, level)):
+        assert _same(g, w)
 
 
 def test_mono_bootstrap_on_card_takes_the_cpu_f(card):
@@ -1443,7 +1479,7 @@ def test_orb_wrappers_raise_without_the_library(card, monkeypatch, name):
                             lambda *a, **k: pytest.fail("fell back to the plain version"))
     monkeypatch.setattr(image_ops, "gaussian_blur",
                         lambda *a, **k: pytest.fail("fell back to the plain version"))
-    call = {"gaussian_blur7": lambda: orb_kernel.gaussian_blur7(canvas),
+    call = {"gaussian_blur7": lambda: orb_kernel.gaussian_blur7(canvas, shapes),
             "orb_fast_cells": lambda: orb_kernel.orb_fast_cells(canvas, shapes, 20, 7),
             "orb_quota_select": lambda: orb_kernel.orb_quota_select(*cand, shapes, quotas, 1.2),
             "orb_describe": lambda: orb_kernel.orb_describe(canvas, canvas, sel[1], sel[3])}[name]

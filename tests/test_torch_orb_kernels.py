@@ -20,6 +20,7 @@ from gdslam_tpu.ops import orb as jorb
 from gdslam_tpu_torch import config as tconfig
 from gdslam_tpu_torch.frontend import extractor as text
 from gdslam_tpu_torch.ops import cuda_build, orb_cases
+from gdslam_tpu_torch.ops import image as timg
 from gdslam_tpu_torch.ops import orb as torb
 from gdslam_tpu_torch.ops import orb_kernel as ok
 
@@ -248,12 +249,75 @@ def test_quota_sort_keys_give_the_stable_order(n):
         np.testing.assert_array_equal(_rows_by_counting(keys, k), want[:min(k, n)])
 
 
+def _is_pos_zero(t: torch.Tensor) -> bool:
+    return bool((t.view(torch.int32) == 0).all())
+
+
+BAND_CASES = [("frame", n) for n in ("rendered", "stereo", "rig")] + \
+    [("blur_case", n) for n in orb_cases.BLUR_CASES]
+
+
+@pytest.mark.parametrize("kind,case", BAND_CASES, ids=[f"{k}-{n}" for k, n in BAND_CASES])
+def test_blur_is_pos_zero_past_each_level_band(kind, case):
+    """The fact gaussian_blur7's kernel rests on. build_pyramid's canvas (the
+    defaults', the stereo cell's, the rig's) and every BLUR_CASES canvas is
+    +0 outside each level; then gaussian_blur of it is +0, bit for bit, at y
+    >= h + 3 or x >= w + 3 of each level, and the band is no narrower: row
+    h + 2 and column w + 2, where the canvas has them, hold a non-zero."""
+    if kind == "blur_case":
+        canvas, shapes = orb_cases.blur_input(case)
+    else:
+        gray, orb, cam = orb_cases.orb_input(case, "cpu")
+        canvas, shapes = timg.build_pyramid(gray, cam.height, cam.width, orb.n_levels,
+                                            orb.scale_factor)
+    blurred = timg.gaussian_blur(canvas, 7, 2.0)
+    H, W = canvas.shape[1:]
+    for lv, (h, w) in enumerate(shapes):
+        assert _is_pos_zero(canvas[lv, h:]) and _is_pos_zero(canvas[lv, :, w:])
+        assert _is_pos_zero(blurred[lv, h + 3:]) and _is_pos_zero(blurred[lv, :, w + 3:])
+        if h + 2 < H:
+            assert bool(blurred[lv, h + 2, :w].ne(0).any())
+        if w + 2 < W:
+            assert bool(blurred[lv, :h, w + 2].ne(0).any())
+
+
+def test_describe_cases_reach_their_edges():
+    """ops/orb_cases.DESCRIBE_CASES reach what they are named for: on every
+    level of the three canvases a disc (15 px) and a patch (18 px) past
+    each canvas side and a centre outside it, and a patch past the level
+    alone; planes that do not start on a 16-byte boundary;
+    every level; all 30 rotation bins (the twin's); 0, 1, 3 and 1501
+    keypoints."""
+    for name in ("edges", "edges_stereo", "odd_canvas"):
+        canvas, _, uv, level = orb_cases.describe_input(name)
+        H, W = canvas.shape[1:]
+        u, v = torch.round(uv[:, 0]).long(), torch.round(uv[:, 1]).long()
+        shapes = orb_cases.describe_canvas(H, W)[2]
+        for lv, (h, w) in enumerate(shapes):
+            on = level == lv
+            for r in (15, 18):
+                for past in (u[on] - r < 0, u[on] + r >= W, v[on] - r < 0, v[on] + r >= H):
+                    assert bool(past.any())
+            assert bool(((u[on] < 0) | (u[on] >= W) | (v[on] < 0) | (v[on] >= H)).any())
+            if w + 18 < W:
+                assert bool(((u[on] + 18 >= w) & (u[on] + 18 < W)).any())
+    assert 77 * 93 % 4 != 0                   # odd_canvas's planes are not 16-byte aligned
+    for name in ("levels", "bins", "n_odd"):
+        assert set(orb_cases.describe_input(name)[3].tolist()) == set(range(8))
+    angle, _ = ok.describe_plain(*orb_cases.describe_input("bins"))
+    assert set(ok.angle_bins(angle).tolist()) == set(range(torb.N_ANGLE_BINS))
+    counts = {n: orb_cases.describe_input(n)[2].shape[0] for n in ("n0", "n1", "n3", "n_odd")}
+    assert counts == {"n0": 0, "n1": 1, "n3": 3, "n_odd": 1501}
+
+
 def test_orb_wrappers_raise_on_cuda_tensors_without_the_library(monkeypatch):
     """For CUDA tensors each front-end wrapper launches or raises: with no
     library it raises and counts no launch (a level of 32768 candidates
     too: the quota has no cap a level), a wrong dtype, a level past the
-    kernels' limits, a negative threshold or quota is refused, and no
-    wrapper takes its plain twin. Fake CUDA tensors stand in for a card."""
+    kernels' limits or the canvas, level shapes that are not one a plane
+    (the blur), a negative threshold or quota is refused, and no wrapper
+    takes its plain twin; no keypoint gives empty descriptors without a
+    launch. Fake CUDA tensors stand in for a card."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     def missing(name, declare):
@@ -272,14 +336,21 @@ def test_orb_wrappers_raise_on_cuda_tensors_without_the_library(monkeypatch):
         C, N = sum(ok.n_candidates(shapes)), sum(quotas)
         s, uv = torch.empty(C, **f), torch.empty(C, 2, **f)
         uv_n, level = torch.empty(N, 2, **f), torch.empty(N, dtype=torch.int32, device="cuda")
-        for call in (lambda: ok.gaussian_blur7(canvas),
+        for call in (lambda: ok.gaussian_blur7(canvas, shapes),
                      lambda: ok.orb_fast_cells(canvas, shapes, 20, 7),
                      lambda: ok.orb_quota_select(s, uv, shapes, quotas, 1.2),
                      lambda: ok.orb_describe(canvas, canvas, uv_n, level)):
             with pytest.raises(RuntimeError, match="orb_extract: library missing"):
                 call()
         with pytest.raises(ValueError, match="canvas"):
-            ok.gaussian_blur7(canvas.double())
+            ok.gaussian_blur7(canvas.double(), shapes)
+        with pytest.raises(ValueError, match="level shapes"):
+            ok.gaussian_blur7(canvas, shapes[:1])
+        with pytest.raises(ValueError, match="does not fit"):
+            ok.gaussian_blur7(canvas, [(121, 160), (100, 133)])
+        angle, desc = ok.orb_describe(canvas, canvas, torch.empty(0, 2, **f),
+                                      torch.empty(0, dtype=torch.int32, device="cuda"))
+        assert angle.shape == (0,) and desc.shape == (0, 32)
         with pytest.raises(ValueError, match="level"):
             ok.orb_describe(canvas, canvas, uv_n, level.long())
         with pytest.raises(ValueError, match="levels"):

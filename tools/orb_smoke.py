@@ -1,9 +1,9 @@
 """The orb phase of chip_smoke.py alone, on one NVIDIA card: the kernels'
 build, then `orb` (csrc/orb_extract.cu's four kernels bitwise against their
-plain twins on ops/orb_cases.py's frames; atan2 and the rotation bins on
-given values; each kernel's ms through its wrapper, on the device, its
-twin's and its bound; extract's ms, operators and kernels, the twins' route
-beside it). For iterating on the front end's kernels without the full run.
+plain twins on ops/orb_cases.py's frames and edge cases; atan2 and the
+rotation bins on given values; each kernel's ms through its wrapper, on
+the device, its twin's and its bound; extract's ms, operators and kernels,
+the twins' route beside it). For iterating on the front end's kernels without the full run.
 
     python3 tools/orb_smoke.py
 
@@ -16,14 +16,24 @@ the frame times side by side:
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     for r in build/parent . . build/parent; do python3 tools/orb_smoke.py --frames $r; done
 
-With --ab-source DIR, the orb phase also builds the earlier
-csrc/orb_extract.cu that DIR holds and times its orb_fast_cells and
-orb_quota_select, behind the current wrappers, beside the current ones on
-the same calls: device ms from CUDA graphs in the order old, new, new, old,
-each wrapper's whole device work, ms through each wrapper, both bitwise
-their twins; ptxas's report of both builds:
+With --compare FILE..., no card: the --frames runs those files hold (each
+run's lines from its build line on) side by side: per phase, every result
+field that differs between runs (times, profiles, peak memory and the
+file:line keys of host waits left out), and each run's frame time. Exits 1 if a result
+differs:
 
-    mkdir -p build/old && git show f85edee:gdslam_tpu_torch/csrc/orb_extract.cu \
+    python3 tools/orb_smoke.py --compare parent.jsonl new.jsonl
+
+With --ab-source DIR, the orb phase also builds the earlier
+csrc/orb_extract.cu that DIR holds and times its gaussian_blur7 and
+orb_describe, behind the current wrappers (an earlier blur that takes no
+level shapes, as 4a0d7fd's, gets them dropped by chip_smoke._ParentOrb), beside the current ones on the
+same calls: device ms from CUDA graphs in the order old, new, new, old,
+each wrapper's whole device work, ms through each wrapper, both bitwise
+their twins; ptxas's registers, spills and stack of both builds' blur and
+descriptor kernels (`ptxas_ab`):
+
+    mkdir -p build/old && git show 4a0d7fd:gdslam_tpu_torch/csrc/orb_extract.cu \
         > build/old/orb_extract.cu
     python3 tools/orb_smoke.py --ab-source build/old
 
@@ -34,10 +44,17 @@ phase fails or there is no card.
 from __future__ import annotations
 
 import argparse
+import json
+import re
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+FRAME_PHASES = ("slice", "gd_slice", "stereo")
+# fields that are times, profiles or memory, not results
+TIMING = re.compile(r"(^|[._])(\w*_ms|ms|fps|run_s|write_s|wall\w*|profile\w*|"
+                    r"host_sync_sites|card|peak_mem_mb)([._]|$)")
+FRAME_TIME = {"slice": "frame_ms_median", "gd_slice": "frame_ms", "stereo": "frame_ms_median"}
 
 
 def frames(torch, cs) -> None:
@@ -71,14 +88,54 @@ def frames(torch, cs) -> None:
                                           metrics, extractor, stereo_kitti))
 
 
+def _flat(d, pre: str = "") -> dict:
+    out = {}
+    items = d.items() if isinstance(d, dict) else enumerate(d)
+    for k, v in items:
+        if isinstance(v, (dict, list)) and v and not isinstance(v, str):
+            out.update(_flat(v, f"{pre}{k}."))
+        else:
+            out[f"{pre}{k}"] = v
+    return out
+
+
+def compare(paths) -> int:
+    """The --frames runs in `paths` side by side (see the module's doc)."""
+    runs = []
+    for path in paths:
+        for line in Path(path).read_text().splitlines():
+            try:
+                d = json.loads(line)
+            except ValueError:
+                continue
+            if d.get("phase") == "build" or not runs:
+                runs.append({})
+            if d.get("phase") in FRAME_PHASES:
+                runs[-1][d["phase"]] = d
+    differ = False
+    for phase in FRAME_PHASES:
+        fields = [_flat(r[phase]) for r in runs if phase in r]
+        keys = sorted(set().union(*fields)) if fields else []
+        diff = {k: [f.get(k) for f in fields] for k in keys if not TIMING.search(k) and
+                len({json.dumps(f.get(k), sort_keys=True) for f in fields}) > 1}
+        differ |= bool(diff)
+        print(json.dumps(dict(phase=phase, runs=len(fields), results_differing=diff,
+                              frame_ms=[f.get(FRAME_TIME[phase]) for f in fields])), flush=True)
+    return 1 if differ else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", metavar="ROOT", type=Path,
                     help="run the slice, gd_slice and stereo phases of the checkout at ROOT")
+    ap.add_argument("--compare", metavar="FILE", nargs="+",
+                    help="put the --frames runs in FILE... side by side (no card)")
     ap.add_argument("--ab-source", metavar="DIR", type=Path,
-                    help="time the earlier FAST and quota kernels in DIR beside the current "
-                         "ones")
+                    help="time the earlier blur and descriptor kernels in DIR beside the "
+                         "current ones")
     opts = ap.parse_args()
+    if opts.compare:
+        return compare(opts.compare)
     root = (opts.frames or ROOT).resolve()
     sys.path.insert(0, str(root))
     import torch
