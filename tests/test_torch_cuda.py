@@ -21,6 +21,7 @@ from gdslam_tpu_torch.backend import vocabulary
 from gdslam_tpu_torch.core import lie
 from gdslam_tpu_torch.frontend import matcher
 from gdslam_tpu_torch.frontend import extractor
+from gdslam_tpu_torch.frontend.frame import build_frame
 from gdslam_tpu_torch.io import synthetic
 from gdslam_tpu_torch.masking import geomask, geometry
 from gdslam_tpu_torch.models import maskrcnn
@@ -28,7 +29,7 @@ from gdslam_tpu_torch.ops import detect_cases, detect_kernels, match_kernel
 from gdslam_tpu_torch.ops import draw_kernel, stereo_cases
 from gdslam_tpu_torch.ops import image as image_ops
 from gdslam_tpu_torch.ops import orb as orb_ops
-from gdslam_tpu_torch.ops import orb_cases, orb_kernel
+from gdslam_tpu_torch.ops import orb_cases, orb_kernel, pose_cases, pose_kernel
 from gdslam_tpu_torch.ops.stereo_cases import stereo_inputs
 from gdslam_tpu_torch.system import slam as slam_mod
 from gdslam_tpu_torch.system import tracking
@@ -1517,3 +1518,98 @@ def test_stereo_slice_on_card_tracks_like_cpu(card):
         runs[str(dev)] = (s.keyframe_count, metrics.ate_rmse(est, gtp))
     (kc, ac), (kg, ag) = runs.values()
     assert abs(kc - kg) <= 2 and abs(ac - ag) < 0.005 and max(ac, ag) < 0.05, runs
+
+
+@pytest.mark.parametrize("case", pose_cases.CASES)
+def test_pose_gn_kernel_equals_plain(card, case):
+    """pose_gn bitwise its plain twin on the card (T, the inlier mask and its
+    count) on every case of ops/pose_cases.py: the tracker's 1500 rows, the
+    stereo cell's 2000, the mono bootstrap's refinement, no row valid, rows
+    behind the camera, a NaN row (every step skipped), one point (pivots at
+    rounding level), N = 1, 513, 1501 and 6001 (past the rows the kernel
+    keeps in shared memory); one launch a call, and a second
+    call bitwise the first. Against the twin on the CPU (whose sqrt, sin and
+    cos round otherwise) T to 1e-5 and the same inliers, rank_deficient
+    aside."""
+    args = pose_cases.pose_args(case, card)
+    want = pose_kernel.pose_gn_plain(*args)
+    before = pose_kernel.pose_gn.launches
+    got = pose_kernel.pose_gn(*args)
+    again = pose_kernel.pose_gn(*args)
+    assert pose_kernel.pose_gn.launches == before + 2
+    for g, w, a in zip(got, want, again):
+        assert _same(g, w) and _same(a, g)
+    if case in pose_cases.CARD_ONLY:
+        return
+    cpu = pose_kernel.pose_gn_plain(*pose_cases.pose_args(case))
+    torch.testing.assert_close(got[0].cpu(), cpu[0], atol=1e-5, rtol=0)
+    assert torch.equal(got[1].cpu(), cpu[1]) and int(got[2]) == int(cpu[2])
+
+
+def test_pose_gn_math_equals_torch(card):
+    """The kernel's own sinf, cosf and sqrtf (one device function with it)
+    bitwise torch.sin, torch.cos and torch.sqrt on the card, on the angles
+    a step takes (1e-8 to 1 rad, log-spaced, and seeded ones) and on the
+    square roots' arguments (weights, pivots, theta^2 + 1e-16)."""
+    r = np.random.default_rng(0)
+    x = np.concatenate([np.geomspace(1e-8, 1.0, 200_000), r.uniform(0, 0.3, 200_000),
+                        r.uniform(0, 1e4, 100_000), [0.0, 1e-16, 1e-8]]).astype(np.float32)
+    t = torch.from_numpy(x).to(card)
+    s, c, q = pose_kernel.math_on_card(t)
+    assert _same(s, torch.sin(t)) and _same(c, torch.cos(t)) and _same(q, torch.sqrt(t))
+
+
+def test_pose_gn_waits_for_nothing(card):
+    """pose_optimization on the card under torch's sync debug mode "error"
+    (after a first call has built and loaded the library): no read, no
+    upload, one launch."""
+    args = pose_cases.pose_args("tracker_1500", card)
+    from gdslam_tpu_torch.backend import optimizer
+    optimizer.pose_optimization(*args[:4])
+    torch.cuda.synchronize()
+    before = pose_kernel.pose_gn.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = optimizer.pose_optimization(*args[:4])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pose_kernel.pose_gn.launches == before + 1
+    assert _same(out[0], pose_kernel.pose_gn_plain(*args)[0])
+
+
+def _to(x, dev):
+    """A tensor, or a NamedTuple of them (nested), on `dev`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to(v, dev) for v in x))
+    return x
+
+
+def test_track_frame_core_on_card_equals_cpu(card):
+    """track_frame_core (the motion model and the local map, each solving
+    its pose through pose_gn: two launches) on the card against the CPU
+    route on the same state and frame: the small rig tracked 8 frames on the
+    CPU, the 9th frame built there, both moved to the card. The matches are
+    exact (match_top2), the solves round sqrt, sin and cos otherwise on the
+    CPU: T within 1e-4, the inlier counts within 2, the associations of 99%
+    of the keypoints equal (the file's slice test holds ATE to 5 mm)."""
+    cam = CameraConfig(fx=160.0, fy=160.0, cx=80.0, cy=60.0, width=160, height=120, bf=12.8)
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=384, n_levels=4))
+    s = System(cfg, kmax=32, pmax=16384, device="cpu")
+    for i in range(8):
+        fr = synthetic.render_frame(i, cam, with_dynamic=False, device="cpu")
+        s.track_rgbd(fr.gray, fr.depth, None, i / 30.0)
+    tr = s.tracker
+    nxt = synthetic.render_frame(8, cam, with_dynamic=False, device="cpu")
+    frame = build_frame(extractor.extract(nxt.gray, cfg.orb, cam.height, cam.width), nxt.depth,
+                        torch.ones_like(nxt.gray), cam)
+    state = (tr.arena, tr.last, tr.velocity, True, frame, cfg, tr.ref_kf)
+    want = tracking.track_frame_core(*state)
+    before = pose_kernel.pose_gn.launches
+    got = tracking.track_frame_core(*(_to(v, card) for v in state))
+    assert pose_kernel.pose_gn.launches == before + 2
+    torch.testing.assert_close(got[1].T_cw.cpu(), want[1].T_cw, atol=1e-4, rtol=0)
+    n_got, n_want = got[4].cpu(), want[4]
+    assert (n_got[:2] - n_want[:2]).abs().max() <= 2, (n_got, n_want)
+    assert (got[1].assoc.cpu() == want[1].assoc).float().mean() >= 0.99

@@ -247,7 +247,7 @@ NEW_MODULES = ("masking/geometry.py", "masking/masknet.py", "io/png.py", "io/tum
                "backend/pose_graph.py", "backend/gba.py", "models/maskrcnn.py",
                "ops/detect_kernels.py", "ops/cuda_build.py", "utils/checkpoint.py",
                "ops/stereo.py", "frontend/initializer.py", "io/kitti.py", "cli/stereo_kitti.py",
-               "cli/mono_tum.py", "cli/mono_kitti.py")
+               "cli/mono_tum.py", "cli/mono_kitti.py", "ops/pose_kernel.py", "ops/pose_cases.py")
 
 
 def test_no_import_check_covers_the_geometry_and_cli_modules():
@@ -386,6 +386,44 @@ def test_stereo_wrapper_raises_on_cuda_tensors_without_the_library(monkeypatch):
         with pytest.raises(ValueError, match="both images"):
             stereo.stereo_match(*args, img, None)
     assert stereo.stereo_match.launches == before
+
+
+def test_pose_wrapper_raises_on_cuda_tensors_without_the_library(monkeypatch):
+    """pose_gn, and pose_optimization through it, like the other wrappers:
+    for CUDA tensors they launch or raise, with no library they raise and
+    count no launch, a wrong dtype or shape is refused, and neither takes
+    the plain twin. Fake CUDA tensors stand in for a card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from gdslam_tpu_torch.backend import optimizer
+    from gdslam_tpu_torch.ops import pose_kernel
+
+    def missing(lib_name, declare):
+        raise RuntimeError(f"{lib_name}: library missing")
+
+    monkeypatch.setattr(cuda_build, "load", missing)
+    monkeypatch.setattr(pose_kernel, "pose_gn_plain",
+                        lambda *a, **k: pytest.fail("fell back to the plain version"))
+    before = pose_kernel.pose_gn.launches
+    with FakeTensorMode():
+        f = dict(dtype=torch.float32, device="cuda")
+        n = 1500
+        obs = optimizer.PoseObs(torch.empty(n, 3, **f), torch.empty(n, 2, **f),
+                                torch.empty(n, **f), torch.empty(n, **f),
+                                torch.empty(n, dtype=torch.bool, device="cuda"))
+        T = torch.empty(4, 4, **f)
+        K = (535.4, 539.2, 320.1, 247.6)
+        for fn in (pose_kernel.pose_gn, optimizer.pose_optimization):
+            with pytest.raises(RuntimeError, match="pose_gn: library missing"):
+                fn(T, obs, K, 40.0)
+        with pytest.raises(ValueError, match="valid"):
+            pose_kernel.pose_gn(T, obs._replace(valid=torch.empty(n, dtype=torch.uint8,
+                                                                  device="cuda")), K, 40.0)
+        with pytest.raises(ValueError, match="T_init"):
+            pose_kernel.pose_gn(T.double(), obs, K, 40.0)
+        with pytest.raises(ValueError, match="uv"):
+            pose_kernel.pose_gn(T, obs._replace(uv=torch.empty(n, 3, **f)), K, 40.0)
+    assert pose_kernel.pose_gn.launches == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
